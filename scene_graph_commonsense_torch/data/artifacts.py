@@ -1,0 +1,68 @@
+"""Dataset artifacts: triplet tables and zero-shot sets (numpy).
+
+The loader half of scene_graph_commonsense_tpu/data/artifacts.py, copied so
+that the port imports nothing of the JAX package.  One .npz per dataset holds
+the triplet id lists; absent files load as an empty bundle (None tables).
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+
+NUM_OBJ = 150
+NUM_REL = 50
+
+
+def triplet_table_from_ids(sub, rel, obj, num_obj=NUM_OBJ,
+                           num_rel=NUM_REL) -> np.ndarray:
+    """Dense (num_obj * num_rel * num_obj,) bool membership table."""
+    table = np.zeros(num_obj * num_rel * num_obj, dtype=bool)
+    tid = (np.asarray(sub, np.int64) * num_rel + np.asarray(rel)) \
+        * num_obj + np.asarray(obj)
+    table[tid] = True
+    return table
+
+
+class VGArtifacts:
+    """Loaded artifact bundle for Visual Genome."""
+
+    def __init__(self, zs_table=None, train_table=None, test_table=None,
+                 sub2super=None, cs_aligned=None, cs_violated=None):
+        self.zs_table = zs_table            # (obj*rel*obj,) bool
+        self.train_table = train_table
+        self.test_table = test_table
+        self.sub2super = sub2super          # (num_obj, 17) bool multi-hot
+        self.cs_aligned = cs_aligned        # (obj*rel*obj,) bool
+        self.cs_violated = cs_violated
+
+
+def load_vg_artifacts(artifacts_dir: str) -> VGArtifacts:
+    path = os.path.join(artifacts_dir, "vg_artifacts.npz")
+    if not os.path.exists(path):
+        return VGArtifacts()
+    data = np.load(path)
+
+    def table(data_, prefix):
+        if f"{prefix}_sub" not in data_:
+            return None
+        return triplet_table_from_ids(data_[f"{prefix}_sub"],
+                                      data_[f"{prefix}_rel"],
+                                      data_[f"{prefix}_obj"])
+
+    cs_aligned = table(data, "cs_aligned")
+    cs_violated = table(data, "cs_violated")
+    # a locally produced prepare_cs run takes precedence over the converted
+    # reference tables
+    cs_path = os.path.join(artifacts_dir, "commonsense_triplets.npz")
+    if os.path.exists(cs_path):
+        cs = np.load(cs_path)
+        cs_aligned = table(cs, "cs_aligned")
+        cs_violated = table(cs, "cs_violated")
+
+    return VGArtifacts(
+        zs_table=table(data, "zs"), train_table=table(data, "train"),
+        test_table=table(data, "test"),
+        sub2super=data["sub2super"] if "sub2super" in data else None,
+        cs_aligned=cs_aligned, cs_violated=cs_violated)

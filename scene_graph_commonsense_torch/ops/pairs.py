@@ -1,0 +1,81 @@
+"""Static-shape directed pair grid (torch port of
+scene_graph_commonsense_tpu/ops/pairs.py).
+
+Images are padded to N = max_objects with a validity mask; every valid
+directed pair (i, j), i != j, of a batch is packed into one fixed-capacity
+buffer so the pair trunk runs as one large batch.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from scene_graph_commonsense_torch.ops import boxes as box_ops
+
+
+class PackedPairs(NamedTuple):
+    """A fixed-capacity buffer of directed pairs compacted across the batch.
+
+    img / sub / obj: (P,) int32 image, subject slot and object slot.
+    flat_sub / flat_obj: (P,) int32 indices into the flattened (B*N,) axis.
+    mask: (P,) bool, False on padding slots.
+    count: () int32 number of valid pairs; may exceed P, in which case the
+      excess pairs are dropped.
+    flat_id: (P,) int32 position in the flattened (B, N, N) grid, -1 on
+      padding; strictly increasing over live slots.
+    """
+    img: torch.Tensor
+    sub: torch.Tensor
+    obj: torch.Tensor
+    flat_sub: torch.Tensor
+    flat_obj: torch.Tensor
+    mask: torch.Tensor
+    count: torch.Tensor
+    flat_id: torch.Tensor
+
+
+def pair_validity(valid: torch.Tensor) -> torch.Tensor:
+    """(B, N) object validity -> (B, N, N) directed-pair validity
+    (both endpoints valid, no self-pairs)."""
+    v = valid.to(torch.bool)
+    n = v.shape[-1]
+    eye = torch.eye(n, dtype=torch.bool, device=v.device)
+    return v[:, :, None] & v[:, None, :] & ~eye
+
+
+def pack_pairs(pair_ok: torch.Tensor, capacity: int) -> PackedPairs:
+    """Compacts True entries of a (B, N, N) pair-validity grid into a
+    fixed-capacity index buffer.
+
+    A stable argsort on the negated mask keeps valid pairs first, in their
+    (image-major, subject-major) enumeration order; padding slots park on
+    pair (0, 0, 1) of image 0 and are masked out.
+    """
+    _, n, _ = pair_ok.shape
+    flat_ok = pair_ok.reshape(-1)
+    order = torch.argsort((~flat_ok).to(torch.int8), stable=True)
+    slots = order[:capacity]
+    mask = flat_ok[slots]
+    slots = slots.to(torch.int32)
+    img = slots // (n * n)
+    rem = slots % (n * n)
+    zero = torch.zeros_like(slots)
+    img = torch.where(mask, img, zero)
+    sub = torch.where(mask, rem // n, zero)
+    obj = torch.where(mask, rem % n, zero + 1)
+    return PackedPairs(
+        img=img, sub=sub, obj=obj,
+        flat_sub=img * n + sub, flat_obj=img * n + obj,
+        mask=mask, count=flat_ok.sum().to(torch.int32),
+        flat_id=torch.where(mask, slots, zero - 1))
+
+
+def eval_pair_filter(boxes: torch.Tensor, size: int = 32) -> torch.Tensor:
+    """(B, N, 4) boxes -> (B, N, N) bool: a pair is kept iff the two object
+    masks overlap in at least one grid cell (reference
+    train_test.py:404-408)."""
+    inter = box_ops.mask_intersection(
+        boxes[:, :, None, :], boxes[:, None, :, :], size)
+    return inter > 0
