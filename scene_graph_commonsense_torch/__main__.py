@@ -1,13 +1,17 @@
-"""Command line of the port, mirroring main.py's eval path:
+"""Command line of the port, mirroring main.py's PredCLS paths:
 
-  python -m scene_graph_commonsense_torch --run_mode eval --eval_mode pc
-      [--hierar] [--cluster C] [--dataset D] [--synthetic N]
+  python -m scene_graph_commonsense_torch --run_mode train|train_cs|eval|eval_cs
+      --eval_mode pc [--hierar] [--cluster C] [--dataset D] [--synthetic N]
       [--config YAML] [--batch_size B] [--device cpu|cuda]
 
-Loads the relation checkpoint <training.checkpoint_path>/<name>.pt if it
-exists (else warns and evaluates the seeded initialisation), runs PredCLS
-evaluation and prints the result as one JSON line.  --synthetic N evaluates
-max(N // 4, 1) synthetic VG-shaped batches, as main.py does.  Run modes and
+train / train_cs run train.loop.fit from the seeded initialisation over N
+synthetic VG-shaped batches per epoch (seed 0 + epoch, with the augmented
+view), each epoch ending in a checkpoint <training.checkpoint_path>/<name>.pt
+and a PredCLS test pass over max(N // 4, 1) synthetic batches (seed 100 +
+epoch), as main.py does.  eval / eval_cs load the checkpoint of
+training.test_epoch if it exists (else warn and evaluate the seeded
+initialisation), run PredCLS evaluation over max(N // 4, 1) synthetic
+batches (seed 100) and print the result as one JSON line.  Run modes and
 eval modes the port does not cover yet exit with a message.
 """
 
@@ -52,7 +56,7 @@ def build_cfg(args):
     return cfg
 
 
-def synthetic_batches(cfg, n_batches, seed):
+def synthetic_batches(cfg, n_batches, seed, with_aug=False):
     from scene_graph_commonsense_torch.data.synthetic import synthetic_batch
     rng = np.random.default_rng(seed)
     for _ in range(n_batches):
@@ -62,7 +66,7 @@ def synthetic_batches(cfg, n_batches, seed):
             feature_size=cfg.model.feature_size,
             num_channels=cfg.model.num_img_feature,
             num_classes=cfg.model.num_classes,
-            num_relations=cfg.model.num_relations, with_aug=False)
+            num_relations=cfg.model.num_relations, with_aug=with_aug)
 
 
 def _result_view(res):
@@ -81,11 +85,11 @@ def main():
           f"hierar={cfg.model.hierarchical_pred} "
           f"cluster={cfg.data.supcat_clustering}")
     run_mode = cfg.training.run_mode
-    if run_mode not in ("eval", "eval_cs") or cfg.training.eval_mode != "pc":
+    if run_mode == "prepare_cs" or cfg.training.eval_mode != "pc":
         sys.exit(f"run_mode={run_mode} eval_mode={cfg.training.eval_mode} "
                  f"is not yet ported to PyTorch; the port runs "
-                 f"--run_mode eval|eval_cs --eval_mode pc (use main.py for "
-                 f"the rest)")
+                 f"--run_mode train|train_cs|eval|eval_cs --eval_mode pc "
+                 f"(use main.py for the rest)")
     if not args.synthetic:
         sys.exit("the Visual Genome loader is not yet ported to PyTorch; "
                  "use --synthetic N")
@@ -96,6 +100,23 @@ def main():
     from scene_graph_commonsense_torch.models.relation_head import (
         make_relation_classifier)
     from scene_graph_commonsense_torch.train import checkpoint as ckpt_lib
+
+    artifacts = (load_vg_artifacts(cfg.data.artifacts_dir)
+                 if cfg.data.dataset == "vg" else None)
+    if run_mode in ("train", "train_cs"):
+        from scene_graph_commonsense_torch.train.loop import fit
+        model = make_relation_classifier(cfg, device=args.device)
+        n = args.synthetic
+        try:
+            fit(cfg, model,
+                lambda epoch: synthetic_batches(cfg, n, seed=epoch,
+                                                with_aug=True),
+                lambda epoch: synthetic_batches(cfg, max(n // 4, 1),
+                                                seed=100 + epoch),
+                steps_per_epoch=n, artifacts=artifacts, device=args.device)
+        except ValueError as e:       # train_cs without triplet tables
+            sys.exit(str(e))
+        return
 
     use_cs = run_mode == "eval_cs"
     name = ckpt_lib.checkpoint_name(
@@ -111,8 +132,6 @@ def main():
               f"evaluating randomly initialized weights")
     model = make_relation_classifier(cfg, device=args.device,
                                      state_dict=state_dict)
-    artifacts = (load_vg_artifacts(cfg.data.artifacts_dir)
-                 if cfg.data.dataset == "vg" else None)
     batches = synthetic_batches(cfg, max(args.synthetic // 4, 1), seed=100)
     res = engines.run_eval_pc(cfg, model, batches, artifacts=artifacts,
                               use_cs=use_cs, device=args.device)

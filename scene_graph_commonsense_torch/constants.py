@@ -1,8 +1,8 @@
-"""Label-space tables that PredCLS evaluation and serving need.
+"""Label-space tables that PredCLS evaluation, serving and training need.
 
 A subset of scene_graph_commonsense_tpu/constants.py, copied so that the port
-imports nothing of the JAX package (reference dataset_utils.py:586-644,
-utils.py:270-274, 355-373).
+imports nothing of the JAX package (reference dataset_utils.py:586-650,
+764-787, utils.py:250-274, 355-373, train_test.py:105-106).
 """
 
 from __future__ import annotations
@@ -48,6 +48,59 @@ VG_RELATIONS_BY_SUPER = (
     "standing on", "using", "walking in", "walking on", "watching",
 )
 
+# Frequency-order -> Motif super-category-order predicate permutation
+# (reference dataloader.py:144-146, dataset_utils.py:647-650).
+REL_FREQ2SCAT = np.array(
+    [11, 18, 8, 20, 23, 10, 25, 0, 34, 6, 14, 44, 24, 45, 9, 26, 5, 33, 13,
+     16, 42, 27, 30, 48, 41, 29, 35, 3, 49, 4, 7, 15, 39, 2, 36, 17, 40, 22,
+     19, 28, 38, 43, 21, 1, 31, 46, 12, 37, 32, 47, -1], dtype=np.int32)
+
+# Alternative clustering permutations (frequency order -> cluster order).
+# reference dataset_utils.py:764-787
+REL_FREQ2GPT2 = np.array(
+    [9, 10, 11, 12, 41, 13, 14, 15, 16, 17, 18, 42, 19, 0, 20, 21, 22, 43,
+     23, 24, 25, 44, 26, 1, 27, 28, 45, 29, 30, 31, 32, 33, 2, 34, 3, 35,
+     46, 36, 47, 48, 4, 37, 49, 38, 5, 39, 40, 6, 7, 8], dtype=np.int32)
+REL_FREQ2BERT = np.array(
+    [12, 13, 14, 15, 16, 17, 18, 19, 37, 0, 20, 38, 21, 39, 1, 2, 22, 3,
+     23, 24, 25, 26, 40, 41, 27, 28, 42, 29, 43, 30, 31, 44, 4, 32, 45, 33,
+     5, 34, 6, 7, 8, 35, 9, 10, 46, 36, 11, 47, 48, 49], dtype=np.int32)
+REL_FREQ2CLIP = np.array(
+    [42, 43, 44, 45, 0, 1, 2, 3, 4, 5, 6, 27, 7, 28, 29, 30, 46, 31,
+     8, 47, 9, 10, 11, 12, 13, 14, 32, 15, 16, 48, 17, 33, 34, 18, 35, 19,
+     36, 49, 20, 37, 38, 21, 22, 23, 39, 24, 40, 41, 25, 26], dtype=np.int32)
+
+CLUSTER_INDEX_MAPS = {
+    "motif": REL_FREQ2SCAT[:50],
+    "gpt2": REL_FREQ2GPT2,
+    "bert": REL_FREQ2BERT,
+    "clip": REL_FREQ2CLIP,
+}
+
+# Training-sample count per predicate class, frequency order.
+# reference utils.py:250-255
+VG_REL_COUNTS_FREQ = np.array(
+    [712432, 277943, 251756, 146339, 136099, 96589, 66425, 47342, 42722,
+     41363, 22596, 18643, 15457, 14185, 13715, 10191, 9903, 9894, 9317,
+     9145, 8856, 5213, 4688, 4613, 3810, 3806, 3739, 3624, 3490, 3477,
+     3411, 3288, 3095, 3092, 3083, 2945, 2721, 2517, 2380, 2312, 2253,
+     2241, 2065, 1996, 1973, 1925, 1914, 1869, 1853, 1740], dtype=np.int64)
+
+# The same counts reordered into Motif super-category order, as the
+# reference transcribed them (utils.py:258-265; see class_weights).
+VG_REL_COUNTS_SCAT = np.array(
+    [47342, 1996, 3092, 3624, 3477, 9903, 41363, 3411, 251756,
+     13715, 96589, 712432, 1914, 9317, 22596, 3288, 9145, 2945,
+     277943, 2312, 146339, 2065, 2517, 136099, 15457, 66425, 10191,
+     5213, 2312, 3806, 4688, 1973, 1853, 9894, 42722, 3739,
+     3083, 1869, 2253, 3095, 2721, 3810, 8856, 2241, 18643,
+     14185, 1925, 1740, 4613, 3490], dtype=np.int64)
+
+OIV6_REL_COUNTS = np.array(
+    [150983, 7665, 841, 455, 9402, 52561, 145480, 157, 175, 77, 27, 4827,
+     1146, 198, 77, 1, 12, 4, 43, 702, 8, 1111, 51, 43, 367, 10, 462, 11,
+     2094, 114], dtype=np.int64)
+
 # OIv6 per-class weights for the weighted mAP (reference utils.py:270-274).
 OIV6_WMAP_WEIGHT = np.array(
     [1974, 120, 27, 2, 284, 571, 2059, 8, 26, 2, 0, 163, 25, 30, 2, 0, 0,
@@ -79,3 +132,31 @@ def object_equivalence_matrix(num_classes: int = 150) -> np.ndarray:
         eq[key, m] = True
         eq[m, key] = True
     return eq
+
+
+def rel_index_map(clustering: str) -> np.ndarray:
+    """Frequency-order -> cluster-order predicate permutation (50,)."""
+    return CLUSTER_INDEX_MAPS[clustering]
+
+
+def class_weights(dataset: str = "vg", clustering: str = "motif",
+                  faithful: bool = False) -> np.ndarray:
+    """Relation-loss class weights 1 - count / sum(count) (reference
+    train_test.py:105-106), float32, in the order the dataset emits targets
+    in: cluster order for VG, super-category order for OIv6.
+
+    VG counts are scattered from frequency order through the clustering's
+    permutation; the reference's own reordered table (utils.py:258-263)
+    has a transcription typo (2312 twice, 2380 missing) and ignores the
+    clustering, and `faithful=True` uses it as it is, for parity runs
+    against reference checkpoints.  The OIv6 table is already in
+    super-category order and is used as it is."""
+    if dataset == "vg" and faithful:
+        counts = VG_REL_COUNTS_SCAT.astype(np.float64)
+    elif dataset == "vg":
+        m = rel_index_map(clustering)
+        counts = np.zeros(len(m), np.float64)
+        counts[m] = VG_REL_COUNTS_FREQ
+    else:
+        counts = OIV6_REL_COUNTS.astype(np.float64)
+    return (1.0 - counts / counts.sum()).astype(np.float32)

@@ -11,7 +11,7 @@ evaluate.py:29-227).
 from __future__ import annotations
 
 import warnings
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Optional
 
 import numpy as np
 import torch
@@ -109,16 +109,19 @@ def _results(cfg, ev, ev3) -> Dict:
 
 def run_eval_pc(cfg, model, batches: Iterable[Dict],
                 artifacts=None, use_cs: bool = False, estep=None,
-                device=None) -> Dict:
+                device=None, max_batches: Optional[int] = None) -> Dict:
     """PredCLS: GT boxes + labels, overlap-filtered pair grid.  `model` is a
     RelationClassifier; it runs on `device` (default cuda, see
     train.engine.make_eval_step, which also turns TF32 off).  Pass a
-    prebuilt `estep` to reuse it across calls."""
+    prebuilt `estep` to reuse it across calls; `max_batches` truncates the
+    pass (the training loop's per-epoch test)."""
     ev, ev3 = _make_evaluators(cfg, artifacts)
     if estep is None:
         estep = engine_lib.make_eval_step(model, cfg, device=device)
     warned = [False]
-    for batch in batches:
+    for i, batch in enumerate(batches):
+        if max_batches is not None and i >= max_batches:
+            break
         out = to_numpy(estep(batch))
         check_pair_overflow(out, warned)
         _accumulate_batch(ev, ev3, cfg, out, batch, artifacts, use_cs)

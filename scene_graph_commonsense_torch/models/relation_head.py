@@ -16,8 +16,14 @@ Same factored parameters as the JAX package, so one weight tree serves both
 Tensors are NHWC at every public method, as in the JAX package; convolutions
 run on the NCHW view of NHWC memory (channels-last), and the fc1 input is
 flattened in (y, x, c) order.  Parameters stay float32 and are cast to the
-compute dtype layer by layer, as flax does; the heads run in at least
-float32.
+compute dtype layer by layer, as flax does (the cast's backward hands the
+float32 parameters the compute-dtype gradients, upcast); the heads run in at
+least float32.
+
+Dropout is functional, like flax's `deterministic` flag: the two dropout
+sites (after fc1, after fc2) drop only when the caller passes a
+torch.Generator for that site, and never otherwise, whatever the module's
+train()/eval() mode.  The masks are not JAX's masks.
 """
 
 from __future__ import annotations
@@ -49,6 +55,20 @@ def _dense(layer: nn.Module, x: torch.Tensor,
     return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
 
 
+def _dropout(x: torch.Tensor, rate: float,
+             generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax nn.Dropout: keep each element with probability 1 - rate and
+    scale it by 1 / (1 - rate); the identity without a generator or at
+    rate 0."""
+    if generator is None or rate == 0.0:
+        return x
+    keep_prob = 1.0 - rate
+    keep = torch.empty(x.shape, device=x.device).bernoulli_(
+        keep_prob, generator=generator) > 0
+    return torch.where(keep, x / keep_prob,
+                       torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 def _embed(table: nn.Embedding, idx: torch.Tensor,
            dtype: torch.dtype) -> torch.Tensor:
     return F.embedding(idx.long(), table.weight.to(dtype))
@@ -72,6 +92,7 @@ class RelationClassifier(nn.Module):
         self.hierarchical = hierarchical
         self.use_super = use_super
         self.temperatures = (T1, T2, T3)
+        self.dropout_rate = dropout_rate
         self.dtype = dtype
 
         def conv(cin_, cout, k, bias=True):
@@ -97,8 +118,6 @@ class RelationClassifier(nn.Module):
             self.fc5 = nn.Linear(512, 3)
         else:
             self.fc3 = nn.Linear(512, num_relations)
-        self.dropout1 = nn.Dropout(dropout_rate)
-        self.dropout2 = nn.Dropout(dropout_rate)
 
     # ---------------- per-object stage ----------------
 
@@ -143,33 +162,40 @@ class RelationClassifier(nn.Module):
 
     # ---------------- per-pair stage ----------------
 
-    def pair_trunk(self, a_sub: torch.Tensor,
-                   b_obj: torch.Tensor) -> torch.Tensor:
+    def pair_trunk(self, a_sub: torch.Tensor, b_obj: torch.Tensor,
+                   generator: Optional[torch.Generator] = None
+                   ) -> torch.Tensor:
         """(P, S, S, 4h) gathered streams -> (P, 4096) pair hidden."""
         s = F.max_pool2d((a_sub + b_obj).permute(0, 3, 1, 2), 2)
-        return self.pair_trunk_from_pooled(torch.relu(s).permute(0, 2, 3, 1))
+        return self.pair_trunk_from_pooled(torch.relu(s).permute(0, 2, 3, 1),
+                                           generator)
 
-    def pair_trunk_from_pooled(self, s: torch.Tensor) -> torch.Tensor:
+    def pair_trunk_from_pooled(self, s: torch.Tensor,
+                               generator: Optional[torch.Generator] = None
+                               ) -> torch.Tensor:
         """(P, S/2, S/2, 4h) pooled+activated pair maps -> (P, 4096): conv3
-        SAME, relu, 2x2 maxpool, NHWC flatten, fc1, relu."""
+        SAME, relu, 2x2 maxpool, NHWC flatten, fc1, relu, dropout (with a
+        generator)."""
         dt = self.dtype
         s = torch.relu(_conv(self.conv3, s, dt))
         s = F.max_pool2d(s.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
         s = s.reshape(s.shape[0], -1)
         s = torch.relu(_dense(self.fc1, s, dt))
-        return self.dropout1(s)
+        return _dropout(s, self.dropout_rate, generator)
 
     def pair_head(self, h: torch.Tensor, c1: torch.Tensor, c2: torch.Tensor,
-                  s1: Optional[torch.Tensor],
-                  s2: Optional[torch.Tensor]) -> Dict[str, torch.Tensor]:
+                  s1: Optional[torch.Tensor], s2: Optional[torch.Tensor],
+                  generator: Optional[torch.Generator] = None
+                  ) -> Dict[str, torch.Tensor]:
         """Label-conditioned head.  h: (P, 4096); c1/c2: (P,) subject /
-        object classes; s1/s2: (P, num_super_classes) multi-hot or None."""
+        object classes; s1/s2: (P, num_super_classes) multi-hot or None;
+        dropout after fc2 with a generator."""
         dt = self.dtype
         z = _dense(self.fc2_h, h, dt) + _embed(self.emb_c1, c1, dt) \
             + _embed(self.emb_c2, c2, dt)
         if self.use_super and s1 is not None:
             z = z + _dense(self.fc2_s1, s1, dt) + _dense(self.fc2_s2, s2, dt)
-        pred = self.dropout2(torch.relu(z))
+        pred = _dropout(torch.relu(z), self.dropout_rate, generator)
 
         out = {"hidden": pred,
                "connectivity": _at_least_f32(_dense(self.fc4, pred, dt)[:, 0])}

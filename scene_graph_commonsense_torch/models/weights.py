@@ -19,7 +19,8 @@ from scene_graph_commonsense_torch.models.relation_head import (
 
 
 def _np(v) -> np.ndarray:
-    return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) \
+    """A numpy copy: never a view of a live (trained in place) tensor."""
+    return v.detach().cpu().numpy().copy() if isinstance(v, torch.Tensor) \
         else np.asarray(v)
 
 

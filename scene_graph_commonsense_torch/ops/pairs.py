@@ -72,6 +72,19 @@ def pack_pairs(pair_ok: torch.Tensor, capacity: int) -> PackedPairs:
         flat_id=torch.where(mask, slots, zero - 1))
 
 
+def align_packings(base: PackedPairs, subset: PackedPairs):
+    """For each live slot of `subset`, its slot in `base` (both packings of
+    one (B, N, N) grid keep the enumeration order, so live flat_ids ascend).
+    Returns (int32 indices, found mask)."""
+    p = base.flat_id.shape[0]
+    big = 2 ** 30
+    base_ids = torch.where(base.mask, base.flat_id, big)
+    sub_ids = torch.where(subset.mask, subset.flat_id, big - 1)
+    pos = torch.searchsorted(base_ids, sub_ids).clamp(0, p - 1)
+    found = subset.mask & (base_ids[pos] == sub_ids)
+    return pos.to(torch.int32), found
+
+
 def eval_pair_filter(boxes: torch.Tensor, size: int = 32) -> torch.Tensor:
     """(B, N, 4) boxes -> (B, N, N) bool: a pair is kept iff the two object
     masks overlap in at least one grid cell (reference

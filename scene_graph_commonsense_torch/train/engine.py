@@ -1,21 +1,24 @@
-"""Evaluation step over the packed pair grid (torch port of the eval half
-of scene_graph_commonsense_tpu/train/engine.py; the train step is the next
-slice of the port).
+"""Training and evaluation steps over the packed pair grid (torch port of
+scene_graph_commonsense_tpu/train/engine.py, one device; the mesh branch
+and the faithful-dynamics losses are not yet ported).
 
 Batch dict (fixed shapes; B images, N = max_objects, S = feature_size):
-  features: (B, S, S, C)   frozen detector features
-  depth:    (B, S, S, 1)   estimated depth map
-  cats:     (B, N) int32   object classes (padding slots hold 0)
-  super_mh: (B, N, K) f32  super-class multi-hots (optional)
-  boxes:    (B, N, 4) f32  (x_min, x_max, y_min, y_max) on the grid
-  rel:      (B, N, N) int32 directed GT relations (-1 = none)
-  valid:    (B, N) bool
+  features:     (B, S, S, C)   frozen detector features
+  features_aug: (B, S, S, C)   augmented view (training only; optional)
+  depth:        (B, S, S, 1)   estimated depth map
+  cats:         (B, N) int32   object classes (padding slots hold 0)
+  super_mh:     (B, N, K) f32  super-class multi-hots (optional)
+  boxes:        (B, N, 4) f32  (x_min, x_max, y_min, y_max) on the grid
+  rel:          (B, N, N) int32 directed GT relations (-1 = none)
+  valid:        (B, N) bool
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple, \
+    Union
 
+import numpy as np
 import torch
 
 from scene_graph_commonsense_torch.device import disable_tf32, resolve_device
@@ -24,30 +27,41 @@ from scene_graph_commonsense_torch.models.relation_head import (
 from scene_graph_commonsense_torch.ops import boxes as box_ops
 from scene_graph_commonsense_torch.ops import pairs as pair_ops
 from scene_graph_commonsense_torch.ops.pair_pool import pair_pool
+from scene_graph_commonsense_torch.train import losses as L
 
 # the batch entries the eval step reads
 MODEL_KEYS = ("features", "depth", "cats", "super_mh", "boxes", "rel",
               "valid")
+# ... and the train step
+TRAIN_KEYS = MODEL_KEYS + ("features_aug",)
 
 
 def forward_pairs(model: RelationClassifier, batch: Dict[str, torch.Tensor],
-                  capacity: int
+                  capacity: int, *, view: str = "features",
+                  generators: Optional[Sequence[torch.Generator]] = None,
+                  packed: Optional[pair_ops.PackedPairs] = None
                   ) -> Tuple[Dict[str, torch.Tensor], pair_ops.PackedPairs]:
-    """Full pair-grid forward for one batch: masks -> object streams ->
-    all valid pairs packed at `capacity` -> fused pair assembly
-    (ops/pair_pool.py: the CUDA kernel on CUDA tensors, the plain version on
-    CPU tensors) -> trunk -> label-conditioned head."""
+    """Full pair-grid forward for one batch view: masks -> object streams of
+    batch[view] -> pairs packed at `capacity` (all valid pairs, unless a
+    precomputed `packed` buffer is given, e.g. the connected pairs of the
+    contrastive view) -> fused pair assembly (ops/pair_pool.py: the CUDA
+    kernels on CUDA tensors, the plain versions on CPU tensors; with
+    gradient when the weights require it) -> trunk -> label-conditioned
+    head.  `generators` = (trunk, head) turns dropout on at the two sites
+    with independent streams; None runs deterministically."""
     b, n = batch["cats"].shape
     s = batch["features"].shape[1]
     masks = box_ops.boxes_to_masks(batch["boxes"], s,
                                    batch["features"].dtype)
     masks = masks * batch["valid"][:, :, None, None].to(masks.dtype)
-    packed = pair_ops.pack_pairs(pair_ops.pair_validity(batch["valid"]),
-                                 capacity)
-    a, bb = model.object_streams_from_image(batch["features"],
-                                            batch["depth"], masks)
+    gen_t, gen_h = generators if generators is not None else (None, None)
+    if packed is None:
+        packed = pair_ops.pack_pairs(pair_ops.pair_validity(batch["valid"]),
+                                     capacity)
+    a, bb = model.object_streams_from_image(batch[view], batch["depth"],
+                                            masks)
     pooled = pair_pool(a, bb, packed.flat_sub, packed.flat_obj)
-    h = model.pair_trunk_from_pooled(pooled)
+    h = model.pair_trunk_from_pooled(pooled, gen_t)
     flat_cats = batch["cats"].reshape(b * n)
     c1 = flat_cats.index_select(0, packed.flat_sub)
     c2 = flat_cats.index_select(0, packed.flat_obj)
@@ -56,7 +70,7 @@ def forward_pairs(model: RelationClassifier, batch: Dict[str, torch.Tensor],
         flat_super = batch["super_mh"].reshape(b * n, -1)
         s1 = flat_super.index_select(0, packed.flat_sub)
         s2 = flat_super.index_select(0, packed.flat_obj)
-    out = model.pair_head(h, c1, c2, s1, s2)
+    out = model.pair_head(h, c1, c2, s1, s2, gen_h)
     out["sub_cat"] = c1
     out["obj_cat"] = c2
     return out, packed
@@ -80,8 +94,11 @@ def make_eval_step(model: RelationClassifier, cfg, capacity: int = 0,
                    device=None):
     """Deterministic forward returning everything the evaluator needs
     (relations, connectivity, packed indexing, overlap filter), under
-    torch.inference_mode.  The model is moved to `device` (default cuda;
-    raises where CUDA is absent unless device="cpu").  TF32 is turned off
+    torch.inference_mode.  Deterministic whatever the module's mode: the
+    step passes no dropout generators (models/relation_head.py), so a
+    train step run on the same module in between changes nothing but the
+    weights.  The model is moved to `device` (default cuda; raises where
+    CUDA is absent unless device="cpu").  TF32 is turned off
     (device.disable_tf32) so float32 runs in full float32.  The step takes
     a batch dict of numpy arrays or tensors and returns tensors on the
     device."""
@@ -112,5 +129,258 @@ def make_eval_step(model: RelationClassifier, cfg, capacity: int = 0,
             "pair_capacity": torch.full((1,), cap, dtype=torch.int32,
                                         device=dev),
         }
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+def compute_losses(model_cfg, train_cfg, out, packed, targets,
+                   class_weights, cs_tables=None, loss_contrast=None):
+    """All loss terms and scalar metrics for one batch (the contrastive term
+    is computed by the caller over the connected-pairs buffer).  Returns
+    (total, metrics); metrics are 0-dim tensors on the device."""
+    m = model_cfg
+    valid = packed.mask
+    connected = (targets >= 0) & valid
+    f32_zero = torch.zeros((), dtype=torch.float32, device=valid.device)
+    if loss_contrast is None:
+        loss_contrast = f32_zero
+    loss_rel = L.relation_loss(
+        out["relation"], out["super_relation"], targets, connected,
+        class_weights, m.num_geometric, m.num_possessive,
+        m.hierarchical_pred)
+    conn = L.connectivity_loss(out["connectivity"], connected, valid,
+                               train_cfg.lambda_not_connected)
+    loss_cs = f32_zero
+    if cs_tables is not None:
+        loss_cs = L.commonsense_loss(
+            out["relation"], out["sub_cat"], out["obj_cat"], valid,
+            cs_tables[0], cs_tables[1], m.num_geometric, m.num_possessive,
+            m.num_classes, train_cfg.lambda_cs_weak,
+            train_cfg.lambda_cs_strong, m.hierarchical_pred)
+    total = loss_rel \
+        + train_cfg.lambda_connectivity * conn.loss \
+        + train_cfg.lambda_commonsense * loss_cs \
+        + train_cfg.lambda_contrast * loss_contrast
+    metrics = {
+        "loss": total, "loss_relationship": loss_rel,
+        "loss_connectivity": conn.loss, "loss_commonsense": loss_cs,
+        "loss_contrast": loss_contrast,
+        "num_connected": conn.num_connected,
+        "num_not_connected": conn.num_not_connected,
+        "num_connected_pred": conn.num_connected_pred,
+        "connectivity_precision_hits": conn.precision_hits,
+        "connectivity_recall_hits": conn.recall_hits,
+        "num_pairs": packed.count,
+    }
+    return total, metrics
+
+
+Schedule = Union[float, Callable[[int], float]]
+
+
+class SGDState(NamedTuple):
+    """The momentum trace per parameter name, in momentum_dtype, and the
+    update count the learning-rate schedule reads."""
+    trace: Dict[str, torch.Tensor]
+    count: int
+
+
+class SGD:
+    """optax.chain(clip_by_global_norm, add_decayed_weights, sgd(momentum))
+    as make_optimizer of the JAX package builds it (engine.py:54-72), written
+    out because torch.optim.SGD differs from it in three places: the clip
+    (torch.nn.utils.clip_grad_norm_ scales by max_norm / (norm + 1e-6)
+    always, optax by max_norm / norm only when norm >= max_norm), a
+    bfloat16 momentum buffer, and the learning rate read from the schedule
+    at the count before the update.  Per parameter, in the master dtype:
+
+        g <- g / norm * max_norm    if grad_clip_norm > 0 and norm >= it
+        g <- g + weight_decay * p
+        t <- g + momentum * t       (t stored in momentum_dtype)
+        p <- p + (-lr(count)) * t
+
+    The parameters and the trace are updated in place."""
+
+    def __init__(self, learning_rate: Schedule, momentum: float = 0.9,
+                 weight_decay: float = 1e-4, grad_clip_norm: float = 0.0,
+                 momentum_dtype: str = "float32"):
+        self.learning_rate = learning_rate
+        self.momentum = momentum
+        self.weight_decay = weight_decay
+        self.grad_clip_norm = grad_clip_norm
+        self.momentum_dtype = getattr(torch, momentum_dtype)
+
+    def lr(self, count: int) -> float:
+        lr = self.learning_rate
+        return float(lr(count)) if callable(lr) else float(lr)
+
+    def init(self, params: Dict[str, torch.Tensor],
+             count: int = 0) -> SGDState:
+        return SGDState({k: torch.zeros_like(p, dtype=self.momentum_dtype)
+                         for k, p in params.items()}, count)
+
+    @torch.no_grad()
+    def update(self, grads: Dict[str, torch.Tensor], state: SGDState,
+               params: Dict[str, torch.Tensor]) -> SGDState:
+        """One update; consumes (overwrites) `grads`."""
+        names = list(params)
+        g = [grads[k] if grads.get(k) is not None
+             else torch.zeros_like(params[k]) for k in names]
+        if self.grad_clip_norm > 0:
+            # optax.global_norm: the square root of the sum of squares of
+            # all leaves; the select keeps g bit-exact below the threshold,
+            # without a host synchronisation
+            norm = torch.stack([torch.dot(x.reshape(-1), x.reshape(-1))
+                                for x in g]).sum().sqrt()
+            keep = norm < self.grad_clip_norm
+            one = torch.ones((), dtype=norm.dtype, device=norm.device)
+            div = torch.where(keep, one, norm)
+            mul = torch.where(keep, one, one * self.grad_clip_norm)
+            for x in g:
+                x.div_(div.to(x.dtype)).mul_(mul.to(x.dtype))
+        step = -self.lr(state.count)
+        trace = {}
+        for k, x in zip(names, g):
+            p, old = params[k], state.trace[k]
+            x.add_(self.weight_decay * p)
+            # the momentum constant in the trace's dtype, as JAX types a
+            # Python scalar against an array (bf16 0.9 is 0.8984375)
+            t = x.add_(torch.tensor(self.momentum, dtype=old.dtype,
+                                    device=old.device) * old)
+            trace[k] = t.to(self.momentum_dtype)
+            p.add_(step * t)
+        return SGDState(trace, state.count + 1)
+
+
+def make_optimizer(learning_rate: Schedule, momentum: float = 0.9,
+                   weight_decay: float = 1e-4, grad_clip_norm: float = 0.0,
+                   momentum_dtype: str = "float32") -> SGD:
+    """SGD with momentum and coupled weight decay, matching torch.optim.SGD
+    (reference train_test.py:100-101): the decay joins the gradient before
+    the momentum update.  grad_clip_norm > 0 adds global-norm clipping, a
+    deviation from the reference that tames the SupCon term's gradient
+    spikes.  momentum_dtype="bfloat16" halves the momentum buffer."""
+    return SGD(learning_rate, momentum=momentum, weight_decay=weight_decay,
+               grad_clip_norm=grad_clip_norm, momentum_dtype=momentum_dtype)
+
+
+class TrainState(NamedTuple):
+    """params: the model's parameters by name (the tensors themselves: the
+    optimizer updates them, and so the model, in place); opt_state: the
+    SGDState; step: the number of train steps taken."""
+    params: Dict[str, torch.Tensor]
+    opt_state: SGDState
+    step: int
+
+
+def init_train_state(model: RelationClassifier, optimizer: SGD,
+                     step: int = 0) -> TrainState:
+    """A TrainState over the model's parameters; `step` also seeds the
+    schedule count (a resumed run continues its learning-rate schedule)."""
+    params = dict(model.named_parameters())
+    return TrainState(params, optimizer.init(params, count=step), step)
+
+
+def dropout_generators(seed: int, step: int, device) -> list:
+    """Four independent dropout streams for one train step, (trunk, head)
+    of the main view then of the augmented view, seeded from (seed, step):
+    the counterpart of the JAX step's fold_in(rng, step) and its splits
+    (engine.py:162, 301, 316)."""
+    seeds = np.random.SeedSequence([seed, step]).generate_state(4, np.uint64)
+    return [torch.Generator(device=device).manual_seed(int(s) >> 1)
+            for s in seeds]
+
+
+def aug_pair_capacity(cfg) -> int:
+    """Capacity of the augmented view's connected-pairs buffer: connected
+    pairs (GT relations) are an order of magnitude sparser than valid pairs
+    (TrainConfig.aug_pair_capacity; 0 = pair capacity // 4)."""
+    cap = cfg.pair_capacity
+    aug = cfg.training.aug_pair_capacity or cap // 4
+    return min(max(aug, 1), cap)
+
+
+def make_train_step(model: RelationClassifier, cfg, optimizer: SGD,
+                    class_weights, cs_tables=None, mesh=None, device=None):
+    """The train step for one device: forward of the main view over all
+    valid pairs and, when the batch has features_aug, of the augmented view
+    over the connected pairs only (packed at aug_capacity) feeding the
+    hierarchical SupCon term; the losses; backward (the pair pool's
+    backward kernel included); the optimizer update.
+
+        step(state, batch) -> (state, metrics)
+
+    The batch is a dict of numpy arrays or tensors; metrics are 0-dim
+    tensors on the device (read them with float() when needed: that
+    synchronises).  The model's float32 parameters are the master weights;
+    the forward casts them to cfg.model.compute_dtype layer by layer.
+    Dropout draws from dropout_generators(cfg.training.seed, state.step).
+    The faithful-dynamics losses and the mesh (data-parallel) branch are
+    not yet ported and raise."""
+    if cfg.training.faithful_dynamics:
+        raise NotImplementedError(
+            "training.faithful_dynamics is not yet ported to PyTorch")
+    if mesh is not None:
+        raise NotImplementedError(
+            "the multi-device train step is not yet ported to PyTorch")
+    dev = resolve_device(device)
+    disable_tf32()
+    model.to(dev)
+    capacity = cfg.pair_capacity
+    aug_capacity = aug_pair_capacity(cfg)
+    weights = torch.as_tensor(np.asarray(class_weights), device=dev)
+    if cs_tables is not None:
+        cs_tables = tuple(torch.as_tensor(np.asarray(t), device=dev)
+                          for t in cs_tables)
+    m = cfg.model
+
+    def step(state: TrainState, batch: Dict):
+        batch = {k: torch.as_tensor(batch[k], device=dev)
+                 for k in TRAIN_KEYS if batch.get(k) is not None}
+        gens = dropout_generators(cfg.training.seed, state.step, dev)
+        model.train()
+        for p in state.params.values():
+            p.grad = None
+        out, packed = forward_pairs(model, batch, capacity,
+                                    view="features", generators=gens[:2])
+        targets = pair_targets(batch, packed)
+        loss_contrast = None
+        aug_overflow = torch.zeros((), dtype=torch.int32, device=dev)
+        if "features_aug" in batch:
+            # the SupCon loss reads only CONNECTED pairs' hidden states
+            # (reference train_utils.py:96-99)
+            conn_grid = pair_ops.pair_validity(batch["valid"]) \
+                & (batch["rel"] >= 0)
+            packed_c = pair_ops.pack_pairs(conn_grid, aug_capacity)
+            aug_overflow = torch.clamp(packed_c.count - aug_capacity, min=0)
+            out_aug, _ = forward_pairs(
+                model, batch, aug_capacity, view="features_aug",
+                generators=gens[2:], packed=packed_c)
+            pos, found = pair_ops.align_packings(packed, packed_c)
+            feats = torch.stack([out["hidden"][pos.long()],
+                                 out_aug["hidden"]], dim=1)
+            labels = torch.clamp(pair_targets(batch, packed_c), min=0)
+            loss_contrast = L.supcon_hierar_loss(
+                feats.to(torch.promote_types(feats.dtype, torch.float32)),
+                labels, found, m.num_geometric, m.num_possessive)
+        total, metrics = compute_losses(m, cfg.training, out, packed,
+                                        targets, weights, cs_tables,
+                                        loss_contrast)
+        # silent pair-dropping is where the static capacity can change
+        # results: reported, and warned about by the loop
+        metrics["pair_overflow"] = torch.clamp(
+            packed.count - capacity, min=0).to(torch.float32)
+        metrics["aug_pair_overflow"] = aug_overflow.to(torch.float32)
+        total.backward()
+        grads = {k: p.grad for k, p in state.params.items()}
+        opt_state = optimizer.update(grads, state.opt_state, state.params)
+        for p in state.params.values():
+            p.grad = None
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        return TrainState(state.params, opt_state, state.step + 1), metrics
 
     return step

@@ -209,7 +209,8 @@ def test_torch_cli_loads_checkpoint(tmp_path):
 
 
 def test_torch_cli_refuses_unported_modes(tmp_path):
-    res = _cli(tmp_path, "--run_mode", "train", "--synthetic", "2",
-               "--device", "cpu")
-    assert res.returncode != 0
-    assert "not yet ported" in res.stderr
+    for args in (["--run_mode", "prepare_cs"],
+                 ["--run_mode", "eval", "--eval_mode", "sgc"]):
+        res = _cli(tmp_path, *args, "--synthetic", "2", "--device", "cpu")
+        assert res.returncode != 0
+        assert "not yet ported" in res.stderr

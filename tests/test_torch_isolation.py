@@ -42,6 +42,11 @@ def test_torch_port_imports_nothing_of_jax():
     files = sorted((ROOT / "scene_graph_commonsense_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 15
+    scanned = {p.relative_to(ROOT).as_posix() for p in files}
+    for module in ("bench.py", "train/engine.py", "train/losses.py",
+                   "train/loop.py", "utils/logging.py", "utils/profiling.py",
+                   "data/pipeline.py", "ops/pair_pool.py"):
+        assert f"scene_graph_commonsense_torch/{module}" in scanned, module
     for path in files:
         bad = _imported_roots(path) & FORBIDDEN
         assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
