@@ -32,11 +32,31 @@ Phases, each printing JSON lines:
               steps.  Then one fit epoch of 3 steps with its test pass,
               which must launch the forward kernel once per test batch and
               per train-time recall pass, and write its checkpoint.
-  7. parity:  the same weights and batch through make_eval_step, and one
+  7. featurize: the live DETR-101 featurizer at full width (ResNet-101
+              trunk as cuDNN convolutions, 6 encoder layers, d_model 256,
+              8 heads, dim_ff 2048, bf16, seeded random weights; config
+              fused_backbone off, flash_encoder on) on seeded 1024x1024
+              images: encode_features of 12 and of 24 images (CUDA events
+              after a warm-up), SceneGraphPredictor.predict from 12 images,
+              and fit(featurize=...) for 2 steps with both views in one
+              2B dispatch; exactly 6 launches of each encoder kernel per
+              encode dispatch, the pair-pool kernels as on their own paths;
+              peak memory; torch.profiler split of trunk, encoder, the two
+              kernels and the relation head.
+  8. parity:  the same weights and batch through make_eval_step, and one
               train step, on the card (kernels) and on the CPU (plain
               versions) at a reduced size in float32 with TF32 off: outputs
               and parameters after the step within 1e-4, integer outputs
-              and metrics equal, the winner index equal on equal streams.
+              and metrics equal, the winner index equal on equal streams;
+              encode_features of a 1024x512 image at reduced depth in
+              float32 (kernels on the card, plain versions on the CPU)
+              within 1e-4.
+Phase `kernel` also holds the encoder kernels against their plain versions:
+attention at (B, 1024, 8, 32) for B = 12 and 24, with all keys valid, 80%
+of the keys masked, and one image's keys all masked; FFN + LayerNorm at
+N = 12288 and 24576 tokens; each in bf16 (error against a float64 truth at
+most 2x the plain version's) and float32 (within ATTN_F32_TOL / FFN_F32_TOL
+of the plain version), with SDPA timed beside the attention kernel.
 Then a {"kernels": [...]} line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  Uses no JAX.
 
@@ -48,26 +68,33 @@ need all phases).
 
 import argparse
 import json
+import math
 import os
+import subprocess
 import sys
 import tempfile
 import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from scene_graph_commonsense_torch import bench
 from scene_graph_commonsense_torch import config as config_lib
 from scene_graph_commonsense_torch.__main__ import synthetic_batches
 from scene_graph_commonsense_torch.constants import class_weights
 from scene_graph_commonsense_torch.data.artifacts import load_vg_artifacts
-from scene_graph_commonsense_torch.data.synthetic import synthetic_batch
+from scene_graph_commonsense_torch.data.synthetic import (
+    synthetic_batch, synthetic_images)
+from scene_graph_commonsense_torch.device import disable_tf32
 from scene_graph_commonsense_torch.eval import engines
 from scene_graph_commonsense_torch.inference import SceneGraphPredictor
+from scene_graph_commonsense_torch.models import detr as detr_lib
 from scene_graph_commonsense_torch.models import weights
 from scene_graph_commonsense_torch.models.relation_head import (
     make_relation_classifier)
 from scene_graph_commonsense_torch.ops import _build, pair_pool, pairs
+from scene_graph_commonsense_torch.ops import attention, ffn
 from scene_graph_commonsense_torch.ops import boxes as box_ops
 from scene_graph_commonsense_torch.train import engine
 from scene_graph_commonsense_torch.train import loop
@@ -75,29 +102,53 @@ from scene_graph_commonsense_torch.train import loop
 # published H100 SXM peaks (NVIDIA data sheet, dense, at a 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
-# the port's kernels: launch counter (in ops/pair_pool.py), source, the TPU
-# kernel it replaces
+BF16_TENSOR_OPS_PER_S = 989e12
+# exponentials (ex2 on the special function units): 16 per clock per SM on
+# compute capability 9.0 (CUDA C++ programming guide, arithmetic
+# instruction throughput), times the 132 SMs and the card's maximum SM
+# clock as nvidia-smi reports it in this run
+EXP_PER_CLOCK_PER_SM = 16
+H100_SMS = 132
+# tolerances of the encoder kernels against their plain versions in float32
+# (sums of 32 / 256 and 2048 products taken in another order; the FFN's
+# LayerNorm divides by the row's deviation)
+ATTN_F32_TOL = 1e-5
+FFN_F32_TOL = 5e-5
+# the port's kernels: the module holding the launch counter, the counter,
+# source, the TPU kernel it replaces
 SOURCE = "scene_graph_commonsense_torch/csrc/pair_pool.cu"
+PALLAS = "scene_graph_commonsense_tpu/ops/pallas/"
 KERNELS = {
-    "pair_pool": ("launches", SOURCE,
-                  "scene_graph_commonsense_tpu/ops/pallas/pair_pool.py:42"),
-    "pair_pool_idx": ("idx_launches", SOURCE,
-                      "scene_graph_commonsense_tpu/ops/pallas/pair_pool.py"
-                      ":47"),
-    "pair_pool_bwd": ("bwd_launches", SOURCE,
-                      "scene_graph_commonsense_tpu/ops/pallas/pair_pool.py"
-                      ":149"),
+    "pair_pool": (pair_pool, "launches", SOURCE, PALLAS + "pair_pool.py:42"),
+    "pair_pool_idx": (pair_pool, "idx_launches", SOURCE,
+                      PALLAS + "pair_pool.py:47"),
+    "pair_pool_bwd": (pair_pool, "bwd_launches", SOURCE,
+                      PALLAS + "pair_pool.py:149"),
+    "ffn_ln": (ffn, "launches", "scene_graph_commonsense_torch/csrc/ffn.cu",
+               PALLAS + "ffn.py:34"),
+    "attention": (attention, "launches",
+                  "scene_graph_commonsense_torch/csrc/attention.cu",
+                  PALLAS + "attention.py:36"),
 }
 
 
+PAIR_POOL_KERNELS = ("pair_pool", "pair_pool_idx", "pair_pool_bwd")
+
+
 def reset_counts():
-    for counter, _, _ in KERNELS.values():
-        setattr(pair_pool, counter, 0)
+    for module, counter, _, _ in KERNELS.values():
+        setattr(module, counter, 0)
 
 
 def read_counts():
-    return {name: getattr(pair_pool, counter)
-            for name, (counter, _, _) in KERNELS.items()}
+    return {name: getattr(module, counter)
+            for name, (module, counter, _, _) in KERNELS.items()}
+
+
+def expected(**counts):
+    """A full launch-count dict: the named counts, 0 for every other
+    kernel."""
+    return {name: counts.get(name, 0) for name in KERNELS}
 
 
 def emit(obj):
@@ -125,9 +176,15 @@ def phase_device():
                          "this script needs an NVIDIA GPU")
     card = bench.card_name()
     print(card, flush=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True)
+    max_sm_mhz = float(smi.stdout.strip().splitlines()[0])
     info = {"phase": "device", "name": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count(), "nvidia_smi": card,
-            "torch": torch.__version__, "cuda": torch.version.cuda}
+            "torch": torch.__version__, "cuda": torch.version.cuda,
+            "max_sm_clock_mhz": max_sm_mhz,
+            "exp_per_s": EXP_PER_CLOCK_PER_SM * H100_SMS * max_sm_mhz * 1e6}
     emit(info)
     return info
 
@@ -237,7 +294,7 @@ def phase_kernel():
         0, m, (4560,), device=dev, generator=gen, dtype=torch.int32)
         for _ in range(2)], None))
     main = {}
-    max_err = {name: 0.0 for name in KERNELS}
+    max_err = {name: 0.0 for name in PAIR_POOL_KERNELS}
     for idx_name, si, oj, live in cases:
         p = si.shape[0]
         for dtype in (torch.bfloat16, torch.float32):
@@ -322,8 +379,211 @@ def phase_kernel():
     torch.cuda.empty_cache()
     return {name: {"max_abs_err": max_err[name],
                    **{k: main[name][k] for k in ("ms", "plain_ms",
-                                                 "bound_ms", "bound_by")}}
-            for name in KERNELS}
+                                                 "bound_ms", "bound_by")},
+                   "library_ms": None}
+            for name in PAIR_POOL_KERNELS}
+
+
+def bound_terms(nbytes, **op_seconds):
+    """Least time for `nbytes` of device-memory traffic and operation
+    counts already divided by their peak rates (name -> seconds): the
+    larger of the two, and which one bounds it."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, max(op_seconds.values())
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes,
+            "op_ms": {k: v * 1e3 for k, v in op_seconds.items()}}
+
+
+def product_rate(dtype):
+    """Peak rate of the products a kernel does in `dtype`: the bf16 tensor
+    cores, or float32 FMAs outside them (the port's float32 kernels)."""
+    return BF16_TENSOR_OPS_PER_S if dtype == torch.bfloat16 \
+        else FP32_OPS_PER_S
+
+
+def attention_bound(q, valid, exp_per_s):
+    """q, k, v read and out written once, the key mask read once; the two
+    products (4 B H L^2 dh operations) at the peak rate of their dtype; one
+    exponential per score."""
+    b, l, h, dh = q.shape
+    nbytes = 4 * q.numel() * q.element_size() + valid.numel()
+    flops = 4 * b * h * l * l * dh
+    exps = b * h * l * l
+    return {**bound_terms(nbytes, products=flops / product_rate(q.dtype),
+                          exponentials=exps / exp_per_s),
+            "flops": flops, "exponentials": exps}
+
+
+def ffn_bound(x, w1):
+    """x read and y written once (float32), both weight matrices and the
+    four vectors read once; 4 N D F operations of products at the peak rate
+    of the weights' dtype."""
+    n, d = x.shape
+    f = w1.shape[1]
+    nbytes = 2 * x.numel() * 4 + 2 * w1.numel() * w1.element_size() \
+        + (f + 3 * d) * 4
+    flops = 4 * n * d * f
+    return {**bound_terms(nbytes, products=flops / product_rate(w1.dtype)),
+            "flops": flops}
+
+
+def close(got, want, tol):
+    """max |got - want| / (tol (1 + |want|)): <= 1 means within atol and
+    rtol `tol`."""
+    return float(((got.float() - want.float()).abs()
+                  / (tol * (1 + want.float().abs()))).max())
+
+
+def attention_truth(q, k, v, valid, scale):
+    """float64 attention of the same inputs with the kernel's -3e38 key
+    fill (so an image whose keys are all masked is uniform)."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.double(), k.double()) * scale
+    s = torch.where(valid[:, None, None, :], s,
+                    torch.tensor(attention.MASK_FILL, dtype=torch.float64,
+                                 device=s.device))
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1),
+                        v.double())
+
+
+def ffn_truth(x, w1, b1, w2, b2, g, beta):
+    """float64 FFN + LayerNorm with the kernel's roundings of x and h to
+    the weights' dtype, exact sums."""
+    cd, f64 = w1.dtype, torch.float64
+    h = torch.relu(x.to(cd).to(f64) @ w1.to(f64) + b1.to(f64))
+    y = h.to(cd).to(f64) @ w2.to(f64) + b2.to(f64) + x.to(f64)
+    mu = y.mean(-1, keepdim=True)
+    var = ((y - mu) ** 2).mean(-1, keepdim=True)
+    return (y - mu) / torch.sqrt(var + 1e-5) * g.to(f64) + beta.to(f64)
+
+
+def check_bf16(name, got, want, truth):
+    """The kernel's largest error against the float64 truth is at most 2x
+    the plain version's."""
+    err = (got.double() - truth).abs().max().item()
+    plain_err = (want.double() - truth).abs().max().item()
+    if not err <= 2 * plain_err + 1e-6:
+        raise AssertionError(f"{name}: bf16 error against float64 {err} > "
+                             f"2 x the plain version's {plain_err}")
+    return {"err_vs_f64": err, "plain_err_vs_f64": plain_err}
+
+
+def phase_kernel_encoder(exp_per_s):
+    """The encoder kernels vs their plain versions at the DETR shapes, B =
+    12 (the serving batch) and 24 (fit's two views in one dispatch).
+    Returns, per kernel, the numbers of the main path's case (bf16, B = 12,
+    all keys valid as the encoder passes them)."""
+    dev = torch.device("cuda")
+    disable_tf32()
+    gen = torch.Generator(device=dev).manual_seed(1)
+    scale = 1.0 / math.sqrt(32)
+    main, max_err = {}, {"attention": 0.0, "ffn_ln": 0.0}
+    for b in (12, 24):
+        l = 1024
+        qkv32 = [torch.randn((b, l, 8, 32), device=dev, generator=gen)
+                 for _ in range(3)]
+        masks = {"all_valid": torch.ones((b, l), dtype=torch.bool,
+                                         device=dev),
+                 "random_80pct_masked": torch.rand(
+                     (b, l), device=dev, generator=gen) >= 0.8,
+                 "one_image_masked": torch.ones((b, l), dtype=torch.bool,
+                                                device=dev)}
+        masks["random_80pct_masked"][:, 0] = True
+        masks["one_image_masked"][0] = False
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = (t.to(dtype) for t in qkv32)
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            for mask_name, valid in masks.items():
+                got = attention.attention_kernel(q, k, v, valid, scale=scale)
+                want = attention.attention_plain(q, k, v, valid, scale=scale)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                rec = {"b": b, "l": l, "h": 8, "dh": 32, "mask": mask_name,
+                       "dtype": str(dtype).split(".")[1],
+                       "max_abs_err": err}
+                if dtype == torch.float32:
+                    ratio = close(got, want, ATTN_F32_TOL)
+                    if ratio > 1:
+                        raise AssertionError(
+                            f"attention kernel vs plain ({mask_name}, f32, "
+                            f"B={b}): {ratio:.3g} x the tolerance")
+                    rec["max_err_over_tol"] = ratio
+                else:
+                    rec.update(check_bf16(
+                        f"attention ({mask_name}, B={b})", got, want,
+                        attention_truth(q, k, v, valid, scale)))
+                if mask_name == "one_image_masked":
+                    uniform = v[0].float().mean(dim=0).expand_as(got[0])
+                    uerr = (got[0].float() - uniform).abs().max().item()
+                    if uerr > (2e-2 if dtype == torch.bfloat16 else 1e-5):
+                        raise AssertionError(
+                            f"attention: a fully masked image is not "
+                            f"uniform ({uerr})")
+                    rec["masked_image_uniform_err"] = uerr
+                del got, want
+                sdpa_mask = valid[:, None, None, :]
+                rec.update(timed(
+                    lambda: attention.attention_kernel(q, k, v, valid,
+                                                       scale=scale),
+                    lambda: attention.attention_plain(q, k, v, valid,
+                                                      scale=scale)))
+                rec["library_ms"] = cuda_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, attn_mask=sdpa_mask, scale=scale), 10)
+                rec["library"] = "F.scaled_dot_product_attention"
+                rec.update(attention_bound(q, valid, exp_per_s))
+                max_err["attention"] = max(max_err["attention"], err)
+                emit({"phase": "kernel", "name": "attention", **rec})
+                if b == 12 and dtype == torch.bfloat16 \
+                        and mask_name == "all_valid":
+                    main["attention"] = rec
+                torch.cuda.empty_cache()
+        del qkv32, masks
+
+    for n in (12288, 24576):
+        x = torch.randn((n, 256), device=dev, generator=gen)
+        w1 = torch.randn((256, 2048), device=dev, generator=gen) / 16
+        w2 = torch.randn((2048, 256), device=dev, generator=gen) \
+            / math.sqrt(2048)
+        b1 = torch.randn(2048, device=dev, generator=gen)
+        b2 = torch.randn(256, device=dev, generator=gen)
+        g = 1 + 0.1 * torch.randn(256, device=dev, generator=gen)
+        beta = 0.1 * torch.randn(256, device=dev, generator=gen)
+        for dtype in (torch.bfloat16, torch.float32):
+            w1c, w2c = w1.to(dtype), w2.to(dtype)
+            args = (x, w1c, b1, w2c, b2, g, beta)
+            got = ffn.ffn_ln_kernel(*args)
+            want = ffn.ffn_ln_plain(*args, compute_dtype=dtype)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            rec = {"n": n, "d": 256, "f": 2048,
+                   "dtype": str(dtype).split(".")[1], "max_abs_err": err}
+            if dtype == torch.float32:
+                ratio = close(got, want, FFN_F32_TOL)
+                if ratio > 1:
+                    raise AssertionError(f"ffn_ln kernel vs plain (f32, "
+                                         f"N={n}): {ratio:.3g} x the "
+                                         f"tolerance")
+                rec["max_err_over_tol"] = ratio
+            else:
+                rec.update(check_bf16(f"ffn_ln (N={n})", got, want,
+                                      ffn_truth(*args)))
+            del got, want
+            rec.update(timed(lambda: ffn.ffn_ln_kernel(*args),
+                             lambda: ffn.ffn_ln_plain(*args,
+                                                      compute_dtype=dtype)))
+            rec["library_ms"] = None    # no single PyTorch call computes it
+            rec.update(ffn_bound(x, w1c))
+            max_err["ffn_ln"] = max(max_err["ffn_ln"], err)
+            emit({"phase": "kernel", "name": "ffn_ln", **rec})
+            if n == 12288 and dtype == torch.bfloat16:
+                main["ffn_ln"] = rec
+        torch.cuda.empty_cache()
+    return {name: {"max_abs_err": max_err[name],
+                   **{k: main[name][k] for k in (
+                       "ms", "plain_ms", "bound_ms", "bound_by",
+                       "library_ms")}}
+            for name in ("ffn_ln", "attention")}
 
 
 def phase_slice():
@@ -382,8 +642,7 @@ def phase_slice():
     assert all(np.isfinite(e["confidence"]) for g in graphs for e in g)
     # eval and serving launch the forward kernel once per batch and never
     # the training kernels (no gradient in flight)
-    expect = {"pair_pool": len(batches), "pair_pool_idx": 0,
-              "pair_pool_bwd": 0}
+    expect = expected(pair_pool=len(batches))
     if eval_launches != expect:
         raise AssertionError(f"launches over {len(batches)} eval batches: "
                              f"{eval_launches}, expected {expect}")
@@ -407,9 +666,10 @@ def phase_slice():
     return launches, (cfg, model, estep, batches, artifacts)
 
 
-def device_profile(fn, n, top_ops=16):
+def device_profile(fn, n, top_ops=16, groups=None):
     """torch.profiler over fn(): device busy share of the wall time, kernels
-    by name, operators by input shape, per call of n."""
+    by name, operators by input shape, per call of n; with `groups` (label
+    -> substring of a kernel name) also each group's device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -427,6 +687,8 @@ def device_profile(fn, n, top_ops=16):
     if busy_us <= 0:
         raise AssertionError("the profiler recorded no device time")
     top_kernels = sorted(kernels.items(), key=lambda kv: -kv[1])[:14]
+    grouped = {label: sum(t for name, t in kernels.items() if part in name)
+               / 1e3 / n for label, part in (groups or {}).items()}
 
     def self_dev(e):
         return getattr(e, "self_device_time_total", None) \
@@ -439,6 +701,7 @@ def device_profile(fn, n, top_ops=16):
             "wall_ms_per_call": wall_us / 1e3 / n,
             "device_ms_per_call": busy_us / 1e3 / n,
             "device_busy_share": busy_us / wall_us,
+            "group_ms_per_call": grouped,
             "top_kernels": [{"name": k[:90], "ms_per_call": v / 1e3 / n,
                              "share": v / busy_us}
                             for k, v in top_kernels],
@@ -491,8 +754,7 @@ def phase_train():
     launches = read_counts()
     device_ms = start.elapsed_time(end) / steps
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    expect = {"pair_pool": 0, "pair_pool_idx": 2 * steps,
-              "pair_pool_bwd": 2 * steps}
+    expect = expected(pair_pool_idx=2 * steps, pair_pool_bwd=2 * steps)
     if launches != expect:
         raise AssertionError(f"train step launches over {steps} steps: "
                              f"{launches}, expected {expect}")
@@ -558,8 +820,8 @@ def phase_train():
         fit_launches = read_counts()
         ckpt = loop.checkpoint_file(fcfg, 0)
         ckpt_bytes = os.path.getsize(ckpt) if os.path.exists(ckpt) else 0
-    expect = {"pair_pool": n_test + 2, "pair_pool_idx": 2 * n_train,
-              "pair_pool_bwd": 2 * n_train}
+    expect = expected(pair_pool=n_test + 2, pair_pool_idx=2 * n_train,
+                      pair_pool_bwd=2 * n_train)
     if fit_launches != expect:
         raise AssertionError(f"fit launches {fit_launches}, expected "
                              f"{expect}")
@@ -573,6 +835,178 @@ def phase_train():
           "launches": fit_launches, "seconds": fit_s,
           "checkpoint_bytes": ckpt_bytes, "lines": lines})
     return launches
+
+
+def image_batches(rng, n, batch_size, image_size, with_aug):
+    """n request/train batches of seeded normalised images with synthetic
+    VG objects (no features: the featurizer computes them)."""
+    for _ in range(n):
+        b = synthetic_batch(rng, batch_size=batch_size, max_objects=20,
+                            with_aug=False)
+        del b["features"]
+        yield {**b, **synthetic_images(rng, batch_size, image_size,
+                                       with_aug=with_aug)}
+
+
+def phase_featurize():
+    """The live DETR-101 featurizer at full width through the port's entry
+    points.  Returns the encoder kernels' launches over one serving call
+    (predict from 12 images)."""
+    torch.cuda.empty_cache()
+    cfg = config_lib.derive("vg", hierarchical_pred=True, run_mode="eval",
+                            training={"batch_size": 12})
+    log = []
+    t0 = time.perf_counter()
+    featurize, detr = loop.load_detr_featurizer(
+        cfg, device="cuda", generator=torch.Generator().manual_seed(0),
+        log_fn=log.append)
+    init_s = time.perf_counter() - t0
+    if not (log and log[0].startswith("WARNING")):
+        raise AssertionError(f"expected the random-weights warning: {log}")
+    if not detr.flash_encoder or detr.backbone.blocks != (3, 4, 23, 3) \
+            or len(detr.encoder_layers()) != 6:
+        raise AssertionError("not the full DETR-101 with flash_encoder on")
+    size = cfg.model.image_size
+    rng = np.random.default_rng(21)
+    images = synthetic_images(rng, 12, size)
+    x12 = torch.from_numpy(images["image"]).cuda()
+    x24 = torch.cat([x12, torch.from_numpy(images["image_aug"]).cuda()])
+
+    def encode(x):
+        with torch.inference_mode():
+            return detr.encode_features(x)
+
+    def trunk(x):
+        with torch.inference_mode():
+            return detr.backbone(x, detr.dtype)
+
+    timing = {}
+    for name, x in (("encode_12", x12), ("encode_24", x24)):
+        feats = encode(x)                               # warm-up
+        torch.cuda.synchronize()
+        s = cfg.model.feature_size
+        if feats.shape != (x.shape[0], s, s, 256) \
+                or feats.dtype != torch.float32 \
+                or not bool(torch.isfinite(feats).all()):
+            raise AssertionError(f"{name}: features {tuple(feats.shape)} "
+                                 f"{feats.dtype}, finite "
+                                 f"{bool(torch.isfinite(feats).all())}")
+        del feats
+        reps = 3
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            encode(x)
+        end.record()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        if counts != expected(ffn_ln=6 * reps, attention=6 * reps):
+            raise AssertionError(f"{name}: launches over {reps} encodes "
+                                 f"{counts}, expected 6 of each encoder "
+                                 f"kernel per encode")
+        ms = start.elapsed_time(end) / reps
+        timing[name] = {"ms": ms, "ms_per_image": ms / x.shape[0],
+                        "peak_mem_gb": torch.cuda.max_memory_allocated()
+                        / 1e9, "launches": counts}
+
+    # where the time of one encode of 12 goes
+    kernel_groups = {"attention": "attention_tc_kernel",
+                     "ffn_ln": "ffn_ln_tc_kernel"}
+    prof_trunk = device_profile(lambda: trunk(x12), 1)
+    prof_encode = device_profile(lambda: encode(x12), 1,
+                                 groups=kernel_groups)
+
+    # serving: SceneGraphPredictor.predict from 12 images
+    model = make_relation_classifier(
+        cfg, device="cuda", generator=torch.Generator().manual_seed(0))
+    predictor = SceneGraphPredictor(cfg, model, detr_model=detr,
+                                    device="cuda")
+    request = next(image_batches(rng, 1, 12, size, with_aug=False))
+    predictor.predict(request, top_k=50)                # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    graphs = predictor.predict(request, top_k=50)
+    torch.cuda.synchronize()
+    predict_s = time.perf_counter() - t0
+    predict_launches = read_counts()
+    if predict_launches != expected(ffn_ln=6, attention=6, pair_pool=1):
+        raise AssertionError(f"predict from images launched "
+                             f"{predict_launches}")
+    if len(graphs) != 12 or not sum(len(g) for g in graphs):
+        raise AssertionError("the predictor returned no edges")
+    if not all(np.isfinite(e["confidence"]) for g in graphs for e in g):
+        raise AssertionError("non-finite edge confidences")
+    features = featurize({"image": request["image"]})["features"]
+    head_batch = {**{k: v for k, v in request.items() if k != "image"},
+                  "features": features,
+                  "rel": np.full((12, 20, 20), -1, np.int32)}
+    prof_head = device_profile(lambda: predictor.estep(head_batch), 1)
+    encode_ms = prof_encode["device_ms_per_call"]
+    trunk_ms = prof_trunk["device_ms_per_call"]
+    kern = prof_encode["group_ms_per_call"]
+    split = {"trunk_ms": trunk_ms,
+             "encoder_ms": encode_ms - trunk_ms,
+             "attention_kernel_ms": kern["attention"],
+             "ffn_ln_kernel_ms": kern["ffn_ln"],
+             "encoder_rest_ms": encode_ms - trunk_ms - kern["attention"]
+             - kern["ffn_ln"],
+             "relation_head_ms": prof_head["device_ms_per_call"]}
+    del features, head_batch, predictor
+    torch.cuda.empty_cache()
+
+    # training: fit with the featurizer, 2 steps, both views in one
+    # 2B dispatch per step
+    with tempfile.TemporaryDirectory() as tmp:
+        fcfg = bench.bench_config(
+            num_epoch=1, print_freq=1, eval_freq=0,
+            checkpoint_path=os.path.join(tmp, "ck"),
+            result_path=os.path.join(tmp, "res"))
+        fmodel = make_relation_classifier(
+            fcfg, device="cuda", generator=torch.Generator().manual_seed(1))
+        steps, lines = 2, []
+        reset_counts()
+        t0 = time.perf_counter()
+        loop.fit(fcfg, fmodel,
+                 lambda e: image_batches(np.random.default_rng(30 + e),
+                                         steps, 12, size, with_aug=True),
+                 None, steps_per_epoch=steps,
+                 artifacts=load_vg_artifacts("datasets/artifacts"),
+                 device="cuda", featurize=loop.make_detr_featurize_fn(
+                     fcfg, detr), log_fn=lines.append)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        fit_launches = read_counts()
+    expect = expected(ffn_ln=6 * steps, attention=6 * steps,
+                      pair_pool_idx=2 * steps, pair_pool_bwd=2 * steps)
+    if fit_launches != expect:
+        raise AssertionError(f"fit(featurize=) launched {fit_launches}, "
+                             f"expected {expect}")
+    train_lines = [ln for ln in lines if ln.startswith("TRAIN")]
+    if len(train_lines) != steps or any("nan" in ln.lower()
+                                        for ln in train_lines):
+        raise AssertionError(f"fit printed {lines}")
+    emit({"phase": "featurize", "batch_size": 12, "image_size": size,
+          "compute_dtype": cfg.model.compute_dtype,
+          "fused_backbone": cfg.model.fused_backbone,
+          "flash_encoder": cfg.model.flash_encoder,
+          "resolved": dict(zip(("fused_backbone", "flash_encoder"),
+                               detr_lib.resolve_detr_modes(
+                                   cfg, torch.device("cuda")))),
+          "weights": log[0], "init_s": init_s, **timing,
+          "predict_s": predict_s, "predict_launches": predict_launches,
+          "predict_edges": sum(len(g) for g in graphs),
+          "device_split_encode_12": split,
+          "profile_encode_12": prof_encode, "profile_trunk_12": prof_trunk,
+          "profile_relation_head": prof_head,
+          "fit_steps": steps, "fit_s": fit_s, "fit_launches": fit_launches,
+          "fit_lines": lines})
+    del detr, fmodel
+    torch.cuda.empty_cache()
+    return {k: predict_launches[k] for k in ("ffn_ln", "attention")}
 
 
 def phase_parity():
@@ -616,8 +1050,7 @@ def phase_parity():
         if dev == "cuda":
             torch.cuda.synchronize()
             counts = read_counts()
-            if counts != {"pair_pool": 0, "pair_pool_idx": 2,
-                          "pair_pool_bwd": 2}:
+            if counts != expected(pair_pool_idx=2, pair_pool_bwd=2):
                 raise AssertionError(f"card train step launched {counts}")
         params[dev] = {k: v.detach().cpu() for k, v in state.params.items()}
         metrics[dev] = {k: float(v) for k, v in met.items()}
@@ -664,14 +1097,47 @@ def phase_parity():
           "train_loss_abs_err": metric_err,
           "train_int_metrics_equal": True, "idx_equal": True})
 
+    # encode_features at reduced depth, 1024x512 (L = 512: every encoder
+    # layer runs the kernels on the card, the plain versions on the CPU)
+    dcfg = config_lib.derive("vg", model={
+        "detr_blocks": (1, 1, 1, 1), "detr_enc_layers": 2,
+        "compute_dtype": "float32", "flash_encoder": "on"})
+    sd = weights.init_detr_params(dcfg, torch.Generator().manual_seed(2))
+    image = synthetic_images(np.random.default_rng(40), 1, 1024,
+                             with_aug=False)["image"][:, :, :512].copy()
+    mask = np.ones((1, 1024, 512), bool)
+    mask[0, :, 400:] = False
+    feats = {}
+    for dev in ("cuda", "cpu"):
+        detr = detr_lib.make_detr(dcfg, device=dev, state_dict=sd)
+        reset_counts()
+        with torch.inference_mode():
+            feats[dev] = detr.encode_features(
+                torch.from_numpy(image).to(dev),
+                torch.from_numpy(mask).to(dev)).cpu()
+        if dev == "cuda" and read_counts() != expected(ffn_ln=2,
+                                                       attention=2):
+            raise AssertionError(f"card encode launched {read_counts()}")
+    enc_err = float((feats["cuda"] - feats["cpu"]).abs().max())
+    if not enc_err <= 1e-4:
+        raise AssertionError(f"card vs CPU encode_features: {enc_err} > "
+                             f"1e-4")
+    emit({"phase": "parity_encode", "image": [1024, 512], "tokens": 512,
+          "detr_blocks": [1, 1, 1, 1], "encoder_layers": 2,
+          "max_abs_err": enc_err, "tolerance": 1e-4})
+
 
 def main():
     ap = argparse.ArgumentParser(description="chip smoke of the port")
-    ap.add_argument("--phases", default="kernel,slice,profile,train,parity")
+    ap.add_argument("--phases",
+                    default="kernel,slice,profile,train,featurize,parity")
     phases = set(ap.parse_args().phases.split(","))
     info = phase_device()
     phase_build()
-    kernel = phase_kernel() if "kernel" in phases else None
+    kernel = {}
+    if "kernel" in phases:
+        kernel.update(phase_kernel())
+        kernel.update(phase_kernel_encoder(info["exp_per_s"]))
     launches = {}
     if {"slice", "profile"} & phases:
         slice_launches, slice_state = phase_slice()
@@ -683,17 +1149,18 @@ def main():
         train_launches = phase_train()
         launches["pair_pool_idx"] = train_launches["pair_pool_idx"]
         launches["pair_pool_bwd"] = train_launches["pair_pool_bwd"]
+    if "featurize" in phases:
+        launches.update(phase_featurize())
     if "parity" in phases:
         phase_parity()
-    if kernel is None or len(launches) != len(KERNELS):
+    if len(kernel) != len(KERNELS) or len(launches) != len(KERNELS):
         return 0                                # a partial run: no summary
     rows = [{"name": name, "route": "cuda", "source": source,
              "replaces": replaces, "launches": launches[name],
-             "max_abs_err": kernel[name]["max_abs_err"],
-             "ms": kernel[name]["ms"], "plain_ms": kernel[name]["plain_ms"],
-             "bound_ms": kernel[name]["bound_ms"],
-             "bound_by": kernel[name]["bound_by"], "library_ms": None}
-            for name, (_, source, replaces) in KERNELS.items()]
+             **{k: kernel[name][k] for k in (
+                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                 "library_ms")}}
+            for name, (_, _, source, replaces) in KERNELS.items()]
     emit({"kernels": rows})
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"],

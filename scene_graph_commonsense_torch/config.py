@@ -2,8 +2,8 @@
 
 The port keeps its own copy so that it imports nothing of the JAX package;
 both packages read the same YAML schema.  Knobs that only the JAX package
-acts on (fused_backbone, flash_encoder, the TPU precision knobs, the
-profiler window) are kept so that one config file serves both.
+acts on (the TPU precision knobs, the profiler window) are kept so that one
+config file serves both.
 
 Mirrors the knob set of the reference's config.yaml (reference config.yaml:1-74)
 and the dataset-dependent derived values patched in its CLI
@@ -100,15 +100,20 @@ class ModelConfig:
     # Compute dtype for the relation trunk ('float32' for parity tests,
     # 'bfloat16' for production throughput; params stay float32).
     compute_dtype: str = "bfloat16"
-    # Fused Pallas bottleneck path for the frozen ResNet trunk
-    # ('auto' = on for single-device TPU, 'on', 'off').  See
-    # models/resnet_fused.py; GSPMD-sharded multi-chip eval keeps the
-    # plain XLA path until the kernel is wrapped in shard_map.
+    # Fused kernels for the frozen ResNet trunk ('auto', 'on', 'off'; the
+    # JAX package: auto = on for a single-device TPU).  The port's fused
+    # trunk (TPU kernels K3-K6) comes with slice 4: until then 'auto'
+    # resolves to off and 'on' raises (models/detr.resolve_detr_modes).
+    # Only the ResNet-101 layout detr_blocks == (3, 4, 23, 3) may fuse.
     fused_backbone: str = "auto"
-    # "auto" | "on" | "off": Pallas flash (online-softmax) DETR encoder
-    # self-attention — auto = on-TPU and compute_dtype != float64 (the
-    # f64 parity harnesses keep the naive exact-softmax path).
+    # "auto" | "on" | "off": the fused DETR encoder kernels (self-attention
+    # and FFN + LayerNorm, ops/attention.py and ops/ffn.py) — auto = on for
+    # a CUDA model whose compute_dtype is not float64 (the f64 parity
+    # harnesses keep the naive exact-softmax path).
     flash_encoder: str = "auto"
+    # The frozen DETR's weights.  The port reads a torch-hub DETR state
+    # dict here (train/loop.load_detr_featurizer), not the JAX package's
+    # flax msgpack; an absent file means seeded random weights.
     detr_pretrained: str = "checkpoints/detr101_vg.msgpack"
     # GloVe label-embedding table for the pnp context models
     # (tools/glove_embeddings.py); absent file -> learned init.

@@ -17,8 +17,10 @@ import torch
 def prefetch_iterator(batches: Iterable[Dict], prefetch: int = 2,
                       transform: Optional[Callable[[Dict], Dict]] = None
                       ) -> Iterator[Dict]:
-    """Runs the batch source (and an optional transform, e.g. to_device) on
-    a background thread, keeping `prefetch` batches ready."""
+    """Runs the batch source and an optional transform on a background
+    thread, keeping `prefetch` batches ready.  train.loop.fit passes the
+    DETR featurizer and the device copy as the transform, so both overlap
+    the train step."""
     q: "queue.Queue" = queue.Queue(maxsize=prefetch)
     done = object()
     err_box = []
@@ -63,12 +65,16 @@ def prefetch_iterator(batches: Iterable[Dict], prefetch: int = 2,
 def to_device(batch: Dict, device: torch.device) -> Dict:
     """The batch's arrays as tensors on `device`.  On a card the copy goes
     through pinned memory and is queued without waiting (ordered before the
-    step's kernels on the same stream); other entries pass through."""
+    step's kernels on the same stream); tensors already on the device (the
+    featurizer's output) and other entries pass through."""
     out = {}
     for k, v in batch.items():
         if isinstance(v, (np.ndarray, torch.Tensor)):
             t = torch.as_tensor(v)
-            if device.type == "cuda":
+            if t.device.type == device.type and device.index in (
+                    None, t.device.index):
+                pass
+            elif device.type == "cuda":
                 t = t.pin_memory().to(device, non_blocking=True)
             else:
                 t = t.to(device)

@@ -74,3 +74,26 @@ def synthetic_batch(rng: np.random.Generator, batch_size: int = 12,
         batch["features_aug"] = (
             feats + 0.05 * rng.standard_normal(feats.shape)).astype(dtype)
     return batch
+
+
+# BGR channel means subtracted from [0, 1] pixels by the square featurize
+# view (scene_graph_commonsense_tpu/data/dataset.py square_image)
+BGR_MEAN = np.array([102.9801, 115.9465, 122.7717], np.float32)
+
+
+def synthetic_images(rng: np.random.Generator, batch_size: int = 12,
+                     image_size: int = 1024, with_aug: bool = True
+                     ) -> Dict[str, np.ndarray]:
+    """Seeded square images normalised as the VG featurize view normalises
+    them (square_image: uint8 pixels / 255 - the BGR means), float32
+    (B, S, S, 3) under 'image'; with_aug adds 'image_aug', a second view
+    with a per-image brightness and contrast change of the same pixels."""
+    shape = (batch_size, image_size, image_size, 3)
+    pixels = rng.integers(0, 256, shape, dtype=np.uint8)
+    out = {"image": pixels.astype(np.float32) / 255.0 - BGR_MEAN}
+    if with_aug:
+        gain = rng.uniform(0.6, 1.4, (batch_size, 1, 1, 1))
+        shift = rng.uniform(-40, 40, (batch_size, 1, 1, 1))
+        aug = np.clip(pixels * gain + shift, 0, 255).astype(np.uint8)
+        out["image_aug"] = aug.astype(np.float32) / 255.0 - BGR_MEAN
+    return out

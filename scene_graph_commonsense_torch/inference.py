@@ -1,10 +1,12 @@
 """Serving-style scene-graph inference (torch port of
-scene_graph_commonsense_tpu/inference.py, from precomputed features; live
-DETR featurization and multi-GPU serving come with later slices).
+scene_graph_commonsense_tpu/inference.py): from images through the frozen
+DETR featurizer, or from precomputed features; multi-GPU serving comes with
+a later slice.
 
 Usage:
     model = make_relation_classifier(cfg, state_dict=weights)
-    predictor = SceneGraphPredictor(cfg, model, validator=None)
+    detr = make_detr(cfg)                  # or load_detr_featurizer(cfg)[1]
+    predictor = SceneGraphPredictor(cfg, model, detr_model=detr)
     graphs = predictor.predict(batch, top_k=50)
 """
 
@@ -19,25 +21,41 @@ from scene_graph_commonsense_torch.constants import (
 from scene_graph_commonsense_torch.eval.builders import build_candidates
 from scene_graph_commonsense_torch.eval.engines import to_numpy
 from scene_graph_commonsense_torch.train import engine as engine_lib
+from scene_graph_commonsense_torch.train.loop import make_detr_featurize_fn
+
+# what the relation stage reads of a request (JAX inference.py:59-61)
+BATCH_KEYS = ("features", "depth", "cats", "super_mh", "boxes", "rel",
+              "valid")
 
 
 class SceneGraphPredictor:
     """Batched scene-graph inference with the hierarchical relation head."""
 
-    def __init__(self, cfg, model, validator=None, device=None):
+    def __init__(self, cfg, model, detr_model=None, detr_params=None,
+                 validator=None, device=None):
         """`model`: a RelationClassifier; it runs on `device` (default
         cuda, see train.engine.make_eval_step, which also turns TF32 off).
-        `validator`: optional commonsense filter with a
+        `detr_model`: optional frozen models.detr.DETR (make_detr) on the
+        same device; with it, requests may carry 'image' (B, S*32, S*32, 3)
+        instead of 'features'.  `detr_params`: an optional state dict loaded
+        into it.  `validator`: optional commonsense filter with a
         filter_scores(conf, sub, rel, obj) method."""
         self.cfg = cfg
         self.model = model
         self.validator = validator
         self.estep = engine_lib.make_eval_step(model, cfg, device=device)
+        self.featurize = None
+        if detr_model is not None:
+            self.featurize = make_detr_featurize_fn(cfg, detr_model,
+                                                    detr_params)
 
     def predict(self, batch: Dict, top_k: int = 50) -> List[List[Dict]]:
-        """batch: engine batch contract ('features' + objects).  Returns, per
-        image, the top_k ranked edges as dicts with names, ids, boxes, and
-        confidence."""
+        """batch: engine batch contract ('features' or 'image' + objects).
+        Returns, per image, the top_k ranked edges as dicts with names,
+        ids, boxes, and confidence."""
+        if self.featurize is not None:
+            batch = self.featurize(batch)
+        batch = {k: v for k, v in batch.items() if k in BATCH_KEYS}
         if "rel" not in batch:
             b, n = np.asarray(batch["cats"]).shape
             batch = {**batch, "rel": np.full((b, n, n), -1, np.int32)}

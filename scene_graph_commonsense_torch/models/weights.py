@@ -159,3 +159,164 @@ def init_params(cfg, generator: Optional[torch.Generator] = None
                 generator)
     return sd
 
+# ---------------------------------------------------------------------------
+# DETR (encode half): flax tree <-> port, torch-hub names -> port, seeded init
+# ---------------------------------------------------------------------------
+
+# top-level entries of the JAX DETR tree that the encode half uses; the
+# decoder, query embedding and heads come with the detection slice
+_DETR_ENCODE_PREFIXES = ("backbone", "input_proj", "encoder_")
+# torch-hub DETR keys of the detection half, kept aside by
+# detr_from_hub_state_dict
+_HUB_DETECTION_PREFIXES = ("transformer.decoder.", "query_embed.",
+                           "class_embed.", "bbox_embed.")
+
+
+def _flat(tree: Mapping, prefix: str = ""):
+    for name, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _flat(v, f"{prefix}{name}.")
+        else:
+            yield f"{prefix}{name}", v
+
+
+def detr_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX package's DETR param tree ({"params": {...}} or the inner
+    dict) of numpy arrays -> the state dict of models.detr.DETR: conv
+    kernels HWIO -> OIHW, dense kernels (in, out) -> (out, in), LayerNorm
+    scale -> weight, frozen-BN statistics by name.  Keys outside the encode
+    half (decoder, query embedding, heads) are left out."""
+    tree = params.get("params", params)
+    sd: Dict[str, torch.Tensor] = {}
+    for key, leaf in _flat({k: v for k, v in tree.items()
+                            if k.startswith(_DETR_ENCODE_PREFIXES)}):
+        path, name = key.rsplit(".", 1)
+        a = np.array(leaf)
+        if name == "kernel":
+            name = "weight"
+            a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
+        elif name == "scale":
+            name = "weight"
+        sd[f"{path}.{name}"] = torch.from_numpy(np.ascontiguousarray(a))
+    return sd
+
+
+def detr_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
+    """State dict of models.detr.DETR -> the JAX package's param tree
+    {"params": {...}} of numpy copies (never views of live tensors)."""
+    tree: Dict = {}
+    for key, v in state_dict.items():
+        path, name = key.rsplit(".", 1)
+        a = _np(v)
+        if name == "weight" and a.ndim == 4:
+            name, a = "kernel", np.ascontiguousarray(a.transpose(2, 3, 1, 0))
+        elif name == "weight" and a.ndim == 2:
+            name, a = "kernel", np.ascontiguousarray(a.T)
+        elif name == "weight" and path.rsplit(".", 1)[-1].startswith("norm"):
+            name = "scale"
+        node = tree
+        for part in path.split("."):
+            node = node.setdefault(part, {})
+        node[name] = a
+    return {"params": tree}
+
+
+def _hub_key_map(num_encoder_layers: int, blocks) -> Dict[str, str]:
+    """Port key -> torch-hub key for every tensor of the encode half (the
+    in_proj rows are split by the caller)."""
+    m: Dict[str, str] = {}
+
+    def bn(port, hub):
+        for stat in ("weight", "bias", "running_mean", "running_var"):
+            m[f"{port}.{stat}"] = f"{hub}.{stat}"
+
+    body = "backbone.0.body"
+    m["backbone.conv1.weight"] = f"{body}.conv1.weight"
+    bn("backbone.bn1", f"{body}.bn1")
+    for stage, n in enumerate(blocks, start=1):
+        for i in range(n):
+            port, hub = f"backbone.layer{stage}_{i}", f"{body}.layer{stage}.{i}"
+            for c in range(1, 4):
+                m[f"{port}.conv{c}.weight"] = f"{hub}.conv{c}.weight"
+                bn(f"{port}.bn{c}", f"{hub}.bn{c}")
+            if i == 0:
+                m[f"{port}.downsample_conv.weight"] = \
+                    f"{hub}.downsample.0.weight"
+                bn(f"{port}.downsample_bn", f"{hub}.downsample.1")
+    m["input_proj.weight"] = "input_proj.weight"
+    m["input_proj.bias"] = "input_proj.bias"
+    for i in range(num_encoder_layers):
+        port, hub = f"encoder_{i}", f"transformer.encoder.layers.{i}"
+        for name in ("self_attn.out_proj", "linear1", "linear2", "norm1",
+                     "norm2"):
+            for kind in ("weight", "bias"):
+                m[f"{port}.{name}.{kind}"] = f"{hub}.{name}.{kind}"
+    return m
+
+
+def detr_from_hub_state_dict(state: Mapping, num_encoder_layers: int = 6,
+                             blocks=(3, 4, 23, 3)):
+    """facebookresearch/detr `detr_resnet101` state dict (the names that
+    scene_graph_commonsense_tpu's convert_detr_state_dict reads) -> (the
+    port's encode-half state dict, the detection-half tensors by their hub
+    names, kept for the detection slice).  The fused in_proj of each
+    encoder self-attention splits into q/k/v rows.  Raises KeyError on a
+    missing key and ValueError on a key that belongs to neither half
+    (BatchNorm's num_batches_tracked counters are dropped)."""
+    st = {k.removeprefix("module."): v for k, v in state.items()}
+    used = set()
+
+    def take(hub):
+        if hub not in st:
+            raise KeyError(f"DETR state dict lacks {hub!r}")
+        used.add(hub)
+        return torch.as_tensor(_np(st[hub]))
+
+    sd = {port: take(hub) for port, hub in
+          _hub_key_map(num_encoder_layers, blocks).items()}
+    for i in range(num_encoder_layers):
+        hub = f"transformer.encoder.layers.{i}.self_attn"
+        w, b = take(f"{hub}.in_proj_weight"), take(f"{hub}.in_proj_bias")
+        d = w.shape[1]
+        for j, name in enumerate(("q_proj", "k_proj", "v_proj")):
+            sd[f"encoder_{i}.self_attn.{name}.weight"] = \
+                w[j * d:(j + 1) * d].contiguous()
+            sd[f"encoder_{i}.self_attn.{name}.bias"] = \
+                b[j * d:(j + 1) * d].contiguous()
+    detection = {k: torch.as_tensor(_np(v)) for k, v in st.items()
+                 if k.startswith(_HUB_DETECTION_PREFIXES)}
+    stray = sorted(k for k in st if k not in used and k not in detection
+                   and not k.endswith(".num_batches_tracked"))
+    if stray:
+        raise ValueError(f"DETR state dict keys of neither the encode nor "
+                         f"the detection half: {stray[:8]}")
+    return sd, detection
+
+
+def init_detr_params(cfg, generator: Optional[torch.Generator] = None
+                     ) -> Dict[str, torch.Tensor]:
+    """Fresh float32 DETR encode-half weights with flax's default
+    distributions: lecun-normal conv and dense kernels, zero biases,
+    LayerNorm scale 1, frozen BN as the identity (weight 1, bias 0, mean 0,
+    variance 1).  The distributions of the JAX package's detr.init, not its
+    numbers.  `generator` defaults to one seeded with cfg.training.seed."""
+    from scene_graph_commonsense_torch.models.detr import (
+        module_from_cfg as detr_module)
+    if generator is None:
+        generator = torch.Generator().manual_seed(cfg.training.seed)
+    with torch.device("meta"):        # shapes only: allocates nothing
+        shapes = {k: v.shape
+                  for k, v in detr_module(cfg).state_dict().items()}
+    sd: Dict[str, torch.Tensor] = {}
+    for key, shape in shapes.items():
+        name = key.rsplit(".", 1)[1]
+        if name in ("bias", "running_mean"):
+            sd[key] = torch.zeros(shape)
+        elif name == "running_var" or len(shape) == 1:
+            sd[key] = torch.ones(shape)
+        else:
+            fan_in = math.prod(shape[1:])
+            sd[key] = _trunc_normal(
+                shape, math.sqrt(1.0 / fan_in) / .87962566103423978,
+                generator)
+    return sd

@@ -92,6 +92,29 @@ def build_all() -> None:
         raise RuntimeError("\n".join(errors))
 
 
+def check_launch(name: str, err: int) -> None:
+    """Raises if a kernel's C entry point returned a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+
+
+def need_cuda(name: str, t) -> None:
+    """Raises unless tensor `t` lies on a CUDA device."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} needs CUDA tensors, got {t.device}")
+
+
+def route(name: str, t, kernel, plain):
+    """The kernel for a CUDA tensor, the plain version for a CPU tensor, an
+    error for any other device.  Never a fallback: a kernel that fails to
+    build or launch raises."""
+    if t.device.type == "cuda":
+        return kernel
+    if t.device.type == "cpu":
+        return plain
+    raise ValueError(f"{name} has no path for device {t.device}")
+
+
 def load(name: str) -> ctypes.CDLL:
     """The ctypes handle of csrc/<name>.cu, built first if needed."""
     lib = _loaded.get(name)

@@ -89,23 +89,13 @@ def _library(name: str = "sgc_pair_pool", pointers: int = 5,
     return fn
 
 
-def _check_launch(name: str, err: int) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
-
-
-def _need_cuda(name: str, t: torch.Tensor) -> None:
-    if t.device.type != "cuda":
-        raise ValueError(f"{name} needs CUDA tensors, got {t.device}")
-
-
 def pair_pool_kernel(a: torch.Tensor, b: torch.Tensor, si: torch.Tensor,
                      oj: torch.Tensor) -> torch.Tensor:
     """Launches csrc/pair_pool.cu on the current stream of the inputs'
     device and counts the launch."""
     global launches
     check_kernel_inputs(a, b, si, oj)
-    _need_cuda("pair_pool_kernel", a)
+    _build.need_cuda("pair_pool_kernel", a)
     m, s, _, c = a.shape
     p = si.shape[0]
     out = torch.empty((p, s // 2, s // 2, c), dtype=a.dtype,
@@ -114,7 +104,7 @@ def pair_pool_kernel(a: torch.Tensor, b: torch.Tensor, si: torch.Tensor,
         return out
     fn = _library()
     stream = torch.cuda.current_stream(a.device).cuda_stream
-    _check_launch("pair_pool", fn(
+    _build.check_launch("pair_pool", fn(
         a.data_ptr(), b.data_ptr(), si.data_ptr(), oj.data_ptr(),
         out.data_ptr(), m, s, c, p, _DTYPE_CODES[a.dtype], a.device.index,
         stream))
@@ -182,7 +172,7 @@ def pair_pool_idx_kernel(a: torch.Tensor, b: torch.Tensor, si: torch.Tensor,
     launch."""
     global idx_launches
     check_kernel_inputs(a, b, si, oj)
-    _need_cuda("pair_pool_idx_kernel", a)
+    _build.need_cuda("pair_pool_idx_kernel", a)
     m, s, _, c = a.shape
     p = si.shape[0]
     out = torch.empty((p, s // 2, s // 2, c), dtype=a.dtype,
@@ -192,7 +182,7 @@ def pair_pool_idx_kernel(a: torch.Tensor, b: torch.Tensor, si: torch.Tensor,
         return out, idx
     fn = _library("sgc_pair_pool_idx", 6, 6)
     stream = torch.cuda.current_stream(a.device).cuda_stream
-    _check_launch("pair_pool_idx", fn(
+    _build.check_launch("pair_pool_idx", fn(
         a.data_ptr(), b.data_ptr(), si.data_ptr(), oj.data_ptr(),
         out.data_ptr(), idx.data_ptr(), m, s, c, p, _DTYPE_CODES[a.dtype],
         a.device.index, stream))
@@ -238,7 +228,7 @@ def pair_pool_bwd_kernel(g: torch.Tensor, idx: torch.Tensor,
     for t in (g, idx, si, oj):
         if not t.is_contiguous():
             raise ValueError("pair_pool_bwd takes contiguous tensors")
-    _need_cuda("pair_pool_bwd_kernel", g)
+    _build.need_cuda("pair_pool_bwd_kernel", g)
     s = 2 * h
     ga = torch.empty((m, s, s, c), dtype=g.dtype, device=g.device)
     gb = torch.empty_like(ga)
@@ -247,7 +237,7 @@ def pair_pool_bwd_kernel(g: torch.Tensor, idx: torch.Tensor,
     offsets, lists = pair_lists(si, oj, m)
     fn = _library("sgc_pair_pool_bwd", 8, 6)
     stream = torch.cuda.current_stream(g.device).cuda_stream
-    _check_launch("pair_pool_bwd", fn(
+    _build.check_launch("pair_pool_bwd", fn(
         g.data_ptr(), idx.data_ptr(), si.data_ptr(), oj.data_ptr(),
         offsets.data_ptr(), lists.data_ptr(), ga.data_ptr(), gb.data_ptr(),
         m, s, c, p, _DTYPE_CODES[g.dtype], g.device.index, stream))
@@ -255,25 +245,16 @@ def pair_pool_bwd_kernel(g: torch.Tensor, idx: torch.Tensor,
     return ga, gb
 
 
-def _route(name: str, t: torch.Tensor, kernel, plain):
-    """The kernel for a CUDA tensor, the plain version for a CPU tensor."""
-    if t.device.type == "cuda":
-        return kernel
-    if t.device.type == "cpu":
-        return plain
-    raise ValueError(f"{name} has no path for device {t.device}")
-
-
 def pair_pool_idx(a, b, si, oj):
     """(out, idx) of the forward with index on a's device."""
-    return _route("pair_pool_idx", a, pair_pool_idx_kernel,
-                  pair_pool_idx_plain)(a, b, si, oj)
+    return _build.route("pair_pool_idx", a, pair_pool_idx_kernel,
+                        pair_pool_idx_plain)(a, b, si, oj)
 
 
 def pair_pool_bwd(g, idx, si, oj, m: int):
     """(ga, gb) of the backward on g's device."""
-    return _route("pair_pool_bwd", g, pair_pool_bwd_kernel,
-                  pair_pool_bwd_plain)(g, idx, si, oj, m)
+    return _build.route("pair_pool_bwd", g, pair_pool_bwd_kernel,
+                        pair_pool_bwd_plain)(g, idx, si, oj, m)
 
 
 class _PairPool(torch.autograd.Function):
@@ -303,5 +284,5 @@ def pair_pool(a: torch.Tensor, b: torch.Tensor, si: torch.Tensor,
     plain versions on CPU tensors, an error anywhere else."""
     if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
         return _PairPool.apply(a, b, si, oj)
-    return _route("pair_pool", a, pair_pool_kernel,
-                  pair_pool_plain)(a, b, si, oj)
+    return _build.route("pair_pool", a, pair_pool_kernel,
+                        pair_pool_plain)(a, b, si, oj)

@@ -1,6 +1,5 @@
-"""Epoch-level training loop (torch port of
-scene_graph_commonsense_tpu/train/loop.py, one device, without a mesh and
-without the DETR featurizer).
+"""Epoch-level training loop and the frozen DETR featurizer (torch port of
+scene_graph_commonsense_tpu/train/loop.py, one device, without a mesh).
 
 The orchestration of reference train_test.py:31-330: per-epoch loop,
 step-decay learning rate (x0.1 at the scheduler epochs), per-epoch
@@ -14,7 +13,7 @@ from __future__ import annotations
 
 import os
 import time
-from typing import Callable, Iterable, Optional
+from typing import Callable, Dict, Iterable, Optional
 
 import numpy as np
 import torch
@@ -26,6 +25,9 @@ from scene_graph_commonsense_torch.device import resolve_device
 from scene_graph_commonsense_torch.eval import engines
 from scene_graph_commonsense_torch.eval.builders import (
     build_candidates, build_targets)
+from scene_graph_commonsense_torch.models.detr import DETR, make_detr
+from scene_graph_commonsense_torch.models.weights import (
+    detr_from_hub_state_dict)
 from scene_graph_commonsense_torch.train import checkpoint as ckpt_lib
 from scene_graph_commonsense_torch.train import engine
 from scene_graph_commonsense_torch.utils.logging import (
@@ -64,14 +66,91 @@ def checkpoint_file(cfg, epoch: int) -> str:
     return os.path.join(cfg.training.checkpoint_path, name + ".pt")
 
 
+def load_detr_featurizer(cfg, device=None,
+                         generator: Optional[torch.Generator] = None,
+                         log_fn: Callable[[str], None] = print):
+    """The frozen DETR-101 featurizer on `device` (default cuda).  Weights
+    come from cfg.model.detr_pretrained, a torch state dict in
+    torch-hub names (`torch.save` of the hub model's state_dict, or a dict
+    with it under "model"); when that file is absent, from a seeded random
+    init (`generator`, default seeded with cfg.training.seed) with a loud
+    warning: fine for plumbing and timing, useless for recall.  Returns
+    (featurize_fn, detr_model)."""
+    path = cfg.model.detr_pretrained
+    state_dict = None
+    if os.path.exists(path):
+        if path.endswith(".msgpack"):
+            raise ValueError(
+                f"{path} is a flax msgpack checkpoint of the JAX package; "
+                f"the PyTorch port cannot read it (it does not depend on "
+                f"flax).  Point model.detr_pretrained at the torch-hub DETR "
+                f"state dict (.pth) it was converted from.")
+        ckpt = torch.load(path, map_location="cpu", weights_only=True)
+        state_dict, _ = detr_from_hub_state_dict(
+            ckpt.get("model", ckpt), cfg.model.detr_enc_layers,
+            tuple(cfg.model.detr_blocks))
+    else:
+        log_fn(f"WARNING: {path} not found — using randomly initialized "
+               f"DETR weights (give a torch-hub DETR state dict for "
+               f"meaningful features)")
+    detr = make_detr(cfg, device=device, state_dict=state_dict,
+                     generator=generator)
+    return make_detr_featurize_fn(cfg, detr), detr
+
+
+def make_detr_featurize_fn(cfg, detr_model: Optional[DETR],
+                           detr_params=None):
+    """Returns featurize(batch) -> batch with 'features' (and
+    'features_aug' when an augmented image view is present) computed by the
+    frozen DETR encoder (reference train_utils.py:9-18, run per batch under
+    no_grad); the image keys are popped.  `detr_params`, a state dict of the
+    port's names, is loaded into `detr_model` if given.  The encoder runs
+    under torch.inference_mode on the model's device; the features are
+    copied out of inference mode so that a train step may save them for its
+    backward."""
+    if detr_params is not None:
+        detr_model.load_state_dict(detr_params)
+
+    def encode(images):
+        dev = next(detr_model.parameters()).device
+        with torch.inference_mode():
+            return detr_model.encode_features(
+                torch.as_tensor(images).to(dev))
+
+    def featurize(batch: Dict) -> Dict:
+        batch = dict(batch)
+        need_plain = "features" not in batch and "image" in batch
+        need_aug = "features_aug" not in batch and "image_aug" in batch
+        if need_plain and need_aug:
+            # both views in one 2B dispatch: the larger batch fills the
+            # card better than two B dispatches
+            n = len(batch["image"])
+            both = encode(torch.cat([torch.as_tensor(batch["image"]),
+                                     torch.as_tensor(batch["image_aug"])]))
+            batch["features"] = both[:n].clone()
+            batch["features_aug"] = both[n:].clone()
+        elif need_plain:
+            batch["features"] = encode(batch["image"]).clone()
+        elif need_aug:
+            batch["features_aug"] = encode(batch["image_aug"]).clone()
+        batch.pop("image", None)
+        batch.pop("image_aug", None)
+        return batch
+
+    return featurize
+
+
 def fit(cfg, model, train_batches_fn: Callable[[int], Iterable],
         test_batches_fn: Optional[Callable[[int], Iterable]] = None,
         steps_per_epoch: int = 1000, artifacts=None, device=None,
+        featurize: Optional[Callable[[Dict], Dict]] = None,
         log_fn: Callable[[str], None] = print) -> engine.TrainState:
     """Full training run on one device (default cuda); returns the final
     TrainState.  `model` is a RelationClassifier whose parameters are
     trained in place; the batch functions map an epoch to an iterable of
-    numpy batch dicts."""
+    numpy batch dicts.  `featurize` (make_detr_featurize_fn) turns image
+    batches into feature batches on the prefetcher's thread, overlapping
+    the train step."""
     tc = cfg.training
     check_observability(tc)
     dev = resolve_device(device)
@@ -119,10 +198,16 @@ def fit(cfg, model, train_batches_fn: Callable[[int], Iterable],
     host_step = state.step
     overflow_warned = False
 
+    def _prep(batch: Dict, on_device: bool) -> Dict:
+        # featurize, then (train batches) the copy to the card, all on the
+        # producer thread; test batches stay numpy apart from their
+        # features (run_eval_pc's evaluators read them on the host)
+        batch = featurize(batch) if featurize is not None else dict(batch)
+        batch.pop("annot_path", None)
+        return to_device(batch, dev) if on_device else batch
+
     def _prepped(batches, on_device: bool):
-        # train batches go to the card on the producer thread; test batches
-        # stay numpy (run_eval_pc's evaluators read them on the host)
-        prep = (lambda b: to_device(b, dev)) if on_device else dict
+        prep = lambda b: _prep(b, on_device)  # noqa: E731
         if tc.prefetch_batches > 0:
             return prefetch_iterator(batches, tc.prefetch_batches, prep)
         return map(prep, batches)
