@@ -33,16 +33,21 @@ Phases, each printing JSON lines:
               which must launch the forward kernel once per test batch and
               per train-time recall pass, and write its checkpoint.
   7. featurize: the live DETR-101 featurizer at full width (ResNet-101
-              trunk as cuDNN convolutions, 6 encoder layers, d_model 256,
-              8 heads, dim_ff 2048, bf16, seeded random weights; config
-              fused_backbone off, flash_encoder on) on seeded 1024x1024
-              images: encode_features of 12 and of 24 images (CUDA events
-              after a warm-up), SceneGraphPredictor.predict from 12 images,
-              and fit(featurize=...) for 2 steps with both views in one
-              2B dispatch; exactly 6 launches of each encoder kernel per
-              encode dispatch, the pair-pool kernels as on their own paths;
-              peak memory; torch.profiler split of trunk, encoder, the two
-              kernels and the relation head.
+              trunk, 6 encoder layers, d_model 256, 8 heads, dim_ff 2048,
+              bf16, seeded random weights; the default config, so the
+              fused trunk and the encoder kernels run on the card) on
+              seeded 1024x1024 images: encode_features of 12 and of 24
+              images (CUDA events after a warm-up), with the fused trunk
+              and beside it with fused_backbone off (the cuDNN trunk);
+              SceneGraphPredictor.predict from 12 images, and
+              fit(featurize=...) for 2 steps with both views in one 2B
+              dispatch.  Per encode dispatch exactly 1 stem kernel, 30
+              stride-1 and 3 stride-2 bottleneck kernels, no stem-pool
+              kernel, 6 of each encoder kernel; the pair-pool kernels as on
+              their own paths; peak memory; torch.profiler split of both
+              trunks, the encoder, the kernels and the relation head, and
+              the fused trunk's per-stage split (CUDA events over chained
+              prefixes, `upto`).
   8. parity:  the same weights and batch through make_eval_step, and one
               train step, on the card (kernels) and on the CPU (plain
               versions) at a reduced size in float32 with TF32 off: outputs
@@ -50,13 +55,22 @@ Phases, each printing JSON lines:
               and metrics equal, the winner index equal on equal streams;
               encode_features of a 1024x512 image at reduced depth in
               float32 (kernels on the card, plain versions on the CPU)
-              within 1e-4.
+              within 1e-4; the fused trunk at depth (1, 1, 1, 1), float32,
+              on a 1024x512 image (stem, stride-1 and stride-2 kernels) and
+              a 1020x508 one (the stem-pool kernel and the odd-size
+              fallback) within TRUNK_F32_TOL of the output's scale.
 Phase `kernel` also holds the encoder kernels against their plain versions:
 attention at (B, 1024, 8, 32) for B = 12 and 24, with all keys valid, 80%
 of the keys masked, and one image's keys all masked; FFN + LayerNorm at
 N = 12288 and 24576 tokens; each in bf16 (error against a float64 truth at
 most 2x the plain version's) and float32 (within ATTN_F32_TOL / FFN_F32_TOL
-of the plain version), with SDPA timed beside the attention kernel.
+of the plain version), with SDPA timed beside the attention kernel; and the
+trunk kernels at the production shapes (batch 12, 1024^2 images): the stem
+at (12, 1024, 1024, 3), the stem pool at (12, 510, 510, 64) (exact), the
+stride-1 bottleneck at the five block shapes of the trunk and the stride-2
+one at its three transitions, bf16 (2x rule) and float32 (TRUNK_F32_TOL of
+the output's scale), each timed beside its plain version and the port's
+unfused counterpart (`unfused_ms`: cuDNN convolutions and their passes).
 Then a {"kernels": [...]} line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  Uses no JAX.
 
@@ -90,11 +104,13 @@ from scene_graph_commonsense_torch.device import disable_tf32
 from scene_graph_commonsense_torch.eval import engines
 from scene_graph_commonsense_torch.inference import SceneGraphPredictor
 from scene_graph_commonsense_torch.models import detr as detr_lib
+from scene_graph_commonsense_torch.models import resnet_fused
 from scene_graph_commonsense_torch.models import weights
 from scene_graph_commonsense_torch.models.relation_head import (
     make_relation_classifier)
 from scene_graph_commonsense_torch.ops import _build, pair_pool, pairs
 from scene_graph_commonsense_torch.ops import attention, ffn
+from scene_graph_commonsense_torch.ops import bottleneck, stem
 from scene_graph_commonsense_torch.ops import boxes as box_ops
 from scene_graph_commonsense_torch.train import engine
 from scene_graph_commonsense_torch.train import loop
@@ -114,6 +130,10 @@ H100_SMS = 132
 # LayerNorm divides by the row's deviation)
 ATTN_F32_TOL = 1e-5
 FFN_F32_TOL = 5e-5
+# the trunk kernels in float32 against their plain versions, relative to
+# the output's scale (max |plain|): sums of up to 9 * 512 products in
+# another order, each rounded once in float32 (~1e-6 relative)
+TRUNK_F32_TOL = 1e-5
 # the port's kernels: the module holding the launch counter, the counter,
 # source, the TPU kernel it replaces
 SOURCE = "scene_graph_commonsense_torch/csrc/pair_pool.cu"
@@ -129,7 +149,24 @@ KERNELS = {
     "attention": (attention, "launches",
                   "scene_graph_commonsense_torch/csrc/attention.cu",
                   PALLAS + "attention.py:36"),
+    "stem_conv_pool": (stem, "conv_pool_launches",
+                       "scene_graph_commonsense_torch/csrc/stem.cu",
+                       PALLAS + "stem.py:55"),
+    "stem_pool": (stem, "pool_launches",
+                  "scene_graph_commonsense_torch/csrc/stem.cu",
+                  PALLAS + "stem.py:172"),
+    "bottleneck": (bottleneck, "launches",
+                   "scene_graph_commonsense_torch/csrc/bottleneck.cu",
+                   PALLAS + "bottleneck.py:78"),
+    "bottleneck_s2": (bottleneck, "s2_launches",
+                      "scene_graph_commonsense_torch/csrc/bottleneck.cu",
+                      PALLAS + "bottleneck.py:145"),
 }
+# launches of each trunk and encoder kernel per encode dispatch at 1024^2
+# with the fused trunk: the stem, 30 stride-1 blocks, 3 transitions, and
+# one attention and one FFN per encoder layer
+PER_ENCODE = {"stem_conv_pool": 1, "bottleneck": 30, "bottleneck_s2": 3,
+              "ffn_ln": 6, "attention": 6}
 
 
 PAIR_POOL_KERNELS = ("pair_pool", "pair_pool_idx", "pair_pool_bwd")
@@ -586,6 +623,255 @@ def phase_kernel_encoder(exp_per_s):
             for name in ("ffn_ln", "attention")}
 
 
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def bottleneck_bound(x, blk, out):
+    """x read, y written, the weights and folds read once; the products of
+    conv1 on every input pixel, conv2, conv3 and the projection on every
+    output pixel at the peak rate of x's dtype."""
+    b, h, w, c = x.shape
+    m, co = blk.w1.shape[1], blk.w3.shape[1]
+    p_in, p_out = b * h * w, out.numel() // co
+    flops = 2 * (p_in * c * m + p_out * (9 * m * m + m * co
+                                         + (c * co if blk.wd is not None
+                                            else 0)))
+    moved = nbytes(x, out, *blk.args())
+    return {**bound_terms(moved, products=flops / product_rate(x.dtype)),
+            "flops": flops}
+
+
+def stem_bound(images, w7, fold, out):
+    """The float32 images, kernel and fold read once, the pooled output
+    written once; 2 x 147 x 64 operations per conv output pixel at the
+    peak rate of the compute dtype."""
+    b, h, w, _ = images.shape
+    flops = 2 * b * (h // 2) * (w // 2) * 147 * 64
+    return {**bound_terms(nbytes(images, w7, fold, out),
+                          products=flops / product_rate(w7.dtype)),
+            "flops": flops}
+
+
+def stem_pool_bound(x, fold, out):
+    """x read and out written once; a multiply, an add and a max with 0 per
+    input element and 8 maxes per output element, float32."""
+    ops = 3 * x.numel() + 8 * out.numel()
+    return bound_terms(nbytes(x, fold, out), elementwise=ops / FP32_OPS_PER_S)
+
+
+def random_bottleneck(cin, m, stride, proj, gen, dev):
+    """A port Bottleneck with seeded random weights and frozen-BN
+    statistics (so that the folds are not trivial)."""
+    blk = detr_lib.Bottleneck(cin, m, stride, downsample=proj)
+    with torch.no_grad():
+        for mod in blk.modules():
+            if isinstance(mod, torch.nn.Conv2d):
+                fan_in = mod.weight[0].numel()
+                mod.weight.normal_(0, fan_in ** -0.5, generator=gen)
+            elif isinstance(mod, detr_lib.FrozenBatchNorm):
+                mod.weight.uniform_(0.5, 1.5, generator=gen)
+                mod.bias.normal_(0, 0.2, generator=gen)
+                mod.running_mean.normal_(0, 0.5, generator=gen)
+                mod.running_var.uniform_(0.5, 2.0, generator=gen)
+    return blk.to(dev).eval().requires_grad_(False)
+
+
+def bottleneck_truth(x, blk, stride):
+    """float64 block with the kernel's roundings of a and b to x's dtype,
+    exact sums."""
+    cd, f = x.dtype, torch.float64
+    w1, s1, w2, s2, w3, s3, wd, sd = (None if t is None else t.to(f)
+                                      for t in blk.args())
+    xf = x.to(f)
+    a = torch.relu(xf @ w1 * s1[0] + s1[1]).to(cd).to(f)
+    acc = F.conv2d(a.permute(0, 3, 1, 2), w2.permute(3, 2, 0, 1),
+                   stride=stride, padding=1).permute(0, 2, 3, 1)
+    b = torch.relu(acc * s2[0] + s2[1]).to(cd).to(f)
+    c = b @ w3 * s3[0] + s3[1]
+    idn = xf if wd is None else xf[:, ::stride, ::stride] @ wd * sd[0] + sd[1]
+    return torch.relu(c + idn)
+
+
+def stem_truth(images, w7, fold):
+    """float64 stem on the compute-dtype-rounded images and kernel, exact
+    sums."""
+    f = torch.float64
+    x = images.to(w7.dtype).to(f).permute(0, 3, 1, 2)
+    conv = F.conv2d(x, w7.to(f).permute(3, 2, 0, 1), stride=2, padding=3)
+    s = fold.to(f)
+    v = torch.relu(conv * s[0][:, None, None] + s[1][:, None, None])
+    return F.max_pool2d(v, 3, 2, 1).permute(0, 2, 3, 1)
+
+
+def check_trunk_kernel(name, got, want, truth_fn):
+    """float32: within TRUNK_F32_TOL of the output's scale; bf16: at most 2x
+    the plain version's error against the float64 truth."""
+    err = (got.float() - want.float()).abs().max().item()
+    rec = {"max_abs_err": err}
+    if got.dtype == torch.float32:
+        ratio = err / (TRUNK_F32_TOL * want.abs().max().item())
+        if ratio > 1:
+            raise AssertionError(f"{name}: float32 kernel vs plain "
+                                 f"{ratio:.3g} x the tolerance")
+        rec["max_err_over_tol"] = ratio
+    else:
+        rec.update(check_bf16(name, got, want, truth_fn()))
+    return rec
+
+
+# the trunk's stride-1 blocks at 1024^2, batch 12: (name, H, W, C_in, M,
+# projection, launches per encode); C_out = 4 M
+K3_CASES = (("layer1_0", 256, 256, 64, 64, True, 1),
+            ("layer1_1", 256, 256, 256, 64, False, 2),
+            ("layer2", 128, 128, 512, 128, False, 3),
+            ("layer3", 64, 64, 1024, 256, False, 22),
+            ("layer4", 32, 32, 2048, 512, False, 2))
+# the transitions: (name, H, W, C_in, M)
+K4_CASES = (("layer2_0", 256, 256, 256, 128), ("layer3_0", 128, 128, 512, 256),
+            ("layer4_0", 64, 64, 1024, 512))
+
+
+def _launch_mean(recs, weights_, key):
+    return sum(r[key] * n for r, n in zip(recs, weights_)) / sum(weights_)
+
+
+def phase_kernel_trunk():
+    """The trunk kernels vs their plain versions at the production shapes
+    (batch 12, 1024^2 images; K6 at the stem conv output of 1020^2 images),
+    bf16 and float32, each timed beside its plain version and the port's
+    unfused counterpart (cuDNN and its passes).  Returns, per kernel, the
+    bf16 numbers as a mean per launch over one encode's launches (K6: its
+    one case)."""
+    dev = torch.device("cuda")
+    disable_tf32()
+    gen = torch.Generator(device=dev).manual_seed(3)
+    cpu_gen = torch.Generator().manual_seed(4)
+    b = 12
+    summary = {}
+
+    def timing(kernel_fn, plain_fn, unfused_fn, dtype):
+        few = dtype == torch.float32
+        rec = timed(kernel_fn, plain_fn, plain_iters=2 if few else 3,
+                    kernel_iters=3 if few else 10)
+        rec["unfused_ms"] = cuda_ms(unfused_fn, 3)
+        return rec
+
+    # K5: the whole stem at (12, 1024, 1024, 3)
+    net = detr_lib.ResNet101((0, 0, 0, 0))
+    with torch.no_grad():
+        net.conv1.weight.normal_(0, 147 ** -0.5, generator=cpu_gen)
+        net.bn1.running_var.uniform_(0.5, 2.0, generator=cpu_gen)
+        net.bn1.bias.normal_(0, 0.2, generator=cpu_gen)
+    net = net.to(dev).requires_grad_(False)
+    images = torch.randn((b, 1024, 1024, 3), device=dev, generator=gen)
+    recs = []
+    for dtype in (torch.bfloat16, torch.float32):
+        prep = resnet_fused.prepared(net, dtype)
+        args = (images, prep.stem_w7, prep.stem_fold)
+        got = stem.stem_conv_pool_kernel(*args)
+        want = stem.stem_conv_pool_plain(*args, compute_dtype=dtype)
+        torch.cuda.synchronize()
+        rec = {"shape": list(images.shape), "dtype": str(dtype)[6:],
+               **check_trunk_kernel("stem_conv_pool", got, want,
+                                    lambda: stem_truth(*args)),
+               **timing(lambda: stem.stem_conv_pool_kernel(*args),
+                        lambda: stem.stem_conv_pool_plain(
+                            *args, compute_dtype=dtype),
+                        lambda: net(images, dtype), dtype),
+               "library_ms": None, **stem_bound(*args, got)}
+        del got, want
+        emit({"phase": "kernel", "name": "stem_conv_pool", **rec})
+        recs.append(rec)
+    summary["stem_conv_pool"] = {**recs[0], "max_abs_err": max(
+        r["max_abs_err"] for r in recs)}
+    del images, net
+    torch.cuda.empty_cache()
+
+    # K6: BN + ReLU + pool of the stem conv output of 1020^2 images
+    bn = detr_lib.FrozenBatchNorm(64)
+    with torch.no_grad():
+        bn.running_var.uniform_(0.5, 2.0, generator=cpu_gen)
+        bn.bias.normal_(0, 0.2, generator=cpu_gen)
+    bn = bn.to(dev)
+    fold = bottleneck.fold_bn(bn)
+    conv32 = torch.randn((b, 510, 510, 64), device=dev, generator=gen)
+    recs = []
+    for dtype in (torch.bfloat16, torch.float32):
+        conv = conv32.to(dtype)
+        got = stem.stem_pool_kernel(conv, fold)
+        want = stem.stem_pool_plain(conv, fold)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"stem_pool kernel != plain ({dtype}): "
+                                 f"{(got.float() - want.float()).abs().max()}")
+        nchw = conv.permute(0, 3, 1, 2)
+        rec = {"shape": list(conv.shape), "dtype": str(dtype)[6:],
+               "max_abs_err": 0.0, "exact": True,
+               **timing(lambda: stem.stem_pool_kernel(conv, fold),
+                        lambda: stem.stem_pool_plain(conv, fold),
+                        lambda: F.max_pool2d(torch.relu(bn(nchw, dtype)),
+                                             3, 2, 1), dtype),
+               "library_ms": None, **stem_pool_bound(conv, fold, got)}
+        del got, want
+        emit({"phase": "kernel", "name": "stem_pool", **rec})
+        recs.append(rec)
+    summary["stem_pool"] = recs[0]
+    del conv32, conv
+    torch.cuda.empty_cache()
+
+    # K3 and K4 at the trunk's shapes
+    for name, cases, stride in (("bottleneck", K3_CASES, 1),
+                                ("bottleneck_s2", K4_CASES, 2)):
+        main, counts, max_err = [], [], 0.0
+        for case in cases:
+            label, h, w, cin, m = case[:5]
+            proj = case[5] if stride == 1 else True
+            mod = random_bottleneck(cin, m, stride, proj, cpu_gen, dev)
+            x32 = torch.randn((b, h, w, cin), device=dev, generator=gen)
+            kernel = bottleneck.bottleneck_kernel if stride == 1 \
+                else bottleneck.bottleneck_s2_kernel
+            plain = bottleneck.fused_bottleneck_plain if stride == 1 \
+                else bottleneck.fused_bottleneck_s2_plain
+            for dtype in (torch.bfloat16, torch.float32):
+                blk = resnet_fused.prepare_block(mod, stride, dtype)
+                x = x32.to(dtype)
+                got = kernel(x, *blk.args())
+                want = plain(x, *blk.args())
+                torch.cuda.synchronize()
+                rec = {"case": label, "shape": list(x.shape), "m": m,
+                       "co": 4 * m, "dtype": str(dtype)[6:],
+                       **check_trunk_kernel(
+                           f"{name} {label}", got, want,
+                           lambda: bottleneck_truth(x, blk, stride)),
+                       "library_ms": None, **bottleneck_bound(x, blk, got)}
+                del got, want
+                x_nchw = x.permute(0, 3, 1, 2)
+                rec.update(timing(lambda: kernel(x, *blk.args()),
+                                  lambda: plain(x, *blk.args()),
+                                  lambda: mod(x_nchw, dtype), dtype))
+                emit({"phase": "kernel", "name": name, **rec})
+                max_err = max(max_err, rec["max_abs_err"])
+                if dtype == torch.bfloat16:
+                    main.append(rec)
+                    counts.append(case[6] if stride == 1 else 1)
+                del x, x_nchw, blk
+                torch.cuda.empty_cache()
+            del mod, x32
+        # per launch over one encode: the launch-weighted means, bound by
+        # what bounds the case with the most launches
+        summary[name] = {
+            "max_abs_err": max_err,
+            "bound_by": main[counts.index(max(counts))]["bound_by"],
+            **{k: _launch_mean(main, counts, k) for k in (
+                "ms", "plain_ms", "unfused_ms", "bound_ms")},
+            "library_ms": None}
+    return {name: {k: rec[k] for k in (
+        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+        "library_ms", "unfused_ms")} for name, rec in summary.items()}
+
+
 def phase_slice():
     """PredCLS eval + serving at full VG width through the port's entry
     points."""
@@ -674,6 +960,10 @@ def device_profile(fn, n, top_ops=16, groups=None):
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
+        # a tiny kernel first: the trace at times lacks the window's first
+        # kernel (seen with the fused trunk's stem kernel)
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -850,8 +1140,9 @@ def image_batches(rng, n, batch_size, image_size, with_aug):
 
 def phase_featurize():
     """The live DETR-101 featurizer at full width through the port's entry
-    points.  Returns the encoder kernels' launches over one serving call
-    (predict from 12 images)."""
+    points, with the default config (fused trunk and encoder kernels on the
+    card).  Returns the trunk and encoder kernels' launches over one
+    serving call (predict from 12 images)."""
     torch.cuda.empty_cache()
     cfg = config_lib.derive("vg", hierarchical_pred=True, run_mode="eval",
                             training={"batch_size": 12})
@@ -863,9 +1154,11 @@ def phase_featurize():
     init_s = time.perf_counter() - t0
     if not (log and log[0].startswith("WARNING")):
         raise AssertionError(f"expected the random-weights warning: {log}")
-    if not detr.flash_encoder or detr.backbone.blocks != (3, 4, 23, 3) \
+    if not (detr.fused_backbone and detr.flash_encoder) \
+            or detr.backbone.blocks != (3, 4, 23, 3) \
             or len(detr.encoder_layers()) != 6:
-        raise AssertionError("not the full DETR-101 with flash_encoder on")
+        raise AssertionError("not the full DETR-101 with fused_backbone and "
+                             "flash_encoder on")
     size = cfg.model.image_size
     rng = np.random.default_rng(21)
     images = synthetic_images(rng, 12, size)
@@ -876,12 +1169,21 @@ def phase_featurize():
         with torch.inference_mode():
             return detr.encode_features(x)
 
-    def trunk(x):
+    def trunk(x, upto=None):
         with torch.inference_mode():
+            if detr.fused_backbone:
+                return resnet_fused.resnet_forward_fused(
+                    detr.backbone, x, detr.dtype, upto=upto)
             return detr.backbone(x, detr.dtype)
 
-    timing = {}
-    for name, x in (("encode_12", x12), ("encode_24", x24)):
+    def per_encode(n, **extra):
+        return expected(**{k: v * n for k, v in PER_ENCODE.items()}, **extra)
+
+    timing, timing_unfused = {}, {}
+    for fused, name, x in ((True, "encode_12", x12), (True, "encode_24", x24),
+                           (False, "encode_12", x12),
+                           (False, "encode_24", x24)):
+        detr.fused_backbone = fused                     # off: the cuDNN trunk
         feats = encode(x)                               # warm-up
         torch.cuda.synchronize()
         s = cfg.model.feature_size
@@ -903,21 +1205,36 @@ def phase_featurize():
         end.record()
         torch.cuda.synchronize()
         counts = read_counts()
-        if counts != expected(ffn_ln=6 * reps, attention=6 * reps):
-            raise AssertionError(f"{name}: launches over {reps} encodes "
-                                 f"{counts}, expected 6 of each encoder "
-                                 f"kernel per encode")
+        want = per_encode(reps) if fused \
+            else expected(ffn_ln=6 * reps, attention=6 * reps)
+        if counts != want:
+            raise AssertionError(f"{name} (fused trunk {fused}): launches "
+                                 f"over {reps} encodes {counts}, expected "
+                                 f"{want}")
         ms = start.elapsed_time(end) / reps
-        timing[name] = {"ms": ms, "ms_per_image": ms / x.shape[0],
-                        "peak_mem_gb": torch.cuda.max_memory_allocated()
-                        / 1e9, "launches": counts}
+        (timing if fused else timing_unfused)[name] = {
+            "ms": ms, "ms_per_image": ms / x.shape[0],
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": counts}
 
-    # where the time of one encode of 12 goes
+    # where the time of one encode of 12 goes: the unfused trunk, then the
+    # fused one (the rest of the phase runs fused)
+    prof_trunk_unfused = device_profile(lambda: trunk(x12), 1)
+    detr.fused_backbone = True
     kernel_groups = {"attention": "attention_tc_kernel",
-                     "ffn_ln": "ffn_ln_tc_kernel"}
-    prof_trunk = device_profile(lambda: trunk(x12), 1)
+                     "ffn_ln": "ffn_ln_tc_kernel",
+                     "bottleneck": "bottleneck_kernel",
+                     "stem_conv_pool": "stem_conv_pool_kernel"}
+    prof_trunk = device_profile(lambda: trunk(x12), 1, groups=kernel_groups)
     prof_encode = device_profile(lambda: encode(x12), 1,
                                  groups=kernel_groups)
+    # the fused trunk's stages: CUDA-event times of its chained prefixes
+    prefix_ms = {u: cuda_ms(lambda u=u: trunk(x12, upto=u), 3)
+                 for u in ("stem", "layer1", "layer2", "layer3", "layer4")}
+    stages, before = {}, 0.0
+    for u, ms in prefix_ms.items():
+        stages[u] = ms - before
+        before = ms
 
     # serving: SceneGraphPredictor.predict from 12 images
     model = make_relation_classifier(
@@ -933,7 +1250,7 @@ def phase_featurize():
     torch.cuda.synchronize()
     predict_s = time.perf_counter() - t0
     predict_launches = read_counts()
-    if predict_launches != expected(ffn_ln=6, attention=6, pair_pool=1):
+    if predict_launches != per_encode(1, pair_pool=1):
         raise AssertionError(f"predict from images launched "
                              f"{predict_launches}")
     if len(graphs) != 12 or not sum(len(g) for g in graphs):
@@ -949,6 +1266,10 @@ def phase_featurize():
     trunk_ms = prof_trunk["device_ms_per_call"]
     kern = prof_encode["group_ms_per_call"]
     split = {"trunk_ms": trunk_ms,
+             "trunk_unfused_ms": prof_trunk_unfused["device_ms_per_call"],
+             "trunk_stage_ms": stages,
+             "bottleneck_kernels_ms": kern["bottleneck"],
+             "stem_kernel_ms": kern["stem_conv_pool"],
              "encoder_ms": encode_ms - trunk_ms,
              "attention_kernel_ms": kern["attention"],
              "ffn_ln_kernel_ms": kern["ffn_ln"],
@@ -980,8 +1301,8 @@ def phase_featurize():
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t0
         fit_launches = read_counts()
-    expect = expected(ffn_ln=6 * steps, attention=6 * steps,
-                      pair_pool_idx=2 * steps, pair_pool_bwd=2 * steps)
+    expect = per_encode(steps, pair_pool_idx=2 * steps,
+                        pair_pool_bwd=2 * steps)
     if fit_launches != expect:
         raise AssertionError(f"fit(featurize=) launched {fit_launches}, "
                              f"expected {expect}")
@@ -997,16 +1318,18 @@ def phase_featurize():
                                detr_lib.resolve_detr_modes(
                                    cfg, torch.device("cuda")))),
           "weights": log[0], "init_s": init_s, **timing,
+          "fused_backbone_off": timing_unfused,
           "predict_s": predict_s, "predict_launches": predict_launches,
           "predict_edges": sum(len(g) for g in graphs),
           "device_split_encode_12": split,
           "profile_encode_12": prof_encode, "profile_trunk_12": prof_trunk,
+          "profile_trunk_unfused_12": prof_trunk_unfused,
           "profile_relation_head": prof_head,
           "fit_steps": steps, "fit_s": fit_s, "fit_launches": fit_launches,
           "fit_lines": lines})
     del detr, fmodel
     torch.cuda.empty_cache()
-    return {k: predict_launches[k] for k in ("ffn_ln", "attention")}
+    return {k: predict_launches[k] for k in PER_ENCODE}
 
 
 def phase_parity():
@@ -1125,6 +1448,67 @@ def phase_parity():
     emit({"phase": "parity_encode", "image": [1024, 512], "tokens": 512,
           "detr_blocks": [1, 1, 1, 1], "encoder_layers": 2,
           "max_abs_err": enc_err, "tolerance": 1e-4})
+    return phase_parity_trunk()
+
+
+def phase_parity_trunk():
+    """The fused trunk on the card (kernels) and on the CPU (plain
+    versions), float32, blocks (1, 1, 1, 1) at full width, seeded random
+    weights and frozen-BN statistics, on a 1024x512 image (the stem
+    kernel, K3, K4 at every transition) and a 1020x508 one (the plain stem
+    conv and K6, the plain fallback at the odd layer2 transition, K3, K4).
+    Returns K6's launches."""
+    blocks = (1, 1, 1, 1)
+    tcfg = config_lib.derive("vg", model={"detr_blocks": blocks,
+                                          "compute_dtype": "float32"})
+    gen = torch.Generator().manual_seed(9)
+    sd = {}
+    for k, v in weights.init_detr_params(tcfg, gen).items():
+        if not k.startswith("backbone."):
+            continue
+        if k.endswith("running_var") or k.endswith(".weight") and v.dim() == 1:
+            v = torch.empty_like(v).uniform_(0.5, 2.0, generator=gen)
+        elif k.endswith("running_mean") or k.endswith(".bias"):
+            v = torch.empty_like(v).normal_(0, 0.2, generator=gen)
+        sd[k.removeprefix("backbone.")] = v
+    nets = {}
+    for dev in ("cuda", "cpu"):
+        nets[dev] = detr_lib.ResNet101(blocks).to(dev)
+        nets[dev].load_state_dict(sd)
+        nets[dev].requires_grad_(False)
+    full = synthetic_images(np.random.default_rng(41), 1, 1024,
+                            with_aug=False)["image"]
+    cases = (((1024, 512), expected(stem_conv_pool=1, bottleneck=1,
+                                    bottleneck_s2=3)),
+             ((1020, 508), expected(stem_pool=1, bottleneck=1,
+                                    bottleneck_s2=2)))
+    k6 = 0
+    for (h, w), want in cases:
+        image = torch.from_numpy(full[:, :h, :w].copy())
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            reset_counts()
+            with torch.inference_mode():
+                outs[dev] = resnet_fused.resnet_forward_fused(
+                    nets[dev], image.to(dev), torch.float32).cpu()
+            if dev == "cuda":
+                counts = read_counts()
+                if counts != want:
+                    raise AssertionError(f"card trunk {h}x{w} launched "
+                                         f"{counts}, expected {want}")
+                k6 += counts["stem_pool"]
+        scale = outs["cpu"].abs().max().item()
+        err = (outs["cuda"] - outs["cpu"]).abs().max().item()
+        # sums of up to 9 * 512 float32 products in another order, through
+        # 5 blocks: ~1e-6 of the output's scale
+        if not err <= TRUNK_F32_TOL * scale:
+            raise AssertionError(f"card vs CPU fused trunk {h}x{w}: {err} > "
+                                 f"{TRUNK_F32_TOL} x {scale}")
+        emit({"phase": "parity_trunk", "image": [h, w],
+              "detr_blocks": list(blocks), "shape": list(outs["cpu"].shape),
+              "max_abs_err": err, "scale": scale,
+              "tolerance": f"{TRUNK_F32_TOL} x scale", "launches": want})
+    return k6
 
 
 def main():
@@ -1138,6 +1522,7 @@ def main():
     if "kernel" in phases:
         kernel.update(phase_kernel())
         kernel.update(phase_kernel_encoder(info["exp_per_s"]))
+        kernel.update(phase_kernel_trunk())
     launches = {}
     if {"slice", "profile"} & phases:
         slice_launches, slice_state = phase_slice()
@@ -1152,14 +1537,16 @@ def main():
     if "featurize" in phases:
         launches.update(phase_featurize())
     if "parity" in phases:
-        phase_parity()
+        # K6 runs on the fallback for images that are even but not
+        # divisible by 8, not at 1024^2: its count is the parity run's
+        launches["stem_pool"] = phase_parity()
     if len(kernel) != len(KERNELS) or len(launches) != len(KERNELS):
         return 0                                # a partial run: no summary
     rows = [{"name": name, "route": "cuda", "source": source,
              "replaces": replaces, "launches": launches[name],
              **{k: kernel[name][k] for k in (
                  "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                 "library_ms")}}
+                 "library_ms", "unfused_ms") if k in kernel[name]}}
             for name, (_, _, source, replaces) in KERNELS.items()]
     emit({"kernels": rows})
     print(info["nvidia_smi"], flush=True)

@@ -100,11 +100,13 @@ class ModelConfig:
     # Compute dtype for the relation trunk ('float32' for parity tests,
     # 'bfloat16' for production throughput; params stay float32).
     compute_dtype: str = "bfloat16"
-    # Fused kernels for the frozen ResNet trunk ('auto', 'on', 'off'; the
-    # JAX package: auto = on for a single-device TPU).  The port's fused
-    # trunk (TPU kernels K3-K6) comes with slice 4: until then 'auto'
-    # resolves to off and 'on' raises (models/detr.resolve_detr_modes).
-    # Only the ResNet-101 layout detr_blocks == (3, 4, 23, 3) may fuse.
+    # Fused kernels for the frozen ResNet trunk ('auto', 'on', 'off'):
+    # models/resnet_fused.py with the stem and bottleneck kernels
+    # (ops/stem.py, ops/bottleneck.py).  auto = on for a CUDA model whose
+    # compute_dtype is not float64 (the JAX package: a single-device TPU);
+    # off = the plain cuDNN trunk.  Only the ResNet-101 layout
+    # detr_blocks == (3, 4, 23, 3) fuses; other layouts run unfused
+    # (models/detr.resolve_detr_modes).
     fused_backbone: str = "auto"
     # "auto" | "on" | "off": the fused DETR encoder kernels (self-attention
     # and FFN + LayerNorm, ops/attention.py and ops/ffn.py) — auto = on for

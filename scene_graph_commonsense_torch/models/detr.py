@@ -5,7 +5,9 @@ images into the (B, S, S, 256) feature map of the relation stage
 
   * ResNet-101 v1.5 trunk to C5 (stride on conv2, a strided 1x1 projection
     on the first block of each stage), frozen batch norm with its four
-    statistics as buffers;
+    statistics as buffers; with `fused_backbone` the trunk runs the fused
+    stem and bottleneck kernels of models/resnet_fused.py where the JAX
+    package runs its Pallas ones;
   * normalised sine position embeddings;
   * input_proj (1x1 conv with bias) and the post-norm encoder (6 layers),
     whose self-attention and FFN + LayerNorm run the fused kernels of
@@ -33,6 +35,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from scene_graph_commonsense_torch.models.resnet_fused import (
+    resnet_forward_fused)
 from scene_graph_commonsense_torch.ops.attention import fused_attention
 from scene_graph_commonsense_torch.ops.ffn import fused_ffn_ln
 
@@ -124,14 +128,27 @@ class Bottleneck(nn.Module):
         return torch.relu(out + idn)
 
 
+def _drop_fused(module, incompatible_keys) -> None:
+    module.drop_fused()
+
+
 class ResNet101(nn.Module):
     """torchvision-style ResNet-101 trunk up to C5 (stride 32, 2048
     channels); `blocks` shrinks the per-stage depth for tests.  Blocks are
-    named layer<stage>_<i> as in the flax tree."""
+    named layer<stage>_<i> as in the flax tree.
+
+    `forward` is the unfused trunk (cuDNN convolutions with frozen-BN, ReLU
+    and residual passes); models/resnet_fused.resnet_forward_fused runs the
+    same parameters through the fused kernels.  It keeps their folded,
+    kernel-layout copies in `fused_cache`, which load_state_dict empties
+    (a post-load hook); call drop_fused() after changing the parameters in
+    place by other means."""
 
     def __init__(self, blocks: Tuple[int, ...] = RESNET101_BLOCKS):
         super().__init__()
         self.blocks = tuple(blocks)
+        self.fused_cache = {}
+        self.register_load_state_dict_post_hook(_drop_fused)
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = FrozenBatchNorm(64)
         inplanes = 64
@@ -142,6 +159,10 @@ class ResNet101(nn.Module):
                     inplanes, planes, stride if i == 0 else 1,
                     downsample=(i == 0)))
                 inplanes = planes * 4
+
+    def drop_fused(self) -> None:
+        """Forgets the fused path's prepared weights."""
+        self.fused_cache.clear()
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         """x: (B, H, W, 3) NHWC -> (B, H/32, W/32, 2048) NHWC in `dtype`.
@@ -297,15 +318,18 @@ class EncoderLayer(nn.Module):
 
 class DETR(nn.Module):
     """The encode half of DETR-ResNet101: trunk, input_proj and the encoder
-    layers (named encoder_<i> as in the flax tree)."""
+    layers (named encoder_<i> as in the flax tree).  `fused_backbone` routes
+    the trunk through the fused kernels (models/resnet_fused.py), same
+    parameters, forward only; `flash_encoder` the encoder through K7/K8."""
 
     def __init__(self, d_model: int = 256, nhead: int = 8,
                  num_encoder_layers: int = 6,
                  backbone_blocks: Tuple[int, ...] = RESNET101_BLOCKS,
                  dim_ff: int = 2048, dtype: torch.dtype = torch.float32,
-                 flash_encoder: bool = False):
+                 fused_backbone: bool = False, flash_encoder: bool = False):
         super().__init__()
         self.d_model, self.dtype = d_model, dtype
+        self.fused_backbone = fused_backbone
         self.flash_encoder = flash_encoder
         self.num_encoder_layers = num_encoder_layers
         self.backbone = ResNet101(backbone_blocks)
@@ -323,7 +347,10 @@ class DETR(nn.Module):
         """images: (B, H, W, 3); pixel_mask: (B, H, W) bool, True = a real
         pixel.  Returns (src (B, S*S, D), pos, key mask (B, S*S), (h, w))."""
         dt = self.dtype
-        feat = self.backbone(images, dt)                  # (B, h, w, 2048)
+        if self.fused_backbone:
+            feat = resnet_forward_fused(self.backbone, images, dt)
+        else:
+            feat = self.backbone(images, dt)              # (B, h, w, 2048)
         b, h, w, _ = feat.shape
         if pixel_mask is None:
             fmask = torch.ones((b, h, w), dtype=torch.bool,
@@ -352,36 +379,34 @@ def resolve_detr_modes(cfg, device: torch.device) -> Tuple[bool, bool]:
     """(fused_backbone, flash_encoder) of a config on `device`.
 
     flash_encoder: "on", or "auto" on a CUDA device outside float64 (the
-    JAX package's "on the accelerator" rule).  fused_backbone: only the
-    ResNet-101 layout may fuse (the JAX rule); "on" raises, because the
-    fused trunk (TPU kernels K3-K6) comes with slice 4; "auto" stays off
-    until then."""
+    JAX package's "on the accelerator" rule).  fused_backbone: "on", or
+    "auto" on a CUDA device outside float64, and in both cases only for the
+    ResNet-101 layout (other detr_blocks run unfused, as in JAX).  The JAX
+    rule also asks for a single device, because its GSPMD mesh shards the
+    batch; the port has no mesh yet, and that guard comes with it.  float64
+    stays unfused under auto because the kernels take float32 and bfloat16
+    (the JAX package never runs float64 on the TPU)."""
     m = cfg.model
     for knob in ("fused_backbone", "flash_encoder"):
         if getattr(m, knob) not in ("auto", "on", "off"):
             raise ValueError(f"model.{knob} must be auto, on or off, got "
                              f"{getattr(m, knob)!r}")
-    fused = (m.fused_backbone == "on"
-             and tuple(m.detr_blocks) == RESNET101_BLOCKS)
-    if fused:
-        raise NotImplementedError(
-            "model.fused_backbone 'on': the fused ResNet trunk (the TPU "
-            "kernels stem_conv_pool, stem_pool, fused_bottleneck, "
-            "fused_bottleneck_s2) is not yet ported; it comes with slice 4. "
-            "Use 'auto' or 'off'.")
     dtype = getattr(torch, m.compute_dtype)
-    flash = m.flash_encoder == "on" or (
-        m.flash_encoder == "auto" and device.type == "cuda"
-        and dtype != torch.float64)
+    accel = device.type == "cuda" and dtype != torch.float64
+    fused = (m.fused_backbone == "on"
+             or (m.fused_backbone == "auto" and accel)) \
+        and tuple(m.detr_blocks) == RESNET101_BLOCKS
+    flash = m.flash_encoder == "on" or (m.flash_encoder == "auto" and accel)
     return fused, flash
 
 
-def module_from_cfg(cfg, flash_encoder: bool = False) -> DETR:
+def module_from_cfg(cfg, fused_backbone: bool = False,
+                    flash_encoder: bool = False) -> DETR:
     m = cfg.model
     return DETR(num_encoder_layers=m.detr_enc_layers,
                 backbone_blocks=tuple(m.detr_blocks),
                 dtype=getattr(torch, m.compute_dtype),
-                flash_encoder=flash_encoder)
+                fused_backbone=fused_backbone, flash_encoder=flash_encoder)
 
 
 def make_detr(cfg, device=None, state_dict=None,
@@ -398,9 +423,10 @@ def make_detr(cfg, device=None, state_dict=None,
         init_detr_params)
     dev = resolve_device(device)
     disable_tf32()
-    _, flash = resolve_detr_modes(cfg, dev)
+    fused, flash = resolve_detr_modes(cfg, dev)
     with torch.device("meta"):        # allocated once, on the device, below
-        model = module_from_cfg(cfg, flash_encoder=flash)
+        model = module_from_cfg(cfg, fused_backbone=fused,
+                                flash_encoder=flash)
     model = model.to_empty(device=dev)
     if model.dtype == torch.float64:
         model = model.to(torch.float64)

@@ -4,8 +4,9 @@ Each `csrc/<name>.cu` has a plain C interface and is compiled by `nvcc` for
 Hopper (sm_90a) into its own shared library, loaded with ctypes.  Builds
 happen at first use, never at import (the package imports where there is no
 nvcc), into `scene_graph_commonsense_torch/_build/`, keyed by a hash of the
-source and the flags, so an edited source is rebuilt and an unchanged one is
-not.  `build_all` starts one nvcc per source at once.
+source, the shared headers (`csrc/*.cuh`) and the flags, so an edited source
+is rebuilt and an unchanged one is not.  `build_all` starts one nvcc per
+source at once.
 """
 
 from __future__ import annotations
@@ -43,7 +44,9 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (SRC_DIR / f"{name}.cu").read_bytes()
+    # the headers a source may include (csrc/*.cuh) are part of its key
+    src = (SRC_DIR / f"{name}.cu").read_bytes() + b"".join(
+        p.read_bytes() for p in sorted(SRC_DIR.glob("*.cuh")))
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{key[:16]}.so"
 

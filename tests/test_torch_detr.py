@@ -236,17 +236,29 @@ def test_torch_make_detr_resolves_modes():
         == (False, True)
     assert tdetr.resolve_detr_modes(cfg(flash_encoder="off"), cuda) \
         == (False, False)
-    # fused_backbone: auto stays off; on fuses only the ResNet-101 layout,
-    # which is not ported yet
+    # fused_backbone: only the ResNet-101 layout fuses (others run
+    # unfused, as in JAX); auto fuses on a CUDA device outside float64
     assert tdetr.resolve_detr_modes(cfg(fused_backbone="on"), cuda) \
         == (False, True)
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        tdetr.resolve_detr_modes(
-            cfg(fused_backbone="on", detr_blocks=(3, 4, 23, 3)), cuda)
+    r101 = {"detr_blocks": (3, 4, 23, 3)}
+    assert tdetr.resolve_detr_modes(cfg(fused_backbone="on", **r101),
+                                    cuda) == (True, True)
+    assert tdetr.resolve_detr_modes(cfg(fused_backbone="on", **r101),
+                                    cpu) == (True, False)
+    assert tdetr.resolve_detr_modes(cfg(**r101), cuda) == (True, True)
+    assert tdetr.resolve_detr_modes(cfg(**r101), cpu) == (False, False)
+    assert tdetr.resolve_detr_modes(
+        cfg(compute_dtype="float64", **r101), cuda) == (False, False)
+    assert tdetr.resolve_detr_modes(cfg(fused_backbone="off", **r101),
+                                    cuda) == (False, True)
+    with pytest.raises(ValueError):
+        tdetr.resolve_detr_modes(cfg(fused_backbone="yes"), cpu)
     with pytest.raises(ValueError):
         tdetr.resolve_detr_modes(cfg(flash_encoder="yes"), cpu)
     model = tdetr.make_detr(cfg(), device="cpu")
-    assert not model.encoder_0.flash
+    assert not model.encoder_0.flash and not model.fused_backbone
+    assert not tdetr.make_detr(cfg(fused_backbone="on"),
+                               device="cpu").fused_backbone
     assert not any(p.requires_grad for p in model.parameters())
     model = tdetr.make_detr(cfg(flash_encoder="on", compute_dtype="float64"),
                             device="cpu")
