@@ -64,7 +64,8 @@ attention at (B, 1024, 8, 32) for B = 12 and 24, with all keys valid, 80%
 of the keys masked, and one image's keys all masked; FFN + LayerNorm at
 N = 12288 and 24576 tokens; each in bf16 (error against a float64 truth at
 most 2x the plain version's) and float32 (within ATTN_F32_TOL / FFN_F32_TOL
-of the plain version), with SDPA timed beside the attention kernel; and the
+of the plain version), with SDPA timed beside the attention kernel and the
+kernel's two-exponential floor (`exp_floor_ms`) beside its bound; and the
 trunk kernels at the production shapes (batch 12, 1024^2 images): the stem
 at (12, 1024, 1024, 3), the stem pool at (12, 510, 510, 64) (exact), the
 stride-1 bottleneck at the five block shapes of the trunk and the stride-2
@@ -125,6 +126,9 @@ BF16_TENSOR_OPS_PER_S = 989e12
 # clock as nvidia-smi reports it in this run
 EXP_PER_CLOCK_PER_SM = 16
 H100_SMS = 132
+# exponentials the attention kernel takes per score: one in each of its two
+# passes over the keys (the row max and sum, then p v)
+ATTN_EXP_PER_SCORE = 2
 # tolerances of the encoder kernels against their plain versions in float32
 # (sums of 32 / 256 and 2048 products taken in another order; the FFN's
 # LayerNorm divides by the row's deviation)
@@ -442,14 +446,18 @@ def product_rate(dtype):
 def attention_bound(q, valid, exp_per_s):
     """q, k, v read and out written once, the key mask read once; the two
     products (4 B H L^2 dh operations) at the peak rate of their dtype; one
-    exponential per score."""
+    exponential per score.  Beside it the kernel's own floor: its two
+    passes over the keys take ATTN_EXP_PER_SCORE exponentials per score at
+    the same rate."""
     b, l, h, dh = q.shape
     nbytes = 4 * q.numel() * q.element_size() + valid.numel()
     flops = 4 * b * h * l * l * dh
     exps = b * h * l * l
     return {**bound_terms(nbytes, products=flops / product_rate(q.dtype),
                           exponentials=exps / exp_per_s),
-            "flops": flops, "exponentials": exps}
+            "flops": flops, "exponentials": exps,
+            "exp_per_score": ATTN_EXP_PER_SCORE,
+            "exp_floor_ms": ATTN_EXP_PER_SCORE * exps / exp_per_s * 1e3}
 
 
 def ffn_bound(x, w1):

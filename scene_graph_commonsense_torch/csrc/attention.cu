@@ -15,7 +15,7 @@
 //     float32;
 //   * masked keys are filled with -3e38 (not -inf), so a row whose keys are
 //     all masked gets the uniform softmax;
-//   * s - rowmax, exp, divided by the row sum, all in float32;
+//   * s - rowmax, exp, normalised by the row sum, all in float32;
 //   * p is rounded to v's dtype before the p.v product, which accumulates in
 //     float32; the output is rounded once to q's dtype.
 // The TPU kernel holds a whole (1024 x 1024) float32 score tile in VMEM and
@@ -23,29 +23,51 @@
 // softmax (rescaling the output as the max grows) would round p elsewhere.
 // So each block makes two passes over the keys of its (b, h):
 //   pass 1: the row max and the row sum of exp(s - max) (the sum rescaled
-//           once per 32 keys when the max grows: a summation-order change
-//           only, the max and every p are exact as on the TPU);
+//           when the max grows: a summation-order change only, the max and
+//           every p are exact as on the TPU);
 //   pass 2: s again, p = exp(s - max) / sum rounded to v's dtype, o += p v.
 //
 // Bound at the DETR shape (B = 12, H = 8, L = 1024, d = 32): 12.9 GFLOP of
 // products (13 us at the 989 TFLOP/s bf16 tensor-core peak), 25 MB moved
 // (7.5 us) and 100.7 M exponentials, which at 16 per clock per SM on 132
-// SMs take ~24 us: the exponentials set the bound.  Both kernels below
-// compute every score twice (once per pass) and take two exponentials and
-// a division per score.  Two kernels, one per dtype:
+// SMs take ~24 us: the exponentials set the bound.  The two passes take two
+// exponentials per score, a floor of ~48 us.  Two kernels, one per dtype:
 //
-// bfloat16 (the production path), attention_tc_kernel: the products on the
-// tensor cores through WMMA (16x16x16 bf16 tiles, float32 accumulators:
-// exact products summed in float32, as on the TPU's MXU).
-//   * one block of 4 warps per (b, h, 64 query rows), each warp owning 16
-//     rows; its q fragments are loaded once;
-//   * keys and values are staged 64 at a time in shared memory (16-byte
-//     loads, rows padded against bank conflicts); per chunk each warp
-//     computes its (16 x 64) float32 score tile, which goes through shared
-//     memory to the softmax arithmetic: two lanes per row, 32 scores each;
-//   * pass 2 writes the rounded bf16 p tile to shared memory and adds
-//     p v into two (16 x 16) float32 accumulators per warp.
-//   L must be a multiple of 64.
+// bfloat16 (the production path), attention_tc_kernel.  Every score costs
+// an exponential on the special function units (16 per clock per SM, which
+// tools/ex2_rate.cu measures) and ~6 float32 instructions around it in each
+// pass; the design keeps everything else off the score's path:
+//   * one block of 4 warps (one warpgroup) per (b, h, 128 query rows); each
+//     warp owns two 16-row tiles, one in each of two 64-row warpgroup tiles,
+//     whose q fragments are loaded once into registers;
+//   * the products run on the Hopper warpgroup instruction wgmma (bf16
+//     operands, float32 accumulators: exact products summed in float32, as
+//     on the TPU's MXU): q from registers, K and V from shared memory
+//     through matrix descriptors, so no fragment is loaded by hand.  The
+//     (16 x 64) scores of a key chunk stay in the accumulator registers; a
+//     row's max and sum join across the 4 lanes that own it with two
+//     shuffles, once after pass 1.  In pass 2 the normalised p, rounded to
+//     bf16 and packed in pairs, is the register A operand of p v (the
+//     accumulator layout of a 16-row slice is the A layout): neither the
+//     scores nor p touch shared memory;
+//   * the two tiles take turns: the tensor cores work on one tile's
+//     products while the other's exponentials run;
+//   * exp(s - m) is ex2.approx((s - m) log2 e), log2 e applied after the
+//     subtraction (-3e38 log2 e would overflow to -inf, and -inf - -inf is
+//     NaN in a fully masked row), and the normalisation one reciprocal per
+//     row times a multiply;
+//   * keys and values are staged 64 at a time in a ring of kStages slots in
+//     shared memory by cp.async (each thread's 16-byte pieces fixed once),
+//     kStages - 1 chunks ahead, so the next chunks are in flight while the
+//     current one is used; one barrier per chunk.  The staged layout is
+//     wgmma's core matrices (8 keys x 8 head dims, 128 contiguous bytes),
+//     K-major for q k^T and MN-major for p v from the same tile;
+//   * the image's key mask is staged once per block; a block whose keys are
+//     all real (the encoder's main path) skips the mask selects.
+//   L must be a multiple of 64; a ragged last query tile is masked.
+// On the H100 it runs at about half the measured exponential rate: 3
+// blocks (12 warps) per SM fit in the registers, too few to hide the
+// latency of a softmax stream of ~12 instructions per score (PERF.md).
 //
 // float32 (the card-vs-CPU parity runs), attention_kernel: float32 FMAs,
 // since the tensor cores would round float32 operands to TF32.
@@ -55,13 +77,14 @@
 //   * keys and values are staged 64 at a time in shared memory as float32;
 //     every thread of a warp reads the same key row, so the shared-memory
 //     reads are broadcasts;
-//   * any L.
+//   * any L.  It takes two accurate expf and a division per score.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
+
+#include "mma.cuh"
 
 namespace {
 
@@ -209,203 +232,476 @@ attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16: tensor cores through WMMA
+// bfloat16: tensor cores through mma.sync, scores and p in registers
 // ---------------------------------------------------------------------------
 
 namespace tc {
 
 using bf16 = __nv_bfloat16;
-using namespace nvcuda;
-constexpr int kWarps = 4;
+// Warps per block, 16-row tiles per warp, ring slots of (K, V) chunks, the
+// blocks per SM that the registers are capped for, and keys per chunk.  The defaults are
+// the fastest of those timed by
+// scene_graph_commonsense_torch/tools/attention_variants.py, which compiles
+// other values with -D.
+#ifndef SGC_ATTN_WARPS
+#define SGC_ATTN_WARPS 4
+#endif
+#ifndef SGC_ATTN_TILES
+#define SGC_ATTN_TILES 2
+#endif
+#ifndef SGC_ATTN_STAGES
+#define SGC_ATTN_STAGES 3
+#endif
+#ifndef SGC_ATTN_MIN_BLOCKS
+#define SGC_ATTN_MIN_BLOCKS 3
+#endif
+#ifndef SGC_ATTN_KEYS
+#define SGC_ATTN_KEYS 64
+#endif
+constexpr int kWarps = SGC_ATTN_WARPS;
+constexpr int kTiles = SGC_ATTN_TILES;
+constexpr int kStages = SGC_ATTN_STAGES;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kRows = 16 * kWarps;     // query rows per block
-// row strides in elements, padded by 16 bytes against bank conflicts
-constexpr int kKVs = kDh + 8;          // staged keys / values (bf16)
-constexpr int kSs = kChunk + 4;        // a warp's float32 score tile
-constexpr int kPs = kChunk + 8;        // a warp's bf16 p tile
-constexpr int kOs = kDh + 4;           // a warp's float32 output tile
+constexpr int kRows = 16 * kTiles * kWarps;   // query rows per block
+// Staged K and V chunks are wgmma core matrices: 8 keys x 8 head dims, 128
+// contiguous bytes each, 4 along the head dims, then the next 8 keys.
+constexpr int kKeys = SGC_ATTN_KEYS;   // keys per staged chunk
+constexpr int kTile = kKeys * kDh;     // one staged K or V chunk (bf16)
+constexpr int kNb = kKeys / 8;         // 8-key column blocks of a chunk
+static_assert(kKeys == 32 || kKeys == 64, "wgmma n32 or n64 scores");
+constexpr size_t kRingBytes = size_t(kStages) * 2 * kTile * sizeof(bf16);
+constexpr float kLog2e = 1.4426950408889634f;
+static_assert(kWarps % 4 == 0, "whole warpgroups");
+static_assert(kStages >= 2, "a chunk in flight beside the one in use");
+static_assert(kTiles <= 4, "wgmma_wait_for takes up to 3 groups in flight");
 
-// every WMMA tile pointer below is 32-byte aligned: the members are, and
-// each row stride times 16 rows is a multiple of 32 bytes
-struct Smem {
-  alignas(32) bf16 k[kChunk * kKVs];
-  alignas(32) bf16 v[kChunk * kKVs];
-  alignas(32) float s[kWarps][16 * kSs];   // reused for the output
-  alignas(32) bf16 p[kWarps][16 * kPs];
-  uint8_t valid[kChunk];
+// A warp's state for one 16-row tile (the 16 rows of a 64-row warpgroup
+// tile that the warp owns): the q fragments, the scores of the current
+// chunk, the rows' running max and sum (then 1 / sum), the output.
+struct RowTile {
+  unsigned qa[2][4];        // A fragments of head dims 0-15 and 16-31
+  float s[kNb][4];          // s[j]: keys 8 j + 2 t, 8 j + 2 t + 1 (t =
+                            // lane % 4) of rows g (s[j][0], s[j][1]) and
+                            // g + 8 (s[j][2], s[j][3]), g = lane / 4
+  float m[2];               // rows g, g + 8
+  float sum[2];
+  float o[kDh / 8][4];      // o[n]: head dims 8 n + 2 t, + 1 of rows g, g + 8
 };
-static_assert(16 * kOs <= 16 * kSs, "output tile");
 
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16,
-                             wmma::row_major>;
-using FragKt = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16,
-                              wmma::col_major>;
-using FragV = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16,
-                             wmma::row_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+// 2^x on the special function unit (subnormal results flush to 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
-// Stages keys [j0, j0 + kChunk) (and their values if with_v) of one (b, h)
-// and their mask bytes.
-__device__ __forceinline__ void stage(Smem& sm, const bf16* __restrict__ k,
-                                      const bf16* __restrict__ v,
-                                      const uint8_t* __restrict__ valid,
-                                      size_t base, size_t tok, int j0, int l,
-                                      int b, bool with_v) {
-  constexpr int kVecs = kDh / 8;                     // 16-byte vectors a row
-  for (int i = threadIdx.x; i < kChunk * kVecs; i += kThreads) {
-    const int j = i / kVecs;
-    const int c = (i - j * kVecs) * 8;
-    const size_t off = base + static_cast<size_t>(j0 + j) * tok + c;
-    *reinterpret_cast<uint4*>(&sm.k[j * kKVs + c]) =
-        *reinterpret_cast<const uint4*>(&k[off]);
-    if (with_v) {
-      *reinterpret_cast<uint4*>(&sm.v[j * kKVs + c]) =
-          *reinterpret_cast<const uint4*>(&v[off]);
+// Two floats rounded to bf16, packed with lo in the low half.
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&p);
+}
+
+// Keeps the compiler from moving accesses of wgmma accumulators across the
+// wait for them (the registers are written asynchronously).
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      asm volatile("" : "+f"(r[j][e])::"memory");
     }
-  }
-  if (threadIdx.x < kChunk) {
-    sm.valid[threadIdx.x] =
-        valid == nullptr ||
-        valid[static_cast<size_t>(b) * l + j0 + threadIdx.x] != 0;
   }
 }
 
-// The warp's (16 x kChunk) float32 products q.k of the staged chunk into
-// its score tile.
-__device__ __forceinline__ void scores(Smem& sm, const FragA* qa, int warp) {
-#pragma unroll
-  for (int n = 0; n < kChunk / 16; ++n) {
-    FragC acc;
-    wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < kDh / 16; ++kk) {
-      FragKt kt;
-      wmma::load_matrix_sync(kt, &sm.k[n * 16 * kKVs + kk * 16], kKVs);
-      wmma::mma_sync(acc, qa[kk], kt, acc);
-    }
-    wmma::store_matrix_sync(&sm.s[warp][n * 16], acc, kSs,
-                            wmma::mem_row_major);
+// Waits until at most n wgmma groups of this warp are in flight (n a
+// constant after unrolling).
+__device__ __forceinline__ void wgmma_wait_for(int n) {
+  switch (n) {
+    case 0: sgc::wgmma_wait<0>(); break;
+    case 1: sgc::wgmma_wait<1>(); break;
+    case 2: sgc::wgmma_wait<2>(); break;
+    default: sgc::wgmma_wait<3>(); break;
   }
-  __syncwarp();
 }
 
-__global__ void __launch_bounds__(kThreads)
+// The element offset of key r, head dims 8 c .. 8 c + 7 in a staged chunk.
+__device__ __forceinline__ int tile_off(int r, int c) {
+  return (r / 8) * 8 * kDh + c * 64 + (r % 8) * 8;
+}
+
+// This thread's 16-byte pieces of a staged chunk: the element offsets in
+// k (or v) from the chunk's first key, and in the staged tile.
+constexpr int kPieces = kKeys * (kDh / 8) / kThreads;
+static_assert(kPieces * kThreads == kKeys * (kDh / 8), "whole pieces");
+struct Pieces {
+  int src[kPieces];
+  int dst[kPieces];
+};
+
+__device__ __forceinline__ Pieces pieces(size_t tok) {
+  Pieces p;
+#pragma unroll
+  for (int i = 0; i < kPieces; ++i) {
+    const int piece = threadIdx.x + i * kThreads;
+    const int r = piece / (kDh / 8);
+    const int c = piece % (kDh / 8);
+    p.src[i] = r * static_cast<int>(tok) + c * 8;
+    p.dst[i] = tile_off(r, c);
+  }
+  return p;
+}
+
+// Issues this thread's copies of one chunk into `tile`: the keys (or
+// values) from `from`, the chunk's first key in k (or v).
+__device__ __forceinline__ void copy_chunk(bf16* tile, const bf16* from,
+                                           const Pieces& p) {
+#pragma unroll
+  for (int i = 0; i < kPieces; ++i) {
+    sgc::cp_async16_full(tile + p.dst[i], from + p.src[i]);
+  }
+}
+
+// The key chunks of a block's walk x = 0 .. 2 n - 1 (x < n: pass 1 over
+// the n chunks; n <= x: pass 2 over them again) in a ring of kStages slots
+// of shared memory; chunk x is in slot x % kStages.
+struct Ring {
+  bf16* ring;
+  const bf16* k;            // token 0 of this (b, h) in k and v
+  const bf16* v;
+  size_t chunk;             // elements from one chunk's first key to the next
+  int n;
+  Pieces p;
+
+  __device__ const bf16* keys(int x) const {
+    return ring + (x % kStages) * 2 * kTile;
+  }
+  __device__ const bf16* values(int x) const { return keys(x) + kTile; }
+  // issues chunk x: its keys, and in pass 2 its values; one commit group
+  // per x, empty past the end
+  __device__ void issue(int x) const {
+    if (x < 2 * n) {
+      bf16* tile = ring + (x % kStages) * 2 * kTile;
+      const size_t at = (x < n ? x : x - n) * chunk;
+      copy_chunk(tile, k + at, p);
+      if (x >= n) {
+        copy_chunk(tile + kTile, v + at, p);
+      }
+    }
+    sgc::cp_async_commit();
+  }
+  // before step x: chunk x has landed for every thread (and is visible to
+  // wgmma, which reads through the async proxy), and the slot of chunk
+  // x - 1 is free for chunk x + kStages - 1
+  __device__ void before(int x) const {
+    sgc::cp_async_wait<kStages - 2>();
+    sgc::fence_proxy_async();
+    __syncthreads();
+    issue(x + kStages - 1);
+  }
+};
+
+// The warp's q rows [row0, row0 + 16) as A fragments; rows at or past L
+// read as zero.
+__device__ __forceinline__ void load_q(unsigned (&qa)[2][4],
+                                       const bf16* __restrict__ q,
+                                       size_t base, size_t tok, int row0,
+                                       int l, int lane) {
+  const int g = lane / 4;
+  const int t2 = 2 * (lane % 4);
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = row0 + g + 8 * (e % 2);
+      const int d = 16 * kk + 8 * (e / 2) + t2;
+      qa[kk][e] = r < l ? *reinterpret_cast<const unsigned*>(
+                              &q[base + static_cast<size_t>(r) * tok + d])
+                        : 0u;
+    }
+  }
+}
+
+// One 16-head-dim step of the products of 64 (or 32) keys.
+__device__ __forceinline__ void qk(float (&d)[8][4], const unsigned (&a)[4],
+                                   uint64_t b, int accumulate) {
+  sgc::wgmma_m64n64k16(d, a, b, accumulate);
+}
+__device__ __forceinline__ void qk(float (&d)[4][4], const unsigned (&a)[4],
+                                   uint64_t b, int accumulate) {
+  sgc::wgmma_m64n32k16<0>(d, a, b, accumulate);
+}
+
+// Issues the products q.k of a staged key chunk for each tile, one wgmma
+// group per tile: B = K^T, K-major, core matrices 128 bytes apart along
+// the head dims and 8 kDh * 2 bytes along the keys; one m64n64k16 per 16
+// head dims, summing in float32.
+__device__ __forceinline__ void issue_products(RowTile (&rt)[kTiles],
+                                               const bf16* ks) {
+  sgc::wgmma_fence();
+#pragma unroll
+  for (int i = 0; i < kTiles; ++i) {
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      qk(rt[i].s, rt[i].qa[kk],
+         sgc::wgmma_desc(ks + kk * 128, 128, 16 * kDh), kk);
+    }
+    sgc::wgmma_commit();
+  }
+}
+
+// Products -> scores, once the tile's group has landed (at most `pending`
+// later groups in flight): times scale, then masked keys (vm[j] == 0) set
+// to kMaskFill.
+template <bool kMasked>
+__device__ __forceinline__ void scores(RowTile& t, int pending,
+                                       const uint8_t* vm, float scale,
+                                       int lane) {
+  wgmma_wait_for(pending);
+  fence_regs(t.s);
+#pragma unroll
+  for (int j = 0; j < kNb; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      t.s[j][e] = __fmul_rn(t.s[j][e], scale);   // rounded, never fused
+    }
+    if constexpr (kMasked) {
+      const uchar2 ok =
+          *reinterpret_cast<const uchar2*>(vm + 8 * j + 2 * (lane % 4));
+      if (!ok.x) {
+        t.s[j][0] = t.s[j][2] = kMaskFill;
+      }
+      if (!ok.y) {
+        t.s[j][1] = t.s[j][3] = kMaskFill;
+      }
+    }
+  }
+}
+
+// Pass 1 over one chunk: the running max and sum of exp(s - max) of the
+// tile's rows g (index 0) and g + 8 (index 1) over this lane's keys.
+__device__ __forceinline__ void max_sum(RowTile& t) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float cm = t.s[0][2 * r];
+#pragma unroll
+    for (int j = 0; j < kNb; ++j) {
+      cm = fmaxf(cm, fmaxf(t.s[j][2 * r], t.s[j][2 * r + 1]));
+    }
+    const float mn = fmaxf(t.m[r], cm);
+    float a = 0.f;
+#pragma unroll
+    for (int j = 0; j < kNb; ++j) {
+      a += ex2((t.s[j][2 * r] - mn) * kLog2e) +
+           ex2((t.s[j][2 * r + 1] - mn) * kLog2e);
+    }
+    t.sum[r] = (t.m[r] == mn ? t.sum[r]
+                             : t.sum[r] * ex2((t.m[r] - mn) * kLog2e)) + a;
+    t.m[r] = mn;
+  }
+}
+
+// After pass 1: joins the 4 lanes of a quad, which own the same two rows,
+// so that each holds the rows' max and sum, equal bit for bit in all four
+// (unfused products and sums of the same terms, in either order); then
+// replaces the sum by its reciprocal.
+__device__ __forceinline__ void join_quad(RowTile& t) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+#pragma unroll
+    for (int x = 1; x < 4; x *= 2) {
+      const float om = __shfl_xor_sync(0xffffffffu, t.m[r], x);
+      const float ol = __shfl_xor_sync(0xffffffffu, t.sum[r], x);
+      const float mn = fmaxf(t.m[r], om);
+      t.sum[r] = __fadd_rn(__fmul_rn(t.sum[r], ex2((t.m[r] - mn) * kLog2e)),
+                           __fmul_rn(ol, ex2((om - mn) * kLog2e)));
+      t.m[r] = mn;
+    }
+    t.sum[r] = __frcp_rn(t.sum[r]);
+  }
+}
+
+// Pass 2 over one chunk: p = exp(s - max) / sum rounded to bf16 and packed
+// in pairs is the A fragment of p v (the C layout of s[2 i], s[2 i + 1] is
+// the A layout of keys 16 i .. 16 i + 15); issues o += p v as one wgmma
+// group: B = V, MN-major, core matrices 128 bytes apart along the head
+// dims (N) and 8 kDh * 2 bytes along the keys (K); one m64n32k16 per 16
+// keys.  pa must stay untouched until the group has landed.
+__device__ __forceinline__ void issue_pv(RowTile& t,
+                                         unsigned (&pa)[kKeys / 16][4],
+                                         const bf16* vs) {
+#pragma unroll
+  for (int i = 0; i < kKeys / 16; ++i) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float* sj = t.s[2 * i + e / 2];
+      const int r = e % 2;
+      pa[i][e] = pack_bf16(ex2((sj[2 * r] - t.m[r]) * kLog2e) * t.sum[r],
+                           ex2((sj[2 * r + 1] - t.m[r]) * kLog2e) * t.sum[r]);
+    }
+  }
+  sgc::wgmma_fence();
+#pragma unroll
+  for (int i = 0; i < kKeys / 16; ++i) {
+    sgc::wgmma_m64n32k16<1>(t.o, pa[i],
+                            sgc::wgmma_desc(vs + i * 16 * kDh, 16 * kDh, 128),
+                            1);
+  }
+  sgc::wgmma_commit();
+}
+
+// The tile's (16 x 32) output, rounded once to bf16; rows at or past L are
+// not written.
+__device__ __forceinline__ void store_out(bf16* __restrict__ out,
+                                          const RowTile& t, size_t base,
+                                          size_t tok, int row0, int l,
+                                          int lane) {
+  const int t2 = 2 * (lane % 4);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + lane / 4 + 8 * r;
+    if (row < l) {
+#pragma unroll
+      for (int n = 0; n < kDh / 8; ++n) {
+        *reinterpret_cast<unsigned*>(
+            &out[base + static_cast<size_t>(row) * tok + 8 * n + t2]) =
+            pack_bf16(t.o[n][2 * r], t.o[n][2 * r + 1]);
+      }
+    }
+  }
+}
+
+// Both passes over the n key chunks of src for the warp's tiles, whose
+// q fragments are loaded: pass 1 the rows' max and sum, pass 2 o += p v.
+// Within a chunk the tiles take turns, so that the tensor cores work on
+// one tile's products while the others' exponentials run.
+template <bool kMasked, class Src>
+__device__ __forceinline__ void walk(const Src& src, const uint8_t* vm,
+                                     RowTile (&rt)[kTiles], float scale,
+                                     int lane) {
+  const int n = src.n;
+#pragma unroll
+  for (int i = 0; i < kTiles; ++i) {
+    rt[i].m[0] = rt[i].m[1] = -INFINITY;
+    rt[i].sum[0] = rt[i].sum[1] = 0.f;
+  }
+  for (int x = 0; x < n; ++x) {
+    src.before(x);
+    issue_products(rt, src.keys(x));
+#pragma unroll
+    for (int i = 0; i < kTiles; ++i) {
+      // in flight after tile i's group: the later tiles' products
+      scores<kMasked>(rt[i], kTiles - 1 - i, vm + x * kKeys, scale, lane);
+      max_sum(rt[i]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kTiles; ++i) {
+    join_quad(rt[i]);
+#pragma unroll
+    for (int d = 0; d < kDh / 8; ++d) {
+      rt[i].o[d][0] = rt[i].o[d][1] = rt[i].o[d][2] = rt[i].o[d][3] = 0.f;
+    }
+  }
+  for (int x = n; x < 2 * n; ++x) {
+    src.before(x);
+    issue_products(rt, src.keys(x));
+    unsigned pa[kTiles][kKeys / 16][4];
+#pragma unroll
+    for (int i = 0; i < kTiles; ++i) {
+      // in flight after tile i's products: the later tiles' products and
+      // the earlier tiles' p v
+      scores<kMasked>(rt[i], kTiles - 1, vm + (x - n) * kKeys, scale, lane);
+      issue_pv(rt[i], pa[i], src.values(x));
+    }
+    sgc::wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < kTiles; ++i) {
+      fence_regs(rt[i].o);
+    }
+  }
+}
+
+// Shared memory: the ring, then the image's L mask bytes.
+inline size_t smem_bytes(int l) {
+  return kRingBytes + (static_cast<size_t>(l) + 15) / 16 * 16;
+}
+
+// Stages the image's key mask in shared memory (1 = a real key) and
+// returns, for the whole block, whether every key is real.
+__device__ __forceinline__ bool stage_mask(uint8_t* vm,
+                                           const uint8_t* __restrict__ valid,
+                                           int b, int l) {
+  int all = 1;
+  for (int j = threadIdx.x; j < l; j += kThreads) {
+    const uint8_t ok =
+        valid == nullptr || valid[static_cast<size_t>(b) * l + j] != 0;
+    vm[j] = ok;
+    all &= ok;
+  }
+  return __syncthreads_and(all) != 0;
+}
+
+// The block's part of the launch once its chunk source is set up: the key
+// mask, the q fragments, both passes, the output.
+template <class Src>
+__device__ __forceinline__ void attend(const Src& src, uint8_t* vm,
+                                       const bf16* __restrict__ q,
+                                       const uint8_t* __restrict__ valid,
+                                       bf16* __restrict__ out, size_t base,
+                                       size_t tok, int l, float scale) {
+  const int lane = threadIdx.x % 32;
+  // the warp's tiles: rows row0 + 16 i
+  const int row0 = blockIdx.x * kRows + (threadIdx.x / 32) * 16 * kTiles;
+  const bool all = stage_mask(vm, valid, blockIdx.z, l);
+  RowTile rt[kTiles];
+#pragma unroll
+  for (int i = 0; i < kTiles; ++i) {
+    load_q(rt[i].qa, q, base, tok, row0 + 16 * i, l, lane);
+  }
+  if (all) {
+    walk<false>(src, vm, rt, scale, lane);
+  } else {
+    walk<true>(src, vm, rt, scale, lane);
+  }
+#pragma unroll
+  for (int i = 0; i < kTiles; ++i) {
+    store_out(out, rt[i], base, tok, row0 + 16 * i, l, lane);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, SGC_ATTN_MIN_BLOCKS)
 attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v,
                     const uint8_t* __restrict__ valid, bf16* __restrict__ out,
                     int l, int h, float scale) {
-  __shared__ Smem sm;
-  const int b = blockIdx.z;
-  const int hh = blockIdx.y;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
+  extern __shared__ uint4 smem[];
   const size_t tok = static_cast<size_t>(h) * kDh;
-  const size_t base = static_cast<size_t>(b) * l * tok +
-                      static_cast<size_t>(hh) * kDh;
-  const int row0 = blockIdx.x * kRows + warp * 16;    // the warp's rows
-
-  FragA qa[kDh / 16];
-#pragma unroll
-  for (int kk = 0; kk < kDh / 16; ++kk) {
-    wmma::load_matrix_sync(
-        qa[kk], &q[base + static_cast<size_t>(row0) * tok + kk * 16],
-        static_cast<unsigned>(tok));
+  const size_t base = static_cast<size_t>(blockIdx.z) * l * tok +
+                      static_cast<size_t>(blockIdx.y) * kDh;
+  const Ring src{reinterpret_cast<bf16*>(smem), k + base, v + base,
+                 kKeys * tok, l / kKeys, pieces(tok)};
+  for (int x = 0; x < kStages - 1; ++x) {
+    src.issue(x);
   }
-  // two lanes per row, 32 scores of each chunk each
-  const int r = lane / 2;
-  const int c0 = (lane % 2) * 32;
-  const float* srow = &sm.s[warp][r * kSs + c0];
-
-  // pass 1: row max and sum of exponentials
-  float m = -INFINITY;
-  float sum = 0.f;
-  for (int j0 = 0; j0 < l; j0 += kChunk) {
-    __syncthreads();
-    stage(sm, k, v, valid, base, tok, j0, l, b, false);
-    __syncthreads();
-    scores(sm, qa, warp);
-    float sv[32];
-    float cm = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const float sc = srow[j] * scale;
-      sv[j] = sm.valid[c0 + j] ? sc : kMaskFill;
-      cm = fmaxf(cm, sv[j]);
-    }
-    const float mn = fmaxf(m, cm);
-    float part = 0.f;
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      part += expf(sv[j] - mn);
-    }
-    sum = (m == mn ? sum : sum * expf(m - mn)) + part;
-    m = mn;
-    __syncwarp();
-  }
-  {
-    // join the two halves of each row
-    const float om = __shfl_xor_sync(0xffffffffu, m, 1);
-    const float os = __shfl_xor_sync(0xffffffffu, sum, 1);
-    const float mn = fmaxf(m, om);
-    const float a = m == mn ? sum : sum * expf(m - mn);
-    const float o = om == mn ? os : os * expf(om - mn);
-    sum = (lane % 2 == 0) ? a + o : o + a;
-    m = mn;
-  }
-
-  // pass 2: normalised p, rounded to bf16, times v
-  FragC acc[kDh / 16];
-#pragma unroll
-  for (int n = 0; n < kDh / 16; ++n) {
-    wmma::fill_fragment(acc[n], 0.f);
-  }
-  bf16* prow = &sm.p[warp][r * kPs + c0];
-  for (int j0 = 0; j0 < l; j0 += kChunk) {
-    __syncthreads();
-    stage(sm, k, v, valid, base, tok, j0, l, b, true);
-    __syncthreads();
-    scores(sm, qa, warp);
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const float sc = srow[j] * scale;
-      const float s = sm.valid[c0 + j] ? sc : kMaskFill;
-      prow[j] = __float2bfloat16_rn(expf(s - m) / sum);
-    }
-    __syncwarp();
-#pragma unroll
-    for (int kk = 0; kk < kChunk / 16; ++kk) {
-      FragA pa;
-      wmma::load_matrix_sync(pa, &sm.p[warp][kk * 16], kPs);
-#pragma unroll
-      for (int n = 0; n < kDh / 16; ++n) {
-        FragV vb;
-        wmma::load_matrix_sync(vb, &sm.v[kk * 16 * kKVs + n * 16], kKVs);
-        wmma::mma_sync(acc[n], pa, vb, acc[n]);
-      }
-    }
-    __syncwarp();
-  }
-
-  // the warp's (16 x 32) output, rounded once to bf16
-  float* ot = sm.s[warp];
-#pragma unroll
-  for (int n = 0; n < kDh / 16; ++n) {
-    wmma::store_matrix_sync(&ot[n * 16], acc[n], kOs, wmma::mem_row_major);
-  }
-  __syncwarp();
-  for (int i = lane; i < 16 * kDh; i += 32) {
-    const int rr = i / kDh;
-    const int d = i - rr * kDh;
-    out[base + static_cast<size_t>(row0 + rr) * tok + d] =
-        __float2bfloat16_rn(ot[rr * kOs + d]);
-  }
+  attend(src, reinterpret_cast<uint8_t*>(smem) + kRingBytes, q, valid, out,
+         base, tok, l, scale);
 }
 
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* valid, void* out, int b, int l, int h,
                    float scale, cudaStream_t stream) {
-  const dim3 grid(l / kRows, h, b);
-  attention_tc_kernel<<<grid, kThreads, 0, stream>>>(
+  const size_t smem = smem_bytes(l);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        attention_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) {
+      return err;
+    }
+  }
+  const dim3 grid((l + kRows - 1) / kRows, h, b);
+  attention_tc_kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const uint8_t*>(valid),
       static_cast<bf16*>(out), l, h, scale);

@@ -29,6 +29,8 @@
 
 #include <type_traits>
 
+#include "mma.cuh"
+
 namespace sgc {
 
 using bf16 = __nv_bfloat16;
@@ -117,55 +119,6 @@ __device__ __forceinline__ void load_vec(const T* src, float (&v)[V]) {
       v[j] = to_f(in[j]);
     }
   }
-}
-
-// A device-memory address for the zero-filling copies below to name.
-__device__ uint4 zero_source;
-
-// 16 bytes from device memory to shared memory without a register round
-// trip; src == nullptr writes zeros (cp.async with a source size of 0).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s =
-      static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = src != nullptr ? 16 : 0;
-  const void* from = src != nullptr ? src : &zero_source;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(from), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Four 8x8 bf16 matrices from shared memory (row addresses from lanes
-// 8 i .. 8 i + 7 for matrix i), plain or transposed.
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
-                                                  const void* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
-// d += a b for one 16x8x16 bf16 tile, float32 accumulators.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Stages rows [0, ROWS) x columns [col0, col0 + kc) of A from device

@@ -14,6 +14,7 @@ from typing import Dict, Mapping, Optional
 import numpy as np
 import torch
 
+from scene_graph_commonsense_torch.models import flax_msgpack
 from scene_graph_commonsense_torch.models.relation_head import (
     module_from_cfg)
 
@@ -182,23 +183,31 @@ def _flat(tree: Mapping, prefix: str = ""):
 
 def detr_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
     """The JAX package's DETR param tree ({"params": {...}} or the inner
-    dict) of numpy arrays -> the state dict of models.detr.DETR: conv
-    kernels HWIO -> OIHW, dense kernels (in, out) -> (out, in), LayerNorm
-    scale -> weight, frozen-BN statistics by name.  Keys outside the encode
-    half (decoder, query embedding, heads) are left out."""
+    dict) of numpy arrays or torch tensors -> the state dict of
+    models.detr.DETR: conv kernels HWIO -> OIHW, dense kernels (in, out) ->
+    (out, in), LayerNorm scale -> weight, frozen-BN statistics by name.
+    Keys outside the encode half (decoder, query embedding, heads) are left
+    out."""
     tree = params.get("params", params)
     sd: Dict[str, torch.Tensor] = {}
     for key, leaf in _flat({k: v for k, v in tree.items()
                             if k.startswith(_DETR_ENCODE_PREFIXES)}):
         path, name = key.rsplit(".", 1)
-        a = np.array(leaf)
+        a = leaf.clone() if isinstance(leaf, torch.Tensor) \
+            else torch.from_numpy(np.array(leaf))
         if name == "kernel":
             name = "weight"
-            a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
+            a = a.permute(3, 2, 0, 1) if a.dim() == 4 else a.T
         elif name == "scale":
             name = "weight"
-        sd[f"{path}.{name}"] = torch.from_numpy(np.ascontiguousarray(a))
+        sd[f"{path}.{name}"] = a.contiguous()
     return sd
+
+
+def detr_from_flax_bytes(data: bytes) -> Dict[str, torch.Tensor]:
+    """detr_from_flax of a file that flax.serialization.to_bytes wrote (the
+    JAX package's converted DETR checkpoint), read without flax."""
+    return detr_from_flax(flax_msgpack.unpack(data))
 
 
 def detr_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict:

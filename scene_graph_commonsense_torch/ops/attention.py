@@ -31,7 +31,7 @@ launches = 0          # attention_kernel launches since the last reset
 
 MASK_FILL = -3.0e38
 HEAD_DIM = 32         # the kernel's head width (DETR: 256 / 8)
-BF16_ROWS = 64        # the bf16 kernel's query rows per block: L % 64 == 0
+BF16_CHUNK = 64       # the bf16 kernel's key chunk: L % 64 == 0
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -78,12 +78,12 @@ def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("attention inputs lie on different devices")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("attention takes contiguous tensors")
-    if q.dtype == torch.bfloat16 and l % BF16_ROWS:
+    if q.dtype == torch.bfloat16 and l % BF16_CHUNK:
         raise ValueError(f"the bfloat16 attention kernel takes L a multiple "
-                         f"of {BF16_ROWS}, got {l}")
+                         f"of {BF16_CHUNK}, got {l}")
     if any(t.data_ptr() % 32 for t in (q, k, v)):
-        raise ValueError("attention reads q, k, v in 32-byte tiles: their "
-                         "storage must be 32-byte aligned")
+        raise ValueError("the attention kernels take q, k, v whose storage "
+                         "is 32-byte aligned")
 
 
 def _library():

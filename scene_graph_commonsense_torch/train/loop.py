@@ -25,9 +25,10 @@ from scene_graph_commonsense_torch.device import resolve_device
 from scene_graph_commonsense_torch.eval import engines
 from scene_graph_commonsense_torch.eval.builders import (
     build_candidates, build_targets)
-from scene_graph_commonsense_torch.models.detr import DETR, make_detr
+from scene_graph_commonsense_torch.models.detr import (
+    DETR, make_detr, module_from_cfg as detr_module)
 from scene_graph_commonsense_torch.models.weights import (
-    detr_from_hub_state_dict)
+    detr_from_flax_bytes, detr_from_hub_state_dict)
 from scene_graph_commonsense_torch.train import checkpoint as ckpt_lib
 from scene_graph_commonsense_torch.train import engine
 from scene_graph_commonsense_torch.utils.logging import (
@@ -70,29 +71,41 @@ def load_detr_featurizer(cfg, device=None,
                          generator: Optional[torch.Generator] = None,
                          log_fn: Callable[[str], None] = print):
     """The frozen DETR-101 featurizer on `device` (default cuda).  Weights
-    come from cfg.model.detr_pretrained, a torch state dict in
-    torch-hub names (`torch.save` of the hub model's state_dict, or a dict
-    with it under "model"); when that file is absent, from a seeded random
-    init (`generator`, default seeded with cfg.training.seed) with a loud
+    come from cfg.model.detr_pretrained: a `.msgpack` is the JAX package's
+    converted checkpoint (flax.serialization.to_bytes of its DETR params,
+    read without flax); any other file is a torch state dict in torch-hub
+    names (`torch.save` of the hub model's state_dict, or a dict with it
+    under "model").  Either must hold exactly the encode half that the
+    config builds, or a ValueError names the keys missing or left over.
+    When the file is absent, the weights come from a seeded random init
+    (`generator`, default seeded with cfg.training.seed) with a loud
     warning: fine for plumbing and timing, useless for recall.  Returns
     (featurize_fn, detr_model)."""
     path = cfg.model.detr_pretrained
     state_dict = None
     if os.path.exists(path):
         if path.endswith(".msgpack"):
+            with open(path, "rb") as f:
+                state_dict = detr_from_flax_bytes(f.read())
+        else:
+            ckpt = torch.load(path, map_location="cpu", weights_only=True)
+            state_dict, _ = detr_from_hub_state_dict(
+                ckpt.get("model", ckpt), cfg.model.detr_enc_layers,
+                tuple(cfg.model.detr_blocks))
+        with torch.device("meta"):        # names only: allocates nothing
+            want = set(detr_module(cfg).state_dict())
+        missing = sorted(want - set(state_dict))
+        extra = sorted(set(state_dict) - want)
+        if missing or extra:
             raise ValueError(
-                f"{path} is a flax msgpack checkpoint of the JAX package; "
-                f"the PyTorch port cannot read it (it does not depend on "
-                f"flax).  Point model.detr_pretrained at the torch-hub DETR "
-                f"state dict (.pth) it was converted from.")
-        ckpt = torch.load(path, map_location="cpu", weights_only=True)
-        state_dict, _ = detr_from_hub_state_dict(
-            ckpt.get("model", ckpt), cfg.model.detr_enc_layers,
-            tuple(cfg.model.detr_blocks))
+                f"{path} does not hold the DETR encode half this config "
+                f"builds: {len(missing)} keys missing {missing[:8]}, "
+                f"{len(extra)} left over {extra[:8]}")
     else:
         log_fn(f"WARNING: {path} not found — using randomly initialized "
-               f"DETR weights (give a torch-hub DETR state dict for "
-               f"meaningful features)")
+               f"DETR weights (give the JAX package's DETR checkpoint "
+               f"(.msgpack) or a torch-hub DETR state dict for meaningful "
+               f"features)")
     detr = make_detr(cfg, device=device, state_dict=state_dict,
                      generator=generator)
     return make_detr_featurize_fn(cfg, detr), detr

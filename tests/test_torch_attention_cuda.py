@@ -1,6 +1,7 @@
 """The CUDA attention kernel (csrc/attention.cu) against its plain PyTorch
-version, on the card, at a small shape and at the DETR encoder's
-(B = 12, L = 1024, H = 8, dh = 32).
+version, on the card, at a small shape with a ragged query tile and at the
+DETR encoder's (B = 12 and 24, L = 1024, H = 8, dh = 32), also with scores
+of large magnitude.
 
 Imports neither JAX nor the repo's conftest, so it runs where only PyTorch
 is installed:
@@ -33,11 +34,11 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _inputs(device, dtype, b, l, h, mask, seed=0):
+def _inputs(device, dtype, b, l, h, mask, seed=0, qk_scale=1.0):
     rng = np.random.default_rng(seed)
     q, k, v = (torch.from_numpy(rng.standard_normal((b, l, h, 32),
-                                                    np.float32))
-               .to(device, dtype) for _ in range(3))
+                                                    np.float32) * f)
+               .to(device, dtype) for f in (qk_scale, qk_scale, 1.0))
     valid = None
     if mask == "random":                      # 80% of the keys masked
         valid = torch.from_numpy(rng.random((b, l)) < 0.2).to(device)
@@ -61,11 +62,25 @@ def _truth(q, k, v, valid):
 @pytest.mark.cuda
 @pytest.mark.parametrize("mask", ["none", "random", "one_image_masked"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", [(2, 192, 3), (12, 1024, 8)])
+@pytest.mark.parametrize("shape", [(2, 192, 3), (12, 1024, 8),
+                                   (24, 1024, 8)])
 def test_torch_attention_kernel_matches_plain(cuda_device, shape, dtype,
                                               mask):
-    q, k, v, valid = _inputs(cuda_device, getattr(torch, dtype), *shape,
-                             mask)
+    _check(*_inputs(cuda_device, getattr(torch, dtype), *shape, mask), mask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask", ["none", "random", "one_image_masked"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_torch_attention_kernel_large_scores(cuda_device, dtype, mask):
+    """q and k x 30: |s - max| reaches the thousands, so the exponentials
+    meet arguments far below -126 (flushed to 0) beside the -3e38 fill."""
+    _check(*_inputs(cuda_device, getattr(torch, dtype), 12, 1024, 8, mask,
+                    seed=1, qk_scale=30.0), mask)
+
+
+def _check(q, k, v, valid, mask):
+    dtype = str(q.dtype).split(".")[1]
     before = tattn.launches
     got = tattn.fused_attention(q, k, v, valid, scale=SCALE)
     torch.cuda.synchronize()

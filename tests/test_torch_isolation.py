@@ -1,5 +1,5 @@
 """The port stands alone: no module of scene_graph_commonsense_torch, and not
-chip_smoke.py, imports JAX, flax, optax or the JAX package; entry points run
+chip_smoke.py, imports JAX, flax, optax, msgpack or the JAX package; entry points run
 on CUDA unless asked for the CPU; chip_smoke.py refuses to run without a card
 or without the package beside it."""
 
@@ -20,7 +20,7 @@ from scene_graph_commonsense_torch.models.relation_head import (
 from scene_graph_commonsense_torch.train import engine
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax",
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "msgpack",
              "scene_graph_commonsense_tpu"}
 
 
