@@ -64,8 +64,9 @@ attention at (B, 1024, 8, 32) for B = 12 and 24, with all keys valid, 80%
 of the keys masked, and one image's keys all masked; FFN + LayerNorm at
 N = 12288 and 24576 tokens; each in bf16 (error against a float64 truth at
 most 2x the plain version's) and float32 (within ATTN_F32_TOL / FFN_F32_TOL
-of the plain version), with SDPA timed beside the attention kernel and the
-kernel's two-exponential floor (`exp_floor_ms`) beside its bound; and the
+of the plain version), with SDPA timed in turns with the attention kernel
+over as many launches and the kernel's two-exponential floor
+(`exp_floor_ms`) beside its bound; and the
 trunk kernels at the production shapes (batch 12, 1024^2 images): the stem
 at (12, 1024, 1024, 3), the stem pool at (12, 510, 510, 64) (exact), the
 stride-1 bottleneck at the five block shapes of the trunk and the stride-2
@@ -303,13 +304,22 @@ def check_grad(got, want, mag, name):
     return float(err.max()), ratio
 
 
-def timed(kernel_fn, plain_fn, plain_iters=5, kernel_iters=20):
-    """plain, kernel, kernel, plain: both see the same clocks."""
+def timed(kernel_fn, plain_fn, plain_iters=5, kernel_iters=20,
+          library_fn=None):
+    """plain, kernel, kernel, plain: both see the same clocks.  A library
+    call is timed as the kernel is, each of its runs after a kernel run."""
     plain1 = cuda_ms(plain_fn, plain_iters)
-    kern = [cuda_ms(kernel_fn, kernel_iters) for _ in range(2)]
+    kern, lib = [], []
+    for _ in range(2):
+        kern.append(cuda_ms(kernel_fn, kernel_iters))
+        if library_fn is not None:
+            lib.append(cuda_ms(library_fn, kernel_iters))
     plain2 = cuda_ms(plain_fn, plain_iters)
-    return {"ms": min(kern), "ms_runs": kern,
-            "plain_ms": min(plain1, plain2), "plain_ms_runs": [plain1, plain2]}
+    rec = {"ms": min(kern), "ms_runs": kern,
+           "plain_ms": min(plain1, plain2), "plain_ms_runs": [plain1, plain2]}
+    if library_fn is not None:
+        rec.update(library_ms=min(lib), library_ms_runs=lib)
+    return rec
 
 
 def _pack_indices(p, dev):
@@ -571,10 +581,9 @@ def phase_kernel_encoder(exp_per_s):
                     lambda: attention.attention_kernel(q, k, v, valid,
                                                        scale=scale),
                     lambda: attention.attention_plain(q, k, v, valid,
-                                                      scale=scale)))
-                rec["library_ms"] = cuda_ms(
-                    lambda: F.scaled_dot_product_attention(
-                        qt, kt, vt, attn_mask=sdpa_mask, scale=scale), 10)
+                                                      scale=scale),
+                    library_fn=lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, attn_mask=sdpa_mask, scale=scale)))
                 rec["library"] = "F.scaled_dot_product_attention"
                 rec.update(attention_bound(q, valid, exp_per_s))
                 max_err["attention"] = max(max_err["attention"], err)

@@ -232,48 +232,25 @@ attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16: tensor cores through mma.sync, scores and p in registers
+// bfloat16: Hopper wgmma tensor cores, scores and p in registers
 // ---------------------------------------------------------------------------
 
 namespace tc {
 
 using bf16 = __nv_bfloat16;
-// Warps per block, 16-row tiles per warp, ring slots of (K, V) chunks, the
-// blocks per SM that the registers are capped for, and keys per chunk.  The defaults are
-// the fastest of those timed by
-// scene_graph_commonsense_torch/tools/attention_variants.py, which compiles
-// other values with -D.
-#ifndef SGC_ATTN_WARPS
-#define SGC_ATTN_WARPS 4
-#endif
-#ifndef SGC_ATTN_TILES
-#define SGC_ATTN_TILES 2
-#endif
-#ifndef SGC_ATTN_STAGES
-#define SGC_ATTN_STAGES 3
-#endif
-#ifndef SGC_ATTN_MIN_BLOCKS
-#define SGC_ATTN_MIN_BLOCKS 3
-#endif
-#ifndef SGC_ATTN_KEYS
-#define SGC_ATTN_KEYS 64
-#endif
-constexpr int kWarps = SGC_ATTN_WARPS;
-constexpr int kTiles = SGC_ATTN_TILES;
-constexpr int kStages = SGC_ATTN_STAGES;
+constexpr int kWarps = 4;                     // one warpgroup per block
+constexpr int kTiles = 2;                     // 16-row tiles per warp
+constexpr int kStages = 3;                    // ring slots of (K, V) chunks
+constexpr int kMinBlocks = 3;                 // blocks per SM (registers)
 constexpr int kThreads = 32 * kWarps;
 constexpr int kRows = 16 * kTiles * kWarps;   // query rows per block
 // Staged K and V chunks are wgmma core matrices: 8 keys x 8 head dims, 128
 // contiguous bytes each, 4 along the head dims, then the next 8 keys.
-constexpr int kKeys = SGC_ATTN_KEYS;   // keys per staged chunk
+constexpr int kKeys = 64;              // keys per staged chunk
 constexpr int kTile = kKeys * kDh;     // one staged K or V chunk (bf16)
 constexpr int kNb = kKeys / 8;         // 8-key column blocks of a chunk
-static_assert(kKeys == 32 || kKeys == 64, "wgmma n32 or n64 scores");
 constexpr size_t kRingBytes = size_t(kStages) * 2 * kTile * sizeof(bf16);
 constexpr float kLog2e = 1.4426950408889634f;
-static_assert(kWarps % 4 == 0, "whole warpgroups");
-static_assert(kStages >= 2, "a chunk in flight beside the one in use");
-static_assert(kTiles <= 4, "wgmma_wait_for takes up to 3 groups in flight");
 
 // A warp's state for one 16-row tile (the 16 rows of a 64-row warpgroup
 // tile that the warp owns): the q fragments, the scores of the current
@@ -311,17 +288,6 @@ __device__ __forceinline__ void fence_regs(float (&r)[N][4]) {
     for (int e = 0; e < 4; ++e) {
       asm volatile("" : "+f"(r[j][e])::"memory");
     }
-  }
-}
-
-// Waits until at most n wgmma groups of this warp are in flight (n a
-// constant after unrolling).
-__device__ __forceinline__ void wgmma_wait_for(int n) {
-  switch (n) {
-    case 0: sgc::wgmma_wait<0>(); break;
-    case 1: sgc::wgmma_wait<1>(); break;
-    case 2: sgc::wgmma_wait<2>(); break;
-    default: sgc::wgmma_wait<3>(); break;
   }
 }
 
@@ -422,16 +388,6 @@ __device__ __forceinline__ void load_q(unsigned (&qa)[2][4],
   }
 }
 
-// One 16-head-dim step of the products of 64 (or 32) keys.
-__device__ __forceinline__ void qk(float (&d)[8][4], const unsigned (&a)[4],
-                                   uint64_t b, int accumulate) {
-  sgc::wgmma_m64n64k16(d, a, b, accumulate);
-}
-__device__ __forceinline__ void qk(float (&d)[4][4], const unsigned (&a)[4],
-                                   uint64_t b, int accumulate) {
-  sgc::wgmma_m64n32k16<0>(d, a, b, accumulate);
-}
-
 // Issues the products q.k of a staged key chunk for each tile, one wgmma
 // group per tile: B = K^T, K-major, core matrices 128 bytes apart along
 // the head dims and 8 kDh * 2 bytes along the keys; one m64n64k16 per 16
@@ -443,21 +399,18 @@ __device__ __forceinline__ void issue_products(RowTile (&rt)[kTiles],
   for (int i = 0; i < kTiles; ++i) {
 #pragma unroll
     for (int kk = 0; kk < 2; ++kk) {
-      qk(rt[i].s, rt[i].qa[kk],
-         sgc::wgmma_desc(ks + kk * 128, 128, 16 * kDh), kk);
+      sgc::wgmma_m64n64k16(rt[i].s, rt[i].qa[kk],
+                           sgc::wgmma_desc(ks + kk * 128, 128, 16 * kDh), kk);
     }
     sgc::wgmma_commit();
   }
 }
 
-// Products -> scores, once the tile's group has landed (at most `pending`
-// later groups in flight): times scale, then masked keys (vm[j] == 0) set
-// to kMaskFill.
+// Products -> scores, once the tile's group has landed: times scale, then
+// masked keys (vm[j] == 0) set to kMaskFill.
 template <bool kMasked>
-__device__ __forceinline__ void scores(RowTile& t, int pending,
-                                       const uint8_t* vm, float scale,
-                                       int lane) {
-  wgmma_wait_for(pending);
+__device__ __forceinline__ void scores(RowTile& t, const uint8_t* vm,
+                                       float scale, int lane) {
   fence_regs(t.s);
 #pragma unroll
   for (int j = 0; j < kNb; ++j) {
@@ -543,9 +496,8 @@ __device__ __forceinline__ void issue_pv(RowTile& t,
   sgc::wgmma_fence();
 #pragma unroll
   for (int i = 0; i < kKeys / 16; ++i) {
-    sgc::wgmma_m64n32k16<1>(t.o, pa[i],
-                            sgc::wgmma_desc(vs + i * 16 * kDh, 16 * kDh, 128),
-                            1);
+    sgc::wgmma_m64n32k16(t.o, pa[i],
+                         sgc::wgmma_desc(vs + i * 16 * kDh, 16 * kDh, 128), 1);
   }
   sgc::wgmma_commit();
 }
@@ -571,29 +523,30 @@ __device__ __forceinline__ void store_out(bf16* __restrict__ out,
   }
 }
 
-// Both passes over the n key chunks of src for the warp's tiles, whose
-// q fragments are loaded: pass 1 the rows' max and sum, pass 2 o += p v.
-// Within a chunk the tiles take turns, so that the tensor cores work on
-// one tile's products while the others' exponentials run.
-template <bool kMasked, class Src>
-__device__ __forceinline__ void walk(const Src& src, const uint8_t* vm,
+// Both passes over the n key chunks of the ring for the warp's two tiles,
+// whose q fragments are loaded: pass 1 the rows' max and sum, pass 2
+// o += p v.  Within a chunk the tiles take turns, so that the tensor cores
+// work on one tile's products while the other's exponentials run.
+static_assert(kTiles == 2, "walk() pairs two tiles");
+template <bool kMasked>
+__device__ __forceinline__ void walk(const Ring& ring, const uint8_t* vm,
                                      RowTile (&rt)[kTiles], float scale,
                                      int lane) {
-  const int n = src.n;
+  const int n = ring.n;
 #pragma unroll
   for (int i = 0; i < kTiles; ++i) {
     rt[i].m[0] = rt[i].m[1] = -INFINITY;
     rt[i].sum[0] = rt[i].sum[1] = 0.f;
   }
   for (int x = 0; x < n; ++x) {
-    src.before(x);
-    issue_products(rt, src.keys(x));
-#pragma unroll
-    for (int i = 0; i < kTiles; ++i) {
-      // in flight after tile i's group: the later tiles' products
-      scores<kMasked>(rt[i], kTiles - 1 - i, vm + x * kKeys, scale, lane);
-      max_sum(rt[i]);
-    }
+    ring.before(x);
+    issue_products(rt, ring.keys(x));
+    sgc::wgmma_wait<1>();     // tile 0's products; tile 1's in flight
+    scores<kMasked>(rt[0], vm + x * kKeys, scale, lane);
+    max_sum(rt[0]);
+    sgc::wgmma_wait<0>();
+    scores<kMasked>(rt[1], vm + x * kKeys, scale, lane);
+    max_sum(rt[1]);
   }
 #pragma unroll
   for (int i = 0; i < kTiles; ++i) {
@@ -604,15 +557,16 @@ __device__ __forceinline__ void walk(const Src& src, const uint8_t* vm,
     }
   }
   for (int x = n; x < 2 * n; ++x) {
-    src.before(x);
-    issue_products(rt, src.keys(x));
+    ring.before(x);
+    issue_products(rt, ring.keys(x));
     unsigned pa[kTiles][kKeys / 16][4];
 #pragma unroll
     for (int i = 0; i < kTiles; ++i) {
-      // in flight after tile i's products: the later tiles' products and
-      // the earlier tiles' p v
-      scores<kMasked>(rt[i], kTiles - 1, vm + (x - n) * kKeys, scale, lane);
-      issue_pv(rt[i], pa[i], src.values(x));
+      // tile i's products have landed once one group is left in flight:
+      // tile 1's products (i = 0) or tile 0's p v (i = 1)
+      sgc::wgmma_wait<1>();
+      scores<kMasked>(rt[i], vm + (x - n) * kKeys, scale, lane);
+      issue_pv(rt[i], pa[i], ring.values(x));
     }
     sgc::wgmma_wait<0>();
 #pragma unroll
@@ -642,14 +596,23 @@ __device__ __forceinline__ bool stage_mask(uint8_t* vm,
   return __syncthreads_and(all) != 0;
 }
 
-// The block's part of the launch once its chunk source is set up: the key
-// mask, the q fragments, both passes, the output.
-template <class Src>
-__device__ __forceinline__ void attend(const Src& src, uint8_t* vm,
-                                       const bf16* __restrict__ q,
-                                       const uint8_t* __restrict__ valid,
-                                       bf16* __restrict__ out, size_t base,
-                                       size_t tok, int l, float scale) {
+// One block per (b, h, kRows query rows): the first chunks in flight, the
+// key mask, the q fragments, both passes, the output.
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v,
+                    const uint8_t* __restrict__ valid, bf16* __restrict__ out,
+                    int l, int h, float scale) {
+  extern __shared__ uint4 smem[];
+  const size_t tok = static_cast<size_t>(h) * kDh;
+  const size_t base = static_cast<size_t>(blockIdx.z) * l * tok +
+                      static_cast<size_t>(blockIdx.y) * kDh;
+  const Ring ring{reinterpret_cast<bf16*>(smem), k + base, v + base,
+                  kKeys * tok, l / kKeys, pieces(tok)};
+  for (int x = 0; x < kStages - 1; ++x) {
+    ring.issue(x);
+  }
+  uint8_t* vm = reinterpret_cast<uint8_t*>(smem) + kRingBytes;
   const int lane = threadIdx.x % 32;
   // the warp's tiles: rows row0 + 16 i
   const int row0 = blockIdx.x * kRows + (threadIdx.x / 32) * 16 * kTiles;
@@ -660,32 +623,14 @@ __device__ __forceinline__ void attend(const Src& src, uint8_t* vm,
     load_q(rt[i].qa, q, base, tok, row0 + 16 * i, l, lane);
   }
   if (all) {
-    walk<false>(src, vm, rt, scale, lane);
+    walk<false>(ring, vm, rt, scale, lane);
   } else {
-    walk<true>(src, vm, rt, scale, lane);
+    walk<true>(ring, vm, rt, scale, lane);
   }
 #pragma unroll
   for (int i = 0; i < kTiles; ++i) {
     store_out(out, rt[i], base, tok, row0 + 16 * i, l, lane);
   }
-}
-
-__global__ void __launch_bounds__(kThreads, SGC_ATTN_MIN_BLOCKS)
-attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v,
-                    const uint8_t* __restrict__ valid, bf16* __restrict__ out,
-                    int l, int h, float scale) {
-  extern __shared__ uint4 smem[];
-  const size_t tok = static_cast<size_t>(h) * kDh;
-  const size_t base = static_cast<size_t>(blockIdx.z) * l * tok +
-                      static_cast<size_t>(blockIdx.y) * kDh;
-  const Ring src{reinterpret_cast<bf16*>(smem), k + base, v + base,
-                 kKeys * tok, l / kKeys, pieces(tok)};
-  for (int x = 0; x < kStages - 1; ++x) {
-    src.issue(x);
-  }
-  attend(src, reinterpret_cast<uint8_t*>(smem) + kRingBytes, q, valid, out,
-         base, tok, l, scale);
 }
 
 cudaError_t launch(const void* q, const void* k, const void* v,

@@ -1,6 +1,7 @@
-// PTX helpers shared by the bf16 tensor-core kernels (csrc/tile_gemm.cuh,
-// csrc/attention.cu): cp.async copies from device memory to shared memory,
-// ldmatrix fragment loads and the mma.sync m16n8k16 bf16 product.
+// PTX helpers of the bf16 tensor-core kernels: cp.async copies from device
+// memory to shared memory (csrc/tile_gemm.cuh and csrc/attention.cu);
+// ldmatrix fragment loads and the mma.sync m16n8k16 bf16 product
+// (csrc/tile_gemm.cuh); the Hopper wgmma products (csrc/attention.cu).
 //
 // Fragment layouts of mma.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16 x 16, row-major), 4 registers of 2 bf16: (row g, cols 2t, 2t+1),
@@ -133,11 +134,9 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[8][4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 
-// d (+)= a b for a 64 x 32 x 16 bf16 tile, float32 accumulators; B K-major
-// (kTransB 0: column n's 16 K values in 2 core matrices along K) or
-// MN-major (kTransB 1: row k's 32 N values in 4 core matrices along N).
-// accumulate 0 overwrites d.
-template <int kTransB>
+// d (+)= a b for a 64 x 32 x 16 bf16 tile, float32 accumulators; B
+// MN-major (row k's 32 N values in 4 core matrices along N).  accumulate 0
+// overwrites d.
 __device__ __forceinline__ void wgmma_m64n32k16(float (&d)[4][4],
                                                 const unsigned (&a)[4],
                                                 uint64_t b, int accumulate) {
@@ -145,13 +144,12 @@ __device__ __forceinline__ void wgmma_m64n32k16(float (&d)[4][4],
       "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
       : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
         "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
         "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
         "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate),
-        "n"(kTransB));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 
 }  // namespace sgc

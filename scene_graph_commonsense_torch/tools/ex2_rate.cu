@@ -1,5 +1,5 @@
 // The card's sustained rate of ex2.approx.ftz.f32, the exponential of the
-// attention kernel (csrc/attention.cu), for tools/attention_variants.py:
+// attention kernel (csrc/attention.cu), for tools/ex2_rate.py:
 //
 //   sgc_ex2_rate(out, blocks, iters, stream)
 //
