@@ -72,7 +72,9 @@ at (12, 1024, 1024, 3), the stem pool at (12, 510, 510, 64) (exact), the
 stride-1 bottleneck at the five block shapes of the trunk and the stride-2
 one at its three transitions, bf16 (2x rule) and float32 (TRUNK_F32_TOL of
 the output's scale), each timed beside its plain version and the port's
-unfused counterpart (`unfused_ms`: cuDNN convolutions and their passes).
+unfused counterpart (`unfused_ms`: cuDNN convolutions and their passes);
+each stride-1 record names the kernel's tile, its cluster size and the
+weight bytes it streams from L2 per launch (`weight_l2_bytes`).
 Then a {"kernels": [...]} line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  Uses no JAX.
 
@@ -660,6 +662,25 @@ def bottleneck_bound(x, blk, out):
             "flops": flops}
 
 
+def k3_weight_stream(x, blk):
+    """The stride-1 kernel's tile, cluster size and the weight bytes it
+    streams from L2 per launch: every cluster of tiles reads all of the
+    block's weights once (bf16: the Hopper kernel's plan, 2-block clusters
+    that share each weight chunk; float32: the mma.sync template's 4 x 4
+    tile, one block a tile)."""
+    b, h, w, _ = x.shape
+    if x.dtype == torch.bfloat16:
+        plan = bottleneck.hopper_plan(blk.w1.shape[1], blk.wd is not None)
+        th, tw, cluster = plan["tile_h"], plan["tile_w"], plan["cluster"]
+    else:
+        th, tw, cluster = 4, 4, 1
+    tiles = -(-h // th) * -(-w // tw)
+    clusters = b * -(-tiles // cluster)
+    return {"tile": [th, tw], "cluster": cluster,
+            "weight_l2_bytes": clusters * nbytes(blk.w1, blk.w2, blk.w3,
+                                                 blk.wd)}
+
+
 def stem_bound(images, w7, fold, out):
     """The float32 images, kernel and fold read once, the pooled output
     written once; 2 x 147 x 64 operations per conv output pixel at the
@@ -863,6 +884,8 @@ def phase_kernel_trunk():
                            f"{name} {label}", got, want,
                            lambda: bottleneck_truth(x, blk, stride)),
                        "library_ms": None, **bottleneck_bound(x, blk, got)}
+                if stride == 1:
+                    rec.update(k3_weight_stream(x, blk))
                 del got, want
                 x_nchw = x.permute(0, 3, 1, 2)
                 rec.update(timing(lambda: kernel(x, *blk.args()),
@@ -1240,7 +1263,7 @@ def phase_featurize():
     detr.fused_backbone = True
     kernel_groups = {"attention": "attention_tc_kernel",
                      "ffn_ln": "ffn_ln_tc_kernel",
-                     "bottleneck": "bottleneck_kernel",
+                     "bottleneck": "bottleneck",     # K3 and K4
                      "stem_conv_pool": "stem_conv_pool_kernel"}
     prof_trunk = device_profile(lambda: trunk(x12), 1, groups=kernel_groups)
     prof_encode = device_profile(lambda: encode(x12), 1,

@@ -399,8 +399,9 @@ __device__ __forceinline__ void issue_products(RowTile (&rt)[kTiles],
   for (int i = 0; i < kTiles; ++i) {
 #pragma unroll
     for (int kk = 0; kk < 2; ++kk) {
-      sgc::wgmma_m64n64k16(rt[i].s, rt[i].qa[kk],
-                           sgc::wgmma_desc(ks + kk * 128, 128, 16 * kDh), kk);
+      sgc::wgmma_m64n64k16(
+          rt[i].s, rt[i].qa[kk],
+          sgc::wgmma_desc(sgc::smem_addr(ks + kk * 128), 128, 16 * kDh), kk);
     }
     sgc::wgmma_commit();
   }
@@ -496,8 +497,9 @@ __device__ __forceinline__ void issue_pv(RowTile& t,
   sgc::wgmma_fence();
 #pragma unroll
   for (int i = 0; i < kKeys / 16; ++i) {
-    sgc::wgmma_m64n32k16(t.o, pa[i],
-                         sgc::wgmma_desc(vs + i * 16 * kDh, 16 * kDh, 128), 1);
+    sgc::wgmma_m64n32k16(
+        t.o, pa[i],
+        sgc::wgmma_desc(sgc::smem_addr(vs + i * 16 * kDh), 16 * kDh, 128), 1);
   }
   sgc::wgmma_commit();
 }

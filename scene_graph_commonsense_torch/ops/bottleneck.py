@@ -9,7 +9,9 @@ frozen-BN fold they take.
   bottleneck_kernel / fused_bottleneck_plain  (`launches`)
       csrc/bottleneck.cu at stride 1, the port of the TPU kernel `_kernel`
       (through `fused_bottleneck`): one whole stride-1 block, the identity
-      plain or projected (layer1_0).
+      plain or projected (layer1_0).  bfloat16 runs the Hopper kernel
+      (wgmma, TMA, 2-block clusters; `hopper_plan` gives its tile at an M),
+      float32 the mma.sync template.
   bottleneck_s2_kernel / fused_bottleneck_s2_plain  (`s2_launches`)
       the same source at stride 2, the port of `_kernel_s2` (through
       `fused_bottleneck_s2`): the three stage transitions.
@@ -152,6 +154,18 @@ def _library():
         fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 \
             + [ctypes.c_void_p]
     return fn
+
+
+def hopper_plan(m: int, proj: bool) -> dict:
+    """The tile and pipeline of the bfloat16 stride-1 kernel at M, as the
+    source fixes them: tile rows and columns, cluster size, ring slots and
+    shared-memory bytes (csrc/bottleneck.cu `sgc_bottleneck_plan`)."""
+    fn = _build.load("bottleneck").sgc_bottleneck_plan
+    out = (ctypes.c_int * 5)()
+    _build.check_launch("bottleneck plan", fn(ctypes.c_int(m),
+                                              ctypes.c_int(int(proj)), out))
+    return dict(zip(("tile_h", "tile_w", "cluster", "slots", "smem_bytes"),
+                    out))
 
 
 def _launch(x, w1, s1, w2, s2, w3, s3, wd, sd, stride: int) -> torch.Tensor:

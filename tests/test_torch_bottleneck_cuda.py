@@ -91,11 +91,24 @@ def _check(args, stride):
         assert err <= 2 * plain_err + 1e-6, (err, plain_err)
 
 
-# (B, H, W, C_in, M, C_out, projection); odd H and W leave ragged tiles
+# (B, H, W, C_in, M, C_out, projection); odd H and W leave ragged tiles.
+# The bfloat16 kernel's tiles (16 x 16 at M = 64, 16 x 8 at M = 128 and
+# 256, 8 x 8 at M = 512) pair up in clusters of two: for each M there are
+# images smaller than one tile (a lone tile, its partner past the image),
+# an odd number of tiles per tile row, and batches above 1.
 STRIDE1 = {"identity_m64": (2, 9, 13, 256, 64, 256, False),
+           "identity_m64_3x3_tiles": (1, 40, 40, 256, 64, 256, False),
            "proj_m64": (2, 7, 5, 64, 64, 256, True),
+           "proj_m64_2x3_tiles": (2, 20, 36, 64, 64, 256, True),
            "identity_m128": (1, 11, 6, 512, 128, 512, False),
+           "identity_m128_2x3_tiles": (2, 20, 20, 512, 128, 512, False),
+           "proj_m128": (1, 6, 10, 256, 128, 512, True),
+           "identity_m256_small": (2, 5, 7, 1024, 256, 1024, False),
+           "identity_m256_2x3_tiles": (3, 17, 20, 1024, 256, 1024, False),
+           "proj_m256": (1, 10, 9, 512, 256, 1024, True),
            "identity_m512": (1, 3, 5, 2048, 512, 2048, False),
+           "identity_m512_2x3_tiles": (2, 12, 20, 2048, 512, 2048, False),
+           "proj_m512": (1, 5, 9, 1024, 512, 2048, True),
            "layer3_12x64x64": (12, 64, 64, 1024, 256, 1024, False)}
 STRIDE2 = {"m128": (2, 10, 14, 256, 128, 512),
            "m512": (1, 6, 4, 1024, 512, 2048),
