@@ -70,11 +70,12 @@ over as many launches and the kernel's two-exponential floor
 trunk kernels at the production shapes (batch 12, 1024^2 images): the stem
 at (12, 1024, 1024, 3), the stem pool at (12, 510, 510, 64) (exact), the
 stride-1 bottleneck at the five block shapes of the trunk and the stride-2
-one at its three transitions, bf16 (2x rule) and float32 (TRUNK_F32_TOL of
-the output's scale), each timed beside its plain version and the port's
-unfused counterpart (`unfused_ms`: cuDNN convolutions and their passes);
-each stride-1 record names the kernel's tile, its cluster size and the
-weight bytes it streams from L2 per launch (`weight_l2_bytes`).
+one at its three transitions, bf16 (2x rule; K4 1.1x) and float32
+(TRUNK_F32_TOL of the output's scale), each timed beside its plain version
+and the port's unfused counterpart (`unfused_ms`: cuDNN convolutions and
+their passes); each bottleneck record names the kernel's tile, its cluster
+size, the weight bytes it streams from L2 per call (`weight_l2_bytes`) and
+the scratch it takes (`scratch_bytes`: bf16 K4's conv1 output).
 Then a {"kernels": [...]} line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  Uses no JAX.
 
@@ -514,14 +515,14 @@ def ffn_truth(x, w1, b1, w2, b2, g, beta):
     return (y - mu) / torch.sqrt(var + 1e-5) * g.to(f64) + beta.to(f64)
 
 
-def check_bf16(name, got, want, truth):
-    """The kernel's largest error against the float64 truth is at most 2x
-    the plain version's."""
+def check_bf16(name, got, want, truth, ratio=2.0):
+    """The kernel's largest error against the float64 truth is at most
+    `ratio` x the plain version's."""
     err = (got.double() - truth).abs().max().item()
     plain_err = (want.double() - truth).abs().max().item()
-    if not err <= 2 * plain_err + 1e-6:
+    if not err <= ratio * plain_err + 1e-6:
         raise AssertionError(f"{name}: bf16 error against float64 {err} > "
-                             f"2 x the plain version's {plain_err}")
+                             f"{ratio} x the plain version's {plain_err}")
     return {"err_vs_f64": err, "plain_err_vs_f64": plain_err}
 
 
@@ -662,23 +663,36 @@ def bottleneck_bound(x, blk, out):
             "flops": flops}
 
 
-def k3_weight_stream(x, blk):
-    """The stride-1 kernel's tile, cluster size and the weight bytes it
-    streams from L2 per launch: every cluster of tiles reads all of the
-    block's weights once (bf16: the Hopper kernel's plan, 2-block clusters
-    that share each weight chunk; float32: the mma.sync template's 4 x 4
-    tile, one block a tile)."""
+def weight_stream(x, blk, stride):
+    """A bottleneck kernel's output tile, cluster size, the weight bytes it
+    streams from L2 per call and the scratch it takes: every cluster of
+    tiles reads all of the weights it applies once (bf16: the Hopper
+    kernels' plan, 2-block clusters that share each weight chunk; at
+    stride 2 the conv1 kernel reads w1 once per cluster of its row tiles
+    and the second kernel w2, w3 and wd once per cluster of output tiles,
+    beside the scratch a between them; float32: the mma.sync template's
+    4 x 4 tile, one block a tile)."""
     b, h, w, _ = x.shape
+    m = blk.w1.shape[1]
+    ho, wo = h // stride, w // stride
+    scratch = bottleneck.scratch_shape(x, m, stride)
     if x.dtype == torch.bfloat16:
-        plan = bottleneck.hopper_plan(blk.w1.shape[1], blk.wd is not None)
+        plan = bottleneck.hopper_plan(m, blk.wd is not None, stride)
         th, tw, cluster = plan["tile_h"], plan["tile_w"], plan["cluster"]
     else:
         th, tw, cluster = 4, 4, 1
-    tiles = -(-h // th) * -(-w // tw)
+    tiles = -(-ho // th) * -(-wo // tw)
     clusters = b * -(-tiles // cluster)
+    if scratch is None:
+        streamed = clusters * nbytes(blk.w1, blk.w2, blk.w3, blk.wd)
+    else:
+        conv1_tiles = -(-b * h * w // plan["conv1_tile_rows"])
+        streamed = -(-conv1_tiles // cluster) * nbytes(blk.w1) \
+            + clusters * nbytes(blk.w2, blk.w3, blk.wd)
     return {"tile": [th, tw], "cluster": cluster,
-            "weight_l2_bytes": clusters * nbytes(blk.w1, blk.w2, blk.w3,
-                                                 blk.wd)}
+            "weight_l2_bytes": streamed,
+            "scratch_bytes": 0 if scratch is None
+            else math.prod(scratch) * x.element_size()}
 
 
 def stem_bound(images, w7, fold, out):
@@ -743,9 +757,9 @@ def stem_truth(images, w7, fold):
     return F.max_pool2d(v, 3, 2, 1).permute(0, 2, 3, 1)
 
 
-def check_trunk_kernel(name, got, want, truth_fn):
-    """float32: within TRUNK_F32_TOL of the output's scale; bf16: at most 2x
-    the plain version's error against the float64 truth."""
+def check_trunk_kernel(name, got, want, truth_fn, bf16_ratio=2.0):
+    """float32: within TRUNK_F32_TOL of the output's scale; bf16: at most
+    bf16_ratio x the plain version's error against the float64 truth."""
     err = (got.float() - want.float()).abs().max().item()
     rec = {"max_abs_err": err}
     if got.dtype == torch.float32:
@@ -755,7 +769,7 @@ def check_trunk_kernel(name, got, want, truth_fn):
                                  f"{ratio:.3g} x the tolerance")
         rec["max_err_over_tol"] = ratio
     else:
-        rec.update(check_bf16(name, got, want, truth_fn()))
+        rec.update(check_bf16(name, got, want, truth_fn(), bf16_ratio))
     return rec
 
 
@@ -769,6 +783,9 @@ K3_CASES = (("layer1_0", 256, 256, 64, 64, True, 1),
 # the transitions: (name, H, W, C_in, M)
 K4_CASES = (("layer2_0", 256, 256, 256, 128), ("layer3_0", 128, 128, 512, 256),
             ("layer4_0", 64, 64, 1024, 512))
+# K4's bf16 error against the float64 truth, at most this times the plain
+# version's: the same roundings of a and b, only the sums' order differs
+K4_BF16_RATIO = 1.1
 
 
 def _launch_mean(recs, weights_, key):
@@ -882,10 +899,10 @@ def phase_kernel_trunk():
                        "co": 4 * m, "dtype": str(dtype)[6:],
                        **check_trunk_kernel(
                            f"{name} {label}", got, want,
-                           lambda: bottleneck_truth(x, blk, stride)),
-                       "library_ms": None, **bottleneck_bound(x, blk, got)}
-                if stride == 1:
-                    rec.update(k3_weight_stream(x, blk))
+                           lambda: bottleneck_truth(x, blk, stride),
+                           K4_BF16_RATIO if stride == 2 else 2.0),
+                       "library_ms": None, **bottleneck_bound(x, blk, got),
+                       **weight_stream(x, blk, stride)}
                 del got, want
                 x_nchw = x.permute(0, 3, 1, 2)
                 rec.update(timing(lambda: kernel(x, *blk.args()),
@@ -995,7 +1012,7 @@ def phase_slice():
 def device_profile(fn, n, top_ops=16, groups=None):
     """torch.profiler over fn(): device busy share of the wall time, kernels
     by name, operators by input shape, per call of n; with `groups` (label
-    -> substring of a kernel name) also each group's device time."""
+    -> substrings of kernel names) also each group's device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -1017,8 +1034,9 @@ def device_profile(fn, n, top_ops=16, groups=None):
     if busy_us <= 0:
         raise AssertionError("the profiler recorded no device time")
     top_kernels = sorted(kernels.items(), key=lambda kv: -kv[1])[:14]
-    grouped = {label: sum(t for name, t in kernels.items() if part in name)
-               / 1e3 / n for label, part in (groups or {}).items()}
+    grouped = {label: sum(t for name, t in kernels.items()
+                          if any(p in name for p in parts)) / 1e3 / n
+               for label, parts in (groups or {}).items()}
 
     def self_dev(e):
         return getattr(e, "self_device_time_total", None) \
@@ -1261,10 +1279,10 @@ def phase_featurize():
     # fused one (the rest of the phase runs fused)
     prof_trunk_unfused = device_profile(lambda: trunk(x12), 1)
     detr.fused_backbone = True
-    kernel_groups = {"attention": "attention_tc_kernel",
-                     "ffn_ln": "ffn_ln_tc_kernel",
-                     "bottleneck": "bottleneck",     # K3 and K4
-                     "stem_conv_pool": "stem_conv_pool_kernel"}
+    kernel_groups = {"attention": ("attention_tc_kernel",),
+                     "ffn_ln": ("ffn_ln_tc_kernel",),
+                     "bottleneck": ("bottleneck", "conv1_s2"),  # K3, K4
+                     "stem_conv_pool": ("stem_conv_pool_kernel",)}
     prof_trunk = device_profile(lambda: trunk(x12), 1, groups=kernel_groups)
     prof_encode = device_profile(lambda: encode(x12), 1,
                                  groups=kernel_groups)

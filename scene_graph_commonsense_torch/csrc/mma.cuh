@@ -350,10 +350,18 @@ __device__ __forceinline__ void cluster_sync() {
           "memory");
 }
 
-// TMA tensor copies to shared memory, completing on mbarrier `bar`: a 4D
-// box into this block, and a 2D box into the same offset of every block of
-// the cluster in `mask` (each completing on its own barrier at `bar`'s
-// offset).  Out-of-bounds elements are written as zeros.
+// TMA tensor copies to shared memory, completing on mbarrier `bar`: a 2D,
+// 4D or 5D box into this block, and a 2D box into the same offset of every
+// block of the cluster in `mask` (each completing on its own barrier at
+// `bar`'s offset).  Out-of-bounds elements are written as zeros.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(map), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
 __device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map,
                                             uint32_t bar, int c0, int c1,
                                             int c2, int c3) {
@@ -361,6 +369,15 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map,
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(map), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_5d(uint32_t dst, const void* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(dst),
+      "l"(map), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4)
       : "memory");
 }
 __device__ __forceinline__ void tma_load_2d_multicast(uint32_t dst,
@@ -376,9 +393,19 @@ __device__ __forceinline__ void tma_load_2d_multicast(uint32_t dst,
       : "memory");
 }
 
-// A TMA tensor store of a 4D box from this block's shared memory (writes
-// outside the tensor are dropped), and the waits for this thread's stores:
-// until their reads of shared memory are done, or until they are complete.
+// TMA tensor stores of a 2D or 4D box from this block's shared memory
+// (writes outside the tensor are dropped), and the waits for this thread's
+// stores: until their reads of shared memory are done, or until they are
+// complete.
+__device__ __forceinline__ void tma_store_2d(const void* map, uint32_t src,
+                                             int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, "
+      "%3}], [%1];\n" ::"l"(map),
+      "r"(src), "r"(c0), "r"(c1)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
 __device__ __forceinline__ void tma_store_4d(const void* map, uint32_t src,
                                              int c0, int c1, int c2,
                                              int c3) {

@@ -14,7 +14,11 @@ frozen-BN fold they take.
       float32 the mma.sync template.
   bottleneck_s2_kernel / fused_bottleneck_s2_plain  (`s2_launches`)
       the same source at stride 2, the port of `_kernel_s2` (through
-      `fused_bottleneck_s2`): the three stage transitions.
+      `fused_bottleneck_s2`): the three stage transitions.  bfloat16 runs
+      two Hopper kernels a call, conv1 into a scratch `a` (B, H, W, M)
+      that the wrapper allocates, then conv2 at stride 2, conv3 and the
+      projection (`hopper_plan(m, True, 2)` gives their tiles); float32
+      the mma.sync template.
 
 The plain versions keep the TPU kernels' rounding points: x and the
 weights in the compute dtype, each product a float32 matmul (or conv) of
@@ -44,10 +48,12 @@ import torch.nn.functional as F
 from scene_graph_commonsense_torch.ops import _build
 
 launches = 0          # stride-1 kernel launches since the last reset
-s2_launches = 0       # stride-2 kernel launches since the last reset
+s2_launches = 0       # stride-2 kernel calls since the last reset
 
 CHANNEL_MULTIPLE = 64     # the kernel walks channels in chunks of 64
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the widths M the bfloat16 Hopper kernels are built for, by stride
+HOPPER_WIDTHS = {1: (64, 128, 256, 512), 2: (128, 256, 512)}
 
 
 def fold_bn(bn, eps: float = 1e-5) -> torch.Tensor:
@@ -136,6 +142,9 @@ def check_kernel_inputs(x, w1, s1, w2, s2, w3, s3, wd, sd,
         raise ValueError(f"the bottleneck kernel takes C, M and CO that are "
                          f"multiples of {CHANNEL_MULTIPLE}, got {c}, {m}, "
                          f"{co}")
+    if x.dtype == torch.bfloat16 and m not in HOPPER_WIDTHS[stride]:
+        raise ValueError(f"the bfloat16 stride-{stride} kernel takes M in "
+                         f"{HOPPER_WIDTHS[stride]}, got {m}")
     tensors = [x] + weights + folds
     if len({t.device for t in tensors}) != 1:
         raise ValueError("bottleneck inputs lie on different devices")
@@ -151,21 +160,32 @@ def _library():
     fn = _build.load("bottleneck").sgc_bottleneck
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 \
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 \
             + [ctypes.c_void_p]
     return fn
 
 
-def hopper_plan(m: int, proj: bool) -> dict:
-    """The tile and pipeline of the bfloat16 stride-1 kernel at M, as the
-    source fixes them: tile rows and columns, cluster size, ring slots and
-    shared-memory bytes (csrc/bottleneck.cu `sgc_bottleneck_plan`)."""
+def hopper_plan(m: int, proj: bool, stride: int = 1) -> dict:
+    """The tile and pipeline of the bfloat16 kernel at M and stride, as the
+    source fixes them: tile rows and columns, cluster size, weight-chunk
+    slots and shared-memory bytes (at stride 2, of the kernel after conv1,
+    which always has the projection), and the rows of the stride-2 conv1
+    kernel's tile (0 at stride 1) (csrc/bottleneck.cu
+    `sgc_bottleneck_plan`)."""
     fn = _build.load("bottleneck").sgc_bottleneck_plan
-    out = (ctypes.c_int * 5)()
-    _build.check_launch("bottleneck plan", fn(ctypes.c_int(m),
-                                              ctypes.c_int(int(proj)), out))
-    return dict(zip(("tile_h", "tile_w", "cluster", "slots", "smem_bytes"),
-                    out))
+    out = (ctypes.c_int * 6)()
+    _build.check_launch("bottleneck plan", fn(
+        ctypes.c_int(m), ctypes.c_int(int(proj)), ctypes.c_int(stride), out))
+    return dict(zip(("tile_h", "tile_w", "cluster", "slots", "smem_bytes",
+                     "conv1_tile_rows"), out))
+
+
+def scratch_shape(x: torch.Tensor, m: int, stride: int):
+    """The shape of the scratch `a` a launch takes, or None: conv1's output
+    (B, H, W, M) for bfloat16 at stride 2."""
+    if stride == 2 and x.dtype == torch.bfloat16:
+        return (*x.shape[:3], m)
+    return None
 
 
 def _launch(x, w1, s1, w2, s2, w3, s3, wd, sd, stride: int) -> torch.Tensor:
@@ -175,13 +195,16 @@ def _launch(x, w1, s1, w2, s2, w3, s3, wd, sd, stride: int) -> torch.Tensor:
     m, co = w1.shape[1], w3.shape[1]
     y = torch.empty((b, h // stride, w // stride, co), dtype=x.dtype,
                     device=x.device)
+    shape = scratch_shape(x, m, stride)
+    a = None if shape is None else torch.empty(shape, dtype=x.dtype,
+                                               device=x.device)
     opt = (lambda t: None if t is None else t.data_ptr())
     stream = torch.cuda.current_stream(x.device).cuda_stream
     _build.check_launch("bottleneck", _library()(
         x.data_ptr(), w1.data_ptr(), s1.data_ptr(), w2.data_ptr(),
         s2.data_ptr(), w3.data_ptr(), s3.data_ptr(), opt(wd), opt(sd),
-        y.data_ptr(), b, h, w, c, m, co, stride, _DTYPE_CODES[x.dtype],
-        x.device.index, stream))
+        y.data_ptr(), opt(a), b, h, w, c, m, co, stride,
+        _DTYPE_CODES[x.dtype], x.device.index, stream))
     return y
 
 
@@ -195,7 +218,8 @@ def bottleneck_kernel(x, w1, s1, w2, s2, w3, s3, wd=None, sd=None):
 
 
 def bottleneck_s2_kernel(x, w1, s1, w2, s2, w3, s3, wd, sd):
-    """Launches csrc/bottleneck.cu at stride 2 and counts the launch."""
+    """Launches csrc/bottleneck.cu at stride 2 and counts the call (in
+    bfloat16 its two kernels, conv1 and the rest, count as one)."""
     global s2_launches
     y = _launch(x, w1, s1, w2, s2, w3, s3, wd, sd, 2)
     s2_launches += 1

@@ -137,3 +137,25 @@ def test_torch_bottleneck_routes_by_device():
         tb.bottleneck_kernel(*t)
     with pytest.raises(ValueError, match="CUDA"):
         tb.bottleneck_s2_kernel(*t)
+
+
+def test_torch_bottleneck_kernel_input_checks():
+    """What the kernels take, checked before any launch: the bfloat16
+    Hopper kernels' widths M by stride, and the scratch the bfloat16
+    stride-2 call allocates (conv1's output, B x H x W x M)."""
+    for dtype, m, stride, ok in ((torch.bfloat16, 64, 1, True),
+                                 (torch.bfloat16, 64, 2, False),
+                                 (torch.bfloat16, 128, 2, True),
+                                 (torch.bfloat16, 192, 1, False),
+                                 (torch.float32, 64, 2, True)):
+        args = [None if a is None else torch.from_numpy(a).to(
+                    torch.float32 if i in (2, 4, 6, 8) else dtype)
+                for i, a in enumerate(_inputs(4, 4, 6, 64, m, 256, True))]
+        if ok:
+            tb.check_kernel_inputs(*args, stride)
+        else:
+            with pytest.raises(ValueError, match="M in"):
+                tb.check_kernel_inputs(*args, stride)
+        want = (2, 4, 6, m) if (dtype, stride) == (torch.bfloat16, 2) \
+            else None
+        assert tb.scratch_shape(args[0], m, stride) == want

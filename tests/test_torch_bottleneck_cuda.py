@@ -12,7 +12,8 @@ Where there is no card each test skips.  Tolerances: float32 within 1e-5 of
 the output's scale (max |plain|): sums of up to 9 * 512 float32 products in
 another order; bfloat16 compute: the kernel's largest error against a
 float64 truth (the same bf16 operands and roundings of a and b, exact sums)
-is at most 2x the plain version's."""
+is at most 2x the plain version's at stride 1 and 1.1x at stride 2 (the
+same roundings of a and b, only the sums' order differs)."""
 
 import numpy as np
 import pytest
@@ -70,6 +71,10 @@ def _truth(x, w1, s1, w2, s2, w3, s3, wd, sd, stride):
     return torch.relu(c + idn)
 
 
+# the kernel's bf16 error against float64 over the plain version's, at most
+BF16_RATIO = {1: 2.0, 2: 1.1}
+
+
 def _check(args, stride):
     kernel = tb.bottleneck_kernel if stride == 1 else tb.bottleneck_s2_kernel
     plain = tb.fused_bottleneck_plain if stride == 1 \
@@ -88,7 +93,7 @@ def _check(args, stride):
         truth = _truth(*args, stride)
         err = (got.double() - truth).abs().max().item()
         plain_err = (want.double() - truth).abs().max().item()
-        assert err <= 2 * plain_err + 1e-6, (err, plain_err)
+        assert err <= BF16_RATIO[stride] * plain_err + 1e-6, (err, plain_err)
 
 
 # (B, H, W, C_in, M, C_out, projection); odd H and W leave ragged tiles.
@@ -110,8 +115,21 @@ STRIDE1 = {"identity_m64": (2, 9, 13, 256, 64, 256, False),
            "identity_m512_2x3_tiles": (2, 12, 20, 2048, 512, 2048, False),
            "proj_m512": (1, 5, 9, 1024, 512, 2048, True),
            "layer3_12x64x64": (12, 64, 64, 1024, 256, 1024, False)}
+# Stride 2 (bfloat16: conv1 over 128-row tiles of (B H W, C), then output
+# tiles of 16 x 8 at M = 128 and 256, 8 x 8 at M = 512, both in clusters of
+# two): for each M an image smaller than one output tile (its partner past
+# the image), an odd number of output tiles (one cluster's partner on zero
+# fill), H/2 and W/2 odd with B > 1, and a production shape.
 STRIDE2 = {"m128": (2, 10, 14, 256, 128, 512),
+           "m128_small": (1, 6, 10, 256, 128, 512),
+           "m128_3_tiles": (2, 30, 46, 256, 128, 512),
+           "m256_small": (2, 8, 12, 512, 256, 1024),
+           "m256_3_tiles": (1, 32, 48, 512, 256, 1024),
+           "m256_odd_halves": (3, 22, 18, 512, 256, 1024),
            "m512": (1, 6, 4, 1024, 512, 2048),
+           "m512_3_tiles": (1, 16, 48, 1024, 512, 2048),
+           "m512_odd_halves": (2, 18, 14, 1024, 512, 2048),
+           "layer3_0_12x128x128": (12, 128, 128, 512, 256, 1024),
            "layer4_0_12x64x64": (12, 64, 64, 1024, 512, 2048)}
 
 
@@ -146,5 +164,7 @@ def test_torch_bottleneck_kernel_rejects_what_it_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="multiples"):
         odd = _args(cuda_device, torch.bfloat16, 1, 4, 4, 64, 48, 64, False)
         tb.bottleneck_kernel(*odd)
+    with pytest.raises(ValueError, match="M in"):
+        tb.bottleneck_s2_kernel(*args)         # M = 64 at stride 2
     with pytest.raises(ValueError, match="CUDA"):
         tb.bottleneck_kernel(*[None if a is None else a.cpu() for a in args])
