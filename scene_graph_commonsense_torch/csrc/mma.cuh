@@ -2,8 +2,8 @@
 // memory to shared memory (csrc/tile_gemm.cuh and csrc/attention.cu);
 // ldmatrix fragment loads and the mma.sync m16n8k16 bf16 product
 // (csrc/tile_gemm.cuh); the Hopper wgmma products (csrc/attention.cu,
-// csrc/bottleneck.cu); mbarriers, TMA copies and cluster barriers
-// (csrc/bottleneck.cu).
+// csrc/bottleneck.cu, csrc/stem.cu); mbarriers, TMA copies and cluster
+// barriers (csrc/bottleneck.cu).
 //
 // Fragment layouts of mma.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16 x 16, row-major), 4 registers of 2 bf16: (row g, cols 2t, 2t+1),
@@ -164,7 +164,7 @@ __device__ __forceinline__ void wgmma_m64n32k16(float (&d)[4][4],
 }
 
 // ---------------------------------------------------------------------------
-// Warp-specialised Hopper pipelines (csrc/bottleneck.cu): wgmma with both
+// Hopper pipelines (csrc/bottleneck.cu, csrc/stem.cu): wgmma with both
 // operands in shared memory, mbarriers, TMA tensor copies (multicast across
 // a cluster) and the cluster's barrier.
 // ---------------------------------------------------------------------------

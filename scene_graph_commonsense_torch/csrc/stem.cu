@@ -1,36 +1,71 @@
-// The ResNet stem of the DETR-101 trunk.  Two kernels with plain C entry
-// points for ctypes:
+// The ResNet stem of the DETR-101 trunk.  Three kernels behind two plain C
+// entry points for ctypes:
 //
 //   sgc_stem_conv_pool   out = cd(maxpool3x3/2(relu(BN(conv7x7/2(cd(img))))))
+//                        bfloat16: stem_conv_pool_hopper; float32:
+//                        stem_conv_pool_kernel<float>
 //   sgc_stem_pool        out = cd(maxpool3x3/2(relu(BN(f32(conv_out)))))
 //
 // sgc_stem_conv_pool replaces `_conv_pool_kernel` of
 // scene_graph_commonsense_tpu/ops/pallas/stem.py (through
 // `stem_conv_pool`): img (B, H, W, 3) float32 NHWC with H and W divisible
-// by 8; w (147, 64) = the (7, 7, 3, 64) kernel's real taps, in the compute
-// dtype (float32 or bfloat16); s (2, 64) float32 folded BN; out
-// (B, H/4, W/4, 64) in the compute dtype.  The 7x7 stride-2 conv (pad 3)
-// sums the products in float32; BN, ReLU and the 3x3 stride-2 max pool
-// (pad 1, -inf) run in float32 on those sums, rounded once at the end.
-// Each pixel is rounded to the compute dtype as it is read: the JAX caller
-// casts the images in a pass of its own; the numbers are the same and the
-// pass is saved.  The TPU kernel's (288, 128) permuted weight matrix is a
-// lane trick of its matrix unit; this kernel takes the 147 taps (K padded
-// to 160 with zeros inside the block only).
+// by 8; s (2, 64) float32 folded BN; out (B, H/4, W/4, 64) in the compute
+// dtype.  The 7x7 stride-2 conv (pad 3) sums the products in float32; BN,
+// ReLU and the 3x3 stride-2 max pool (pad 1, -inf) run in float32 on those
+// sums, rounded once at the end.  Each pixel is rounded to the compute
+// dtype as it is read: the JAX caller casts the images in a pass of its
+// own; the numbers are the same and the pass is saved.
 //
 // Bound at the production shape (12 images at 1024^2, bf16 compute): 59.2
-// GFLOP of products (0.060 ms at 989 TFLOP/s) against 252 MB moved (the
-// float32 images read once, the (12, 256, 256, 64) output written once:
-// 0.075 ms at 3.35 TB/s): bytes bound it.  Design: a block owns a tile of
-// pool outputs (2 x 8 in bfloat16, 4 x 8 in float32) and computes the conv
-// pixels its windows need (5 x 17 or 9 x 17): it stages the input patch
-// they read in shared memory once (each pixel rounded there), builds the
-// im2col rows from it, multiplies through tile_gemm (WMMA for bfloat16,
-// FMAs for float32), keeps the float32 post-ReLU conv tile in shared
-// memory and pools it there: the (B, H/2, W/2, 64) conv output never
-// reaches device memory.  Neighbouring tiles recompute the conv row and
-// column they share (85 conv pixels per 64 needed in bfloat16, where the
-// smaller tile lets two blocks share an SM).
+// GFLOP of useful products (0.060 ms at 989 TFLOP/s) against 252 MB moved
+// (the float32 images read once, the (12, 256, 256, 64) output written
+// once: 0.075 ms at 3.35 TB/s): bytes bound it.
+//
+// stem_conv_pool_hopper (bfloat16; w = ops/stem.py stem_kernel_weights) is
+// the TPU kernel's own product on Hopper's wgmma.  The image is read as
+// space-to-depth rows: s2d row u holds raw rows 2u and 2u + 1, cut into
+// cells of 4 pixels, a cell's 24 values ordered (row a, pixel m, channel
+// c).  Conv row cy at cell t (its columns 2t and 2t + 1) is then one
+// (1 x 288) x (288 x 128) product: K = the 12 tap groups (du, cs), s2d row
+// cy - 2 + du and cell t - 1 + cs, each of 24 values; N = 2 column parities
+// x 64 channels (half the matrix is zero: 2x the useful products, 0.12 ms
+// at peak).  The design:
+//   * a warpgroup owns a band of kR pool rows of one image and walks it in
+//     chunks of 64 cells (= 64 pool columns, the wgmma's M), left to right.
+//     Per chunk it stages the 2 kR + 4 s2d rows x 66 cells (the halo cells
+//     t - 1 and t + 64) in shared memory, from 16-byte loads of the float32
+//     rows, each pixel rounded to bf16 once, zero outside the image (the
+//     conv's padding).  A cell's 24 values go as three 8-value (16-byte)
+//     chunks into three planes, cells 16 bytes apart: 8 consecutive cells
+//     of a plane are one wgmma core matrix (K-major, no swizzle);
+//   * a tap group (du, cs) is then a descriptor start du rows and cs cells
+//     into a plane: a 16-byte aligned start, as bottleneck_hopper's conv2
+//     taps shift theirs.  One k16 step pairs chunk j of group (d2, cs)
+//     with that of (d2 + 2, cs), two rows further on (the descriptor's
+//     K stride): 18 m64n128k16 steps per conv row of the chunk, no im2col;
+//   * B, the 288 x 128 matrix regrouped by those steps (MN-major core
+//     matrices), is loaded once per block and stays in shared memory
+//     (72 KB), shared by the block's kWG warpgroups (a persistent grid of
+//     one block per SM; bands dealt out round-robin);
+//   * the epilogue pools in registers: each thread holds the same (cell,
+//     channel) pairs in every conv row, and both column parities of a cell
+//     (columns n and n + 64).  BN and ReLU per conv row, then the vertical
+//     max over conv rows 2py - 1 .. 2py + 1 and the horizontal max over a
+//     cell's two parities and the previous cell's odd parity (a lane
+//     shuffle; across warps and chunks through shared memory).  Maxima are
+//     kept in bf16: rounding is monotone, so it commutes with max and the
+//     result is bit for bit that of a float32 max rounded once.  Conv row
+//     -1 and the cell before column 0 are the pool's -inf padding.
+// Partial bands, partial chunks and images smaller than one tile are
+// masked (the stores check the pool row and column); every shape the
+// wrapper takes runs here.
+//
+// stem_conv_pool_kernel<float> (float32, for the card-vs-CPU parity runs;
+// w (147, 64) = the (7, 7, 3, 64) kernel's real taps): a block owns a 4 x 8
+// tile of pool outputs and computes the 9 x 17 conv pixels its windows
+// need: it stages the input patch they read in shared memory once, builds
+// the im2col rows from it, multiplies through tile_gemm (float32 FMAs),
+// keeps the post-ReLU conv tile in shared memory and pools it there.
 //
 // sgc_stem_pool replaces the TPU `_kernel` of the same file (through
 // `stem_pool`), used where the image is even but not divisible by 8:
@@ -198,6 +233,307 @@ cudaError_t launch_conv_pool(const void* img, const void* w, const void* s,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// stem_conv_pool_hopper (bfloat16)
+// ---------------------------------------------------------------------------
+
+constexpr int kR = 4;                        // pool rows per band
+constexpr int kCells = 64;                   // cells per chunk (wgmma M)
+constexpr int kWG = 3;                       // warpgroups per block
+constexpr int kHopperThreads = 128 * kWG;
+constexpr int kSteps = 18;                   // k16 steps per conv row
+constexpr int kS2dRows = 2 * kR + 4;         // s2d rows they read
+constexpr int kPatchCells = kCells + 2;      // + cells t - 1 and t + 64
+constexpr int kRowBytes = kPatchCells * 16;  // one plane row
+constexpr int kPlaneBytes = kS2dRows * kRowBytes;
+constexpr int kPatchBytes = 3 * kPlaneBytes;
+// the previous cell's odd parity across warps and chunks: [chunk parity]
+// [warp][pool row][64 channels] in bf16
+constexpr int kEdgeBytes = 2 * 4 * kR * kOut * 2;
+constexpr int kWBytes = kSteps * 16 * 128 * 2;   // B, per step 16 x 128
+constexpr int kFoldOff = kWBytes;
+constexpr int kWGOff = kFoldOff + 2 * kOut * 4;
+constexpr int kWGBytes = kPatchBytes + kEdgeBytes;
+constexpr size_t kHopperSmem = size_t(kWGOff) + size_t(kWG) * kWGBytes;
+// float4s of one raw row of a chunk's patch: 66 cells x 12 floats
+constexpr int kRowF4 = kPatchCells * 3;
+constexpr int kStageF4 = 2 * kS2dRows * kRowF4;
+constexpr int kStageBatch = 8;               // loads in flight a thread
+constexpr unsigned kNegInf2 = 0xff80ff80u;   // two bf16 -inf
+
+static_assert(kWGOff % 128 == 0 && kWGBytes % 128 == 0, "alignment");
+static_assert(kHopperSmem <= 232448, "shared memory of one block");
+
+__device__ __forceinline__ unsigned max_bf16x2(unsigned a, unsigned b) {
+  unsigned d;
+  asm("max.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+__device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// Stages chunk c0 of the band at pool row py0: s2d rows 2 py0 - 3 + sr
+// (sr < kS2dRows), cells c0 - 1 + cc (cc < kPatchCells).  Float4 p (< 3)
+// of raw row a of a cell holds values a * 12 + 4 p .. + 3, which land in
+// plane (a * 12 + 4 p) / 8 at byte 2 ((a * 12 + 4 p) % 8) of the cell's
+// 16 bytes.
+__device__ __forceinline__ void stage_patch(unsigned char* patch,
+                                            const float* __restrict__ ib,
+                                            int h, int wi, int py0, int c0,
+                                            int tid) {
+  const int wp = wi / 4;
+  for (int i0 = 0; i0 < kStageF4; i0 += 128 * kStageBatch) {
+    float4 v[kStageBatch];
+#pragma unroll
+    for (int k = 0; k < kStageBatch; ++k) {
+      const int i = i0 + k * 128 + tid;
+      const int rr = i / kRowF4;               // raw row of the patch
+      const int f = i - rr * kRowF4;
+      const int iy = 4 * py0 - 6 + rr;
+      const int t = c0 - 1 + f / 3;
+      v[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (i < kStageF4 && iy >= 0 && iy < h && t >= 0 && t < wp) {
+        v[k] = __ldg(reinterpret_cast<const float4*>(
+            ib + (static_cast<size_t>(iy) * wi + 4 * t) * 3 + 4 * (f % 3)));
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kStageBatch; ++k) {
+      const int i = i0 + k * 128 + tid;
+      if (i < kStageF4) {
+        const int rr = i / kRowF4;
+        const int f = i - rr * kRowF4;
+        const int val = (rr % 2) * 12 + 4 * (f % 3);
+        *reinterpret_cast<uint2*>(patch + (val / 8) * kPlaneBytes +
+                                  (rr / 2) * kRowBytes + (f / 3) * 16 +
+                                  (val % 8) * 2) =
+            make_uint2(pack_bf16x2(v[k].x, v[k].y),
+                       pack_bf16x2(v[k].z, v[k].w));
+      }
+    }
+  }
+}
+
+// One conv row of a chunk: acc = the 64 cells x 128 (parity, channel)
+// products of patch row r (the conv row's s2d rows r .. r + 3).
+__device__ __forceinline__ void conv_row(float (&acc)[64], uint32_t patch_s,
+                                         uint32_t w_s, int r) {
+  sgc::wgmma_fence();
+#pragma unroll
+  for (int d2 = 0; d2 < 2; ++d2) {
+#pragma unroll
+    for (int cs = 0; cs < 3; ++cs) {
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        const int s = (d2 * 3 + cs) * 3 + j;
+        const uint64_t a = sgc::wgmma_desc(
+            patch_s + j * kPlaneBytes + (r + d2) * kRowBytes + cs * 16,
+            2 * kRowBytes, 128);
+        const uint64_t b = sgc::wgmma_desc(w_s + s * 4096, 128, 256);
+        sgc::wgmma_ss_m64n128k16(acc, a, b, s > 0);
+      }
+    }
+  }
+  sgc::wgmma_commit();
+  sgc::wgmma_wait<0>();
+  sgc::fence_acc(acc);
+}
+
+// A persistent grid: each warpgroup walks bands kWG * gridDim.x apart.
+// Thread (warp w, lane = 4 g + t) holds cells 16 w + g and 16 w + g + 8
+// of a chunk (hh = 0, 1), channels 8 j + 2 t and + 1 (j < 8) of both
+// parities: acc[4 j + 2 hh + e] even, acc[4 (j + 8) + 2 hh + e] odd.
+__global__ void __launch_bounds__(kHopperThreads, 1)
+stem_conv_pool_hopper(const float* __restrict__ img,
+                      const bf16* __restrict__ w,
+                      const float* __restrict__ fold,
+                      bf16* __restrict__ out, int b, int h, int wi) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  {
+    const uint4* src = reinterpret_cast<const uint4*>(w);
+    uint4* dst = reinterpret_cast<uint4*>(smem);
+    for (int i = threadIdx.x; i < kWBytes / 16; i += kHopperThreads) {
+      dst[i] = src[i];
+    }
+    if (threadIdx.x < 2 * kOut) {
+      reinterpret_cast<float*>(smem + kFoldOff)[threadIdx.x] =
+          fold[threadIdx.x];
+    }
+  }
+  sgc::fence_proxy_async();
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int bar = 1 + wg;                      // this warpgroup's barrier
+  unsigned char* patch = smem + kWGOff + wg * kWGBytes;
+  unsigned* edge = reinterpret_cast<unsigned*>(patch + kPatchBytes);
+  const uint32_t patch_s = sgc::smem_addr(patch);
+  const uint32_t w_s = sgc::smem_addr(smem);
+  const float* fs = reinterpret_cast<const float*>(smem + kFoldOff);
+  const int hp = h / 4;
+  const int wp = wi / 4;
+  const int bands_y = (hp + kR - 1) / kR;
+  const int chunks = (wp + kCells - 1) / kCells;
+  // edge word of (chunk parity, warp, pool row, channel pair)
+  auto edge_at = [&](int par, int wr, int i, int j) -> unsigned& {
+    return edge[((par * 4 + wr) * kR + i) * (kOut / 2) + 4 * j + t];
+  };
+
+  for (int band = blockIdx.x * kWG + wg; band < b * bands_y;
+       band += gridDim.x * kWG) {
+    const int bi = band / bands_y;
+    const int py0 = (band - bi * bands_y) * kR;
+    const int rows = min(kR, hp - py0);
+    const float* ib = img + static_cast<size_t>(bi) * h * wi * 3;
+    for (int c = 0; c < chunks; ++c) {
+      const int c0 = c * kCells;
+      // the previous chunk's products and edge reads are done
+      sgc::named_sync(bar, 128);
+      stage_patch(patch, ib, h, wi, py0, c0, tid);
+      sgc::fence_proxy_async();
+      sgc::named_sync(bar, 128);
+
+      unsigned run[2][16];                     // vertical maxima, bf16x2
+      for (int r = 0; r < 2 * rows + 1; ++r) {
+        float acc[64];
+        conv_row(acc, patch_s, w_s, r);
+        unsigned cur[2][16];
+        if (2 * py0 - 1 + r < 0) {             // conv row -1: -inf
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+#pragma unroll
+            for (int j = 0; j < 16; ++j) {
+              cur[hh][j] = kNegInf2;
+            }
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < 16; ++j) {
+            const int ch = 8 * (j % 8) + 2 * t;
+            const float2 sc = *reinterpret_cast<const float2*>(fs + ch);
+            const float2 sh =
+                *reinterpret_cast<const float2*>(fs + kOut + ch);
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              const float* a = acc + 4 * j + 2 * hh;
+              cur[hh][j] =
+                  pack_bf16x2(fmaxf(sgc::affine(a[0], sc.x, sh.x), 0.f),
+                              fmaxf(sgc::affine(a[1], sc.y, sh.y), 0.f));
+            }
+          }
+        }
+        if (r == 0) {
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+#pragma unroll
+            for (int j = 0; j < 16; ++j) {
+              run[hh][j] = cur[hh][j];
+            }
+          }
+          continue;
+        }
+        if (r % 2 == 1) {
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+#pragma unroll
+            for (int j = 0; j < 16; ++j) {
+              run[hh][j] = max_bf16x2(run[hh][j], cur[hh][j]);
+            }
+          }
+          continue;
+        }
+        // r = 2 i + 2 closes pool row i (conv rows 2 i .. 2 i + 2) and
+        // opens row i + 1
+        const int i = r / 2 - 1;
+        unsigned pool[2][8];
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+#pragma unroll
+          for (int j = 0; j < 16; ++j) {
+            const unsigned m = max_bf16x2(run[hh][j], cur[hh][j]);
+            run[hh][j] = cur[hh][j];
+            cur[hh][j] = m;
+          }
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            pool[hh][j] = max_bf16x2(cur[hh][j], cur[hh][j + 8]);
+          }
+        }
+        // the odd parity of cell 16 w + 15 for warp w + 1 (warp 3's for
+        // the next chunk)
+        if (g == 7) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            edge_at(c % 2, warp, i, j) = cur[1][j + 8];
+          }
+        }
+        sgc::named_sync(bar, 128);
+        const int src = (lane + 28) % 32;        // lane (g - 1) mod 8, t
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const unsigned x0 = __shfl_sync(0xffffffffu, cur[0][j + 8], src);
+          const unsigned x1 = __shfl_sync(0xffffffffu, cur[1][j + 8], src);
+          // cell 16 w + g + 8 follows 16 w + g + 7: lane g - 1's second
+          // cell, or for g = 0 lane 7's first
+          const unsigned prev1 = g > 0 ? x1 : x0;
+          unsigned prev0 = x0;
+          if (g == 0) {
+            prev0 = warp > 0    ? edge_at(c % 2, warp - 1, i, j)
+                    : c > 0     ? edge_at((c + 1) % 2, 3, i, j)
+                                : kNegInf2;   // the pool's left padding
+          }
+          pool[0][j] = max_bf16x2(pool[0][j], prev0);
+          pool[1][j] = max_bf16x2(pool[1][j], prev1);
+        }
+        const size_t orow = static_cast<size_t>(bi) * hp + py0 + i;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int px = c0 + 16 * warp + g + 8 * hh;
+          if (px < wp) {
+            unsigned* o = reinterpret_cast<unsigned*>(
+                out + (orow * wp + px) * kOut + 2 * t);
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              o[4 * j] = pool[hh][j];
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+cudaError_t launch_conv_pool_hopper(const void* img, const void* w,
+                                    const void* s, void* out, int b, int h,
+                                    int wi, int device, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      stem_conv_pool_hopper, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kHopperSmem));
+  if (err != cudaSuccess) {
+    return err;
+  }
+  int sms = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) {
+    return err;
+  }
+  const int bands = b * ((h / 4 + kR - 1) / kR);
+  const int want = (bands + kWG - 1) / kWG;
+  const int blocks = want < sms ? want : sms;
+  stem_conv_pool_hopper<<<blocks, kHopperThreads, kHopperSmem, stream>>>(
+      static_cast<const float*>(img), static_cast<const bf16*>(w),
+      static_cast<const float*>(s), static_cast<bf16*>(out), b, h, wi);
+  return cudaGetLastError();
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 stem_pool_kernel(const T* __restrict__ x, const float* __restrict__ s,
@@ -254,8 +590,9 @@ cudaError_t launch_pool(const void* x, const void* s, void* out, int b,
 // Plain C entry points for ctypes.  dtype (the compute dtype of w, x and
 // out): 0 = float32, 1 = bfloat16.  The caller guarantees contiguous,
 // 16-byte aligned tensors of the shapes above (stem_conv_pool: H, W
-// divisible by 8; stem_pool: H, W even, C >= 1) and B >= 1.  Each returns
-// the cudaError_t of its launch.
+// divisible by 8, w (147, 64) in float32 or stem_kernel_weights' 73,728
+// bytes in bfloat16; stem_pool: H, W even, C >= 1) and B >= 1.  Each
+// returns the cudaError_t of its launch.
 extern "C" int sgc_stem_conv_pool(const void* img, const void* w,
                                   const void* s, void* out, int b, int h,
                                   int wi, int dtype, int device,
@@ -271,7 +608,7 @@ extern "C" int sgc_stem_conv_pool(const void* img, const void* w,
           launch_conv_pool<float, 4, 8>(img, w, s, out, b, h, wi, st));
     case 1:
       return static_cast<int>(
-          launch_conv_pool<bf16, 2, 8>(img, w, s, out, b, h, wi, st));
+          launch_conv_pool_hopper(img, w, s, out, b, h, wi, device, st));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

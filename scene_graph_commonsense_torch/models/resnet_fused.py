@@ -33,7 +33,8 @@ import torch.nn.functional as F
 
 from scene_graph_commonsense_torch.ops.bottleneck import (
     fold_bn, fused_bottleneck, fused_bottleneck_s2)
-from scene_graph_commonsense_torch.ops.stem import stem_conv_pool, stem_pool
+from scene_graph_commonsense_torch.ops.stem import (
+    stem_conv_pool, stem_kernel_weights, stem_pool)
 
 STAGES = ("layer1", "layer2", "layer3", "layer4")
 STAGE_STRIDES = (1, 2, 2, 2)
@@ -84,6 +85,9 @@ class Prepared:
     stem_w7: torch.Tensor           # (7, 7, 3, 64), compute dtype
     stem_fold: torch.Tensor         # (2, 64) float32
     stages: List[List[Block]]
+    # the bf16 stem kernel's weight matrix (ops/stem.stem_kernel_weights);
+    # None in float32
+    stem_wk: Optional[torch.Tensor] = None
 
 
 def prepare_block(blk, stride: int, dtype: torch.dtype) -> Block:
@@ -113,10 +117,12 @@ def prepared(backbone, dtype: torch.dtype) -> Prepared:
                 for i in range(n)]
                 for name, n, stride in zip(STAGES, backbone.blocks,
                                            STAGE_STRIDES)]
+            w7 = backbone.conv1.weight.permute(2, 3, 1, 0).to(
+                dtype).contiguous()
             prep = Prepared(
-                stem_w7=backbone.conv1.weight.permute(2, 3, 1, 0).to(
-                    dtype).contiguous(),
-                stem_fold=fold_bn(backbone.bn1), stages=stages)
+                stem_w7=w7, stem_fold=fold_bn(backbone.bn1), stages=stages,
+                stem_wk=stem_kernel_weights(w7)
+                if dtype == torch.bfloat16 else None)
         backbone.fused_cache[key] = prep
     return prep
 
@@ -143,7 +149,7 @@ def _stem(backbone, prep: Prepared, images: torch.Tensor,
     if h % 8 == 0 and w % 8 == 0:
         # the whole stem in one kernel (conv + BN + ReLU + pool)
         return stem_conv_pool(images, prep.stem_w7, prep.stem_fold,
-                              compute_dtype=dtype)
+                              compute_dtype=dtype, wk=prep.stem_wk)
     x = _conv(images, backbone.conv1.weight, 2, 3, dtype)
     if x.shape[1] % 2 or x.shape[2] % 2:
         x = torch.relu(_bn(x, prep.stem_fold)).permute(0, 3, 1, 2)

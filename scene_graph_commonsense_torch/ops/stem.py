@@ -6,6 +6,9 @@ the 3x3/2 max pool.
       `_conv_pool_kernel` of scene_graph_commonsense_tpu/ops/pallas/stem.py
       (through `stem_conv_pool`): the whole stem in one pass, images
       (B, H, W, 3) with H and W divisible by 8 -> (B, H/4, W/4, 64).
+      bfloat16 runs `stem_conv_pool_hopper` (wgmma over the TPU kernel's
+      space-to-depth product; its weights are `stem_kernel_weights`),
+      float32 the tile_gemm kernel on the 147 taps.
   stem_pool_kernel / stem_pool_plain  (`pool_launches`)
       csrc/stem.cu `sgc_stem_pool`, the port of the TPU `_kernel` of the
       same file (through `stem_pool`): BN + ReLU + pool over a stem conv
@@ -40,6 +43,86 @@ pool_launches = 0         # stem_pool_kernel launches since the reset
 
 STEM_CHANNELS = 64
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# stem_conv_pool_hopper's tile (csrc/stem.cu kR, kCells, kWG): a band of
+# HOPPER_ROWS pool rows walked in chunks of HOPPER_CELLS space-to-depth
+# cells (pool columns), the wgmma's 64 rows, by one of the
+# HOPPER_WARPGROUPS warpgroups of a block (at most one block per SM)
+HOPPER_ROWS = 4
+HOPPER_CELLS = 64
+HOPPER_WARPGROUPS = 3
+# its k16 steps: (d2, cs, j) for d2 < 2, cs < 3, j < 3, each pairing chunk j
+# (8 of a cell's 24 values) of tap group (d2, cs) with that of (d2 + 2, cs)
+HOPPER_STEPS = 18
+
+
+@functools.lru_cache(maxsize=None)
+def _stem_taps() -> torch.Tensor:
+    """(288, 128): the flat (7, 7, 3, 64) index of w7 that each entry of
+    `stem_weights` holds, -1 for a zero (the algebra of the JAX package's
+    `_build_stem_weights`).
+
+    K rows (du, cs, a, m, c): du the space-to-depth row tap, cs the cell
+    column tap (cells t - 1, t, t + 1), (a, m) the raw pixel inside the
+    2 x 4 cell, c RGB; N columns (pi, o): the output column's parity and
+    channel.  Entry w7[ky, kx, c, o] with ky = 2 du + a - 1 and kx =
+    4 (cs - 1) + m - 2 pi + 3, zero where the tap leaves the 7 x 7
+    support."""
+    idx = torch.full((4, 3, 2, 4, 3, 2, STEM_CHANNELS), -1, dtype=torch.long)
+    co = torch.arange(3)[:, None] * STEM_CHANNELS \
+        + torch.arange(STEM_CHANNELS)
+    for du in range(4):
+        for a in range(2):
+            ky = 2 * du + a - 1
+            if not 0 <= ky < 7:
+                continue
+            for cs in range(3):
+                for m in range(4):
+                    for pi in range(2):
+                        kx = 4 * (cs - 1) + m - 2 * pi + 3
+                        if 0 <= kx < 7:
+                            idx[du, cs, a, m, :, pi, :] = \
+                                (ky * 7 + kx) * 3 * STEM_CHANNELS + co
+    return idx.reshape(288, 2 * STEM_CHANNELS)
+
+
+def _gather_taps(w7: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    # index -1 reads the zero appended after w7's entries
+    flat = torch.cat([w7.reshape(-1), w7.new_zeros(1)])
+    return flat[idx.to(w7.device)]
+
+
+def stem_weights(w7: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The (7, 7, 3, 64) stem kernel as the TPU kernel's (288, 128)
+    space-to-depth matrix in `dtype` (`_stem_taps` has the layout)."""
+    return _gather_taps(w7, _stem_taps()).to(dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _step_rows() -> torch.Tensor:
+    """(18, 16): the rows of the (288, 128) matrix that k16 step
+    s = (d2 * 3 + cs) * 3 + j reads, in order: values 8 j .. 8 j + 7 of tap
+    group (d2, cs), then of (d2 + 2, cs)."""
+    rows = [(du * 3 + cs) * 24 + 8 * j + k
+            for d2 in range(2) for cs in range(3) for j in range(3)
+            for du in (d2, d2 + 2) for k in range(8)]
+    return torch.tensor(rows).reshape(HOPPER_STEPS, 16)
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_taps() -> torch.Tensor:
+    # (step, N block, K half, K row, N column) of the step rows' taps
+    return _stem_taps()[_step_rows()].reshape(
+        HOPPER_STEPS, 2, 8, 16, 8).permute(0, 3, 1, 2, 4).contiguous()
+
+
+def stem_kernel_weights(w7: torch.Tensor) -> torch.Tensor:
+    """`stem_weights` in bfloat16 as stem_conv_pool_hopper keeps it in
+    shared memory: per k16 step (`_step_rows`), wgmma's MN-major core
+    matrices (8 K rows x 8 N columns, 128 contiguous bytes), the two K
+    halves 128 bytes apart, the 16 column blocks 256 bytes apart.
+    (18, 16, 2, 8, 8) = (step, N block, K half, K row, N column), 73,728
+    bytes, built by one gather."""
+    return _gather_taps(w7, _kernel_taps()).to(torch.bfloat16)
 
 
 def _bn_relu_pool(v: torch.Tensor, fold: torch.Tensor) -> torch.Tensor:
@@ -79,8 +162,11 @@ def _check_common(name, t, fold, channels) -> None:
         raise ValueError(f"{name} takes contiguous tensors")
 
 
-def check_conv_pool_inputs(images, w7, fold) -> None:
-    """Raises on anything the stem kernel does not take."""
+def check_conv_pool_inputs(images, w7, fold, wk=None) -> None:
+    """Raises on anything the stem kernel does not take.  Both compute
+    dtypes take every shape accepted here: stem_conv_pool_hopper (bfloat16)
+    masks partial bands, partial chunks and images smaller than one tile
+    itself; wk is its weight matrix (`stem_kernel_weights`)."""
     if images.dtype != torch.float32 or w7.dtype not in _DTYPE_CODES:
         raise TypeError(f"stem_conv_pool takes float32 images and float32 "
                         f"or bfloat16 weights, got {images.dtype}, "
@@ -100,6 +186,18 @@ def check_conv_pool_inputs(images, w7, fold) -> None:
     if w7.data_ptr() % 16:
         raise ValueError("stem_conv_pool reads the kernel in 16-byte "
                          "vectors: its storage must be 16-byte aligned")
+    if w7.dtype == torch.bfloat16:
+        if images.data_ptr() % 16:
+            raise ValueError("stem_conv_pool reads bfloat16-compute images "
+                             "in 16-byte vectors: their storage must be "
+                             "16-byte aligned")
+        if wk is None or wk.dtype != torch.bfloat16 \
+                or wk.shape != (HOPPER_STEPS, 16, 2, 8, 8) \
+                or wk.device != images.device or not wk.is_contiguous() \
+                or wk.data_ptr() % 16:
+            raise ValueError("stem_conv_pool in bfloat16 takes wk, the "
+                             "contiguous, 16-byte aligned "
+                             "stem_kernel_weights on the images' device")
 
 
 def check_pool_inputs(conv_out, fold) -> None:
@@ -115,12 +213,18 @@ def check_pool_inputs(conv_out, fold) -> None:
 
 
 def stem_conv_pool_kernel(images: torch.Tensor, w7: torch.Tensor,
-                          fold: torch.Tensor) -> torch.Tensor:
+                          fold: torch.Tensor,
+                          wk: torch.Tensor = None) -> torch.Tensor:
     """Launches csrc/stem.cu's conv + pool on the current stream of the
-    images' device and counts the launch; the compute dtype is w7's."""
+    images' device and counts the launch; the compute dtype is w7's.  In
+    bfloat16 the kernel reads wk, `stem_kernel_weights(w7)`, built here
+    when not given (callers that launch often keep it: the fused trunk's
+    `prepared`)."""
     global conv_pool_launches
     _build.need_cuda("stem_conv_pool_kernel", images)
-    check_conv_pool_inputs(images, w7, fold)
+    if wk is None and w7.dtype == torch.bfloat16:
+        wk = stem_kernel_weights(w7)
+    check_conv_pool_inputs(images, w7, fold, wk)
     b, h, w, _ = images.shape
     out = torch.empty((b, h // 4, w // 4, STEM_CHANNELS), dtype=w7.dtype,
                       device=images.device)
@@ -130,8 +234,9 @@ def stem_conv_pool_kernel(images: torch.Tensor, w7: torch.Tensor,
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
             + [ctypes.c_void_p]
     stream = torch.cuda.current_stream(images.device).cuda_stream
+    wmat = wk if w7.dtype == torch.bfloat16 else w7
     _build.check_launch("stem_conv_pool", fn(
-        images.data_ptr(), w7.data_ptr(), fold.data_ptr(), out.data_ptr(),
+        images.data_ptr(), wmat.data_ptr(), fold.data_ptr(), out.data_ptr(),
         b, h, w, _DTYPE_CODES[w7.dtype], images.device.index, stream))
     conv_pool_launches += 1
     return out
@@ -160,18 +265,22 @@ def stem_pool_kernel(conv_out: torch.Tensor,
 
 
 def stem_conv_pool(images: torch.Tensor, w7: torch.Tensor, fold: torch.Tensor,
-                   *, compute_dtype: torch.dtype) -> torch.Tensor:
+                   *, compute_dtype: torch.dtype,
+                   wk: torch.Tensor = None) -> torch.Tensor:
     """The whole stem on the images' device: (B, H, W, 3), H and W divisible
     by 8 -> (B, H/4, W/4, 64) in the compute dtype.  The images are taken
     as float32 (a bfloat16 image widens exactly) and the kernel weights
-    cast to the compute dtype, as the JAX caller casts them."""
+    cast to the compute dtype, as the JAX caller casts them; wk, the
+    bfloat16 kernel's `stem_kernel_weights(w7)`, is built per call when not
+    given."""
     images = images.to(torch.float32).contiguous()
     w7 = w7.to(compute_dtype).contiguous()
     fold = fold.to(torch.float32).contiguous()
+    kernel = functools.partial(stem_conv_pool_kernel, wk=wk)
     plain = functools.partial(stem_conv_pool_plain,
                               compute_dtype=compute_dtype)
-    return _build.route("stem_conv_pool", images, stem_conv_pool_kernel,
-                        plain)(images, w7, fold)
+    return _build.route("stem_conv_pool", images, kernel, plain)(
+        images, w7, fold)
 
 
 def stem_pool(conv_out: torch.Tensor, fold: torch.Tensor) -> torch.Tensor:

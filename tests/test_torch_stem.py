@@ -7,7 +7,16 @@ Tolerances: float32 within 1e-5 of the output's scale (max |JAX|): conv
 sums of 147 products in another order (stem_pool, which sums nothing,
 within 1e-6); bfloat16 compute: the port's largest error against the JAX
 kernel's float32 result on the same float32 inputs is at most 2x the JAX
-bf16 kernel's own."""
+bf16 kernel's own.
+
+The bfloat16 CUDA kernel (stem_conv_pool_hopper) computes the TPU kernel's
+space-to-depth product; its weight matrix is checked against the JAX
+package's `_build_stem_weights` exactly, and its arrangement (planes, tap
+offsets, the two-parity product, the pool over cells across chunk edges)
+is emulated here in float64 against the plain version within 1e-8 (sums
+of ~147 products in another order)."""
+
+import math
 
 import jax
 import jax.numpy as jnp
@@ -101,3 +110,117 @@ def test_torch_stem_routes_by_device():
         ts.stem_conv_pool_kernel(images, w7, fold)
     with pytest.raises(ValueError, match="CUDA"):
         ts.stem_pool_kernel(torch.zeros((1, 4, 4, 64)), fold)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_torch_stem_weights_equal_jax(dtype):
+    """The port's (288, 128) space-to-depth matrix is the JAX package's
+    `_build_stem_weights`, bit for bit, and the kernel layout holds its
+    rows in step order."""
+    rng = np.random.default_rng(3)
+    w7 = rng.standard_normal((7, 7, 3, 64)).astype(np.float32)
+    want = np.asarray(js._build_stem_weights(
+        jnp.asarray(w7), jnp.dtype(dtype)).astype(jnp.float32))
+    got = ts.stem_weights(torch.from_numpy(w7), getattr(torch, dtype))
+    assert got.shape == (288, 128) and got.dtype == getattr(torch, dtype)
+    assert np.array_equal(got.float().numpy(), want)
+    wk = ts.stem_kernel_weights(torch.from_numpy(w7))
+    assert wk.shape == (18, 16, 2, 8, 8) and wk.dtype == torch.bfloat16
+    steps = wk.permute(0, 2, 3, 1, 4).reshape(18, 16, 128)
+    wb = np.asarray(js._build_stem_weights(
+        jnp.asarray(w7), jnp.bfloat16).astype(jnp.float32))
+    for d2 in range(2):
+        for cs in range(3):
+            for j in range(3):
+                s = (d2 * 3 + cs) * 3 + j
+                for half, du in enumerate((d2, d2 + 2)):
+                    k0 = (du * 3 + cs) * 24 + 8 * j
+                    assert np.array_equal(
+                        steps[s, 8 * half:8 * half + 8].float().numpy(),
+                        wb[k0:k0 + 8])
+
+
+def _emulate_hopper(images, w7, fold):
+    """stem_conv_pool_hopper's arrangement in float64 tensor indexing:
+    bands of HOPPER_ROWS pool rows walked in chunks of HOPPER_CELLS cells;
+    per chunk the staged planes (3, 2R + 4 s2d rows, 66 cells, 8 values),
+    zero outside the image; per conv row the 18 k16 steps, each the A
+    rows (chunk j of tap group (d2, cs) beside that of (d2 + 2, cs)) times
+    the step's 16 x 128 block of `stem_kernel_weights`; BN, ReLU, -inf for
+    conv row -1; vertical max over conv rows, then each cell's two parities
+    and the previous cell's odd one, carried across chunks."""
+    rr, tc = ts.HOPPER_ROWS, ts.HOPPER_CELLS
+    f = torch.float64
+    b, h, w, _ = images.shape
+    hp, wp = h // 4, w // 4
+    bands, chunks = math.ceil(hp / rr), math.ceil(wp / tc)
+    s2d = images.to(f).reshape(b, h // 2, 2, w // 4, 4, 3).permute(
+        0, 1, 3, 2, 4, 5).reshape(b, h // 2, w // 4, 24)
+    # s2d row u at u + 3, cell t at t + 1; zeros cover every patch
+    pad = torch.zeros((b, 3 + bands * 2 * rr + 4, 2 + chunks * tc, 24),
+                      dtype=f)
+    pad[:, 3:3 + h // 2, 1:1 + w // 4] = s2d
+    steps = ts._gather_taps(w7.to(f), ts._kernel_taps()).permute(
+        0, 2, 3, 1, 4).reshape(ts.HOPPER_STEPS, 16, 128)
+    sc = fold[0].to(f).repeat(2)
+    sh = fold[1].to(f).repeat(2)
+    neg = torch.tensor(float("-inf"), dtype=f)
+    out = torch.full((b, hp, wp, 64), float("nan"), dtype=f)
+    for bi in range(b):
+        for band in range(bands):
+            py0 = band * rr
+            rows = min(rr, hp - py0)
+            edge = None                     # previous chunk's last cell
+            for c in range(chunks):
+                c0 = c * tc
+                u0 = 2 * py0 - 3
+                planes = pad[bi, u0 + 3:u0 + 3 + 2 * rr + 4,
+                             c0:c0 + tc + 2].reshape(
+                    2 * rr + 4, tc + 2, 3, 8).permute(2, 0, 1, 3)
+                conv = []
+                for r in range(2 * rows + 1):
+                    acc = torch.zeros((tc, 128), dtype=f)
+                    for d2 in range(2):
+                        for cs in range(3):
+                            for j in range(3):
+                                a = torch.cat(
+                                    [planes[j, r + d2, cs:cs + tc],
+                                     planes[j, r + d2 + 2, cs:cs + tc]], 1)
+                                acc += a @ steps[(d2 * 3 + cs) * 3 + j]
+                    v = torch.relu(acc * sc + sh)
+                    conv.append(v if 2 * py0 - 1 + r >= 0
+                                else torch.full_like(v, neg))
+                new_edge = []
+                for i in range(rows):
+                    m = torch.maximum(torch.maximum(conv[2 * i],
+                                                    conv[2 * i + 1]),
+                                      conv[2 * i + 2])
+                    even, odd = m[:, :64], m[:, 64:]
+                    first = edge[i] if edge is not None \
+                        else torch.full((1, 64), neg, dtype=f)
+                    prev = torch.cat([first, odd[:-1]])
+                    new_edge.append(odd[-1:])
+                    pool = torch.maximum(torch.maximum(even, odd), prev)
+                    n = min(tc, wp - c0)
+                    out[bi, py0 + i, c0:c0 + n] = pool[:n]
+                edge = new_edge
+    return out
+
+
+@pytest.mark.parametrize("shape", [(2, 40, 280, 3), (1, 8, 8, 3),
+                                   (1, 24, 520, 3)])
+def test_torch_stem_hopper_arrangement_matches_plain(shape):
+    """(2, 40, 280): H/4 = 10 pool rows (bands of 4, the last partial) and
+    W/4 = 70 cells (a full chunk and a partial one, the pool window of
+    column 64 across the chunk edge); (1, 8, 8): one image smaller than a
+    tile; (1, 24, 520): 6 pool rows and 130 cells, three chunks."""
+    rng = np.random.default_rng(4)
+    images = torch.from_numpy(rng.standard_normal(shape))
+    w7 = torch.from_numpy(rng.standard_normal((7, 7, 3, 64)) / np.sqrt(147))
+    fold = torch.from_numpy(_fold(rng, 64).astype(np.float64))
+    got = _emulate_hopper(images, w7, fold)
+    want = ts.stem_conv_pool_plain(images, w7, fold,
+                                   compute_dtype=torch.float64)
+    assert got.shape == want.shape
+    assert not torch.isnan(got).any()
+    assert (got - want).abs().max().item() <= 1e-8
