@@ -64,10 +64,14 @@ Phase `kernel` also holds the encoder kernels against their plain versions:
 attention at (B, 1024, 8, 32) for B = 12 and 24, with all keys valid, 80%
 of the keys masked, and one image's keys all masked; FFN + LayerNorm at
 N = 12288 and 24576 tokens; each in bf16 (error against a float64 truth at
-most 2x the plain version's) and float32 (within ATTN_F32_TOL / FFN_F32_TOL
-of the plain version), with SDPA timed in turns with the attention kernel
-over as many launches and the kernel's two-exponential floor
-(`exp_floor_ms`) beside its bound; and the
+most 2x the plain version's, the FFN 1.1x) and float32 (within
+ATTN_F32_TOL / FFN_F32_TOL of the plain version), with SDPA timed in turns
+with the attention kernel over as many launches and the kernel's
+two-exponential floor (`exp_floor_ms`) beside its bound, and the FFN
+kernel (on its prepared weights, which must give the same bits as the
+per-call layout) timed in turns with the port's unfused counterpart
+(`unfused_ms`: EncoderLayer's cuBLAS path) beside its plan (tile, cluster,
+blocks, `weight_l2_bytes`); and the
 trunk kernels at the production shapes (batch 12, 1024^2 images): the stem
 at (12, 1024, 1024, 3), the stem pool at (12, 510, 510, 64) (exact), the
 stride-1 bottleneck at the five block shapes of the trunk and the stride-2
@@ -146,6 +150,10 @@ FFN_F32_TOL = 5e-5
 # the output's scale (max |plain|): sums of up to 9 * 512 products in
 # another order, each rounded once in float32 (~1e-6 relative)
 TRUNK_F32_TOL = 1e-5
+# K4's and K5's bf16 error against the float64 truth, at most this times
+# the plain version's: the same roundings (K4's of a and b, K5's of the
+# images and the kernel), only the sums' order differs
+SAME_ROUNDINGS_BF16_RATIO = 1.1
 # the port's kernels: the module holding the launch counter, the counter,
 # source, the TPU kernel it replaces
 SOURCE = "scene_graph_commonsense_torch/csrc/pair_pool.cu"
@@ -613,12 +621,17 @@ def phase_kernel_encoder(exp_per_s):
         for dtype in (torch.bfloat16, torch.float32):
             w1c, w2c = w1.to(dtype), w2.to(dtype)
             args = (x, w1c, b1, w2c, b2, g, beta)
-            got = ffn.ffn_ln_kernel(*args)
+            prep = ffn.kernel_weights(w1c, w2c)    # as EncoderLayer keeps it
+            got = ffn.ffn_ln_kernel(*args, prepared=prep)
             want = ffn.ffn_ln_plain(*args, compute_dtype=dtype)
+            if not torch.equal(got, ffn.ffn_ln_kernel(*args)):
+                raise AssertionError(f"ffn_ln kernel with prepared weights "
+                                     f"!= without (N={n}, {dtype})")
             torch.cuda.synchronize()
             err = (got - want).abs().max().item()
             rec = {"n": n, "d": 256, "f": 2048,
-                   "dtype": str(dtype).split(".")[1], "max_abs_err": err}
+                   "dtype": str(dtype).split(".")[1], "max_abs_err": err,
+                   **ffn_plan(x, w1c)}
             if dtype == torch.float32:
                 ratio = close(got, want, FFN_F32_TOL)
                 if ratio > 1:
@@ -630,21 +643,62 @@ def phase_kernel_encoder(exp_per_s):
                 rec.update(check_bf16(f"ffn_ln (N={n})", got, want,
                                       ffn_truth(*args)))
             del got, want
-            rec.update(timed(lambda: ffn.ffn_ln_kernel(*args),
-                             lambda: ffn.ffn_ln_plain(*args,
-                                                      compute_dtype=dtype)))
+            # the port's unfused counterpart: EncoderLayer with
+            # flash_encoder off (cuBLAS products, then the passes)
+            layer = detr_lib.EncoderLayer(dtype=dtype).to(dev)
+            with torch.no_grad():
+                layer.linear1.weight.copy_(w1.t())
+                layer.linear1.bias.copy_(b1)
+                layer.linear2.weight.copy_(w2.t())
+                layer.linear2.bias.copy_(b2)
+                layer.norm2.weight.copy_(g)
+                layer.norm2.bias.copy_(beta)
+
+            def unfused():
+                with torch.no_grad():
+                    h = torch.relu(detr_lib._dense(layer.linear1, x, dtype))
+                    y = detr_lib._dense(layer.linear2, h, dtype)
+                    return detr_lib._layer_norm(layer.norm2, x + y)
+
+            t = timed(lambda: ffn.ffn_ln_kernel(*args, prepared=prep),
+                      lambda: ffn.ffn_ln_plain(*args, compute_dtype=dtype),
+                      library_fn=unfused)
+            t["unfused_ms"] = t.pop("library_ms")
+            t["unfused_ms_runs"] = t.pop("library_ms_runs")
+            rec.update(t)
             rec["library_ms"] = None    # no single PyTorch call computes it
             rec.update(ffn_bound(x, w1c))
             max_err["ffn_ln"] = max(max_err["ffn_ln"], err)
             emit({"phase": "kernel", "name": "ffn_ln", **rec})
             if n == 12288 and dtype == torch.bfloat16:
                 main["ffn_ln"] = rec
+            del layer, prep
         torch.cuda.empty_cache()
-    return {name: {"max_abs_err": max_err[name],
-                   **{k: main[name][k] for k in (
-                       "ms", "plain_ms", "bound_ms", "bound_by",
-                       "library_ms")}}
-            for name in ("ffn_ln", "attention")}
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    return {"attention": {"max_abs_err": max_err["attention"],
+                          **{k: main["attention"][k] for k in keys}},
+            "ffn_ln": {"max_abs_err": max_err["ffn_ln"],
+                       **{k: main["ffn_ln"][k]
+                          for k in keys + ("unfused_ms",)}}}
+
+
+def ffn_plan(x, w1):
+    """The FFN kernel's plan and the weight bytes it streams from L2 per
+    call: bf16 ffn_ln_hopper, 128-token tiles in 2-block clusters that
+    share each weight chunk (every cluster reads both matrices once);
+    float32 ffn_ln_kernel, one block a 32-token tile reading both."""
+    n, f = x.shape[0], w1.shape[1]
+    weights = 2 * w1.numel() * w1.element_size()
+    if w1.dtype == torch.bfloat16:
+        plan = ffn.hopper_plan()
+        tiles = -(-n // plan["tile_rows"])
+        clusters = -(-tiles // plan["cluster"])
+        return {"kernel": "ffn_ln_hopper", **plan,
+                "blocks": clusters * plan["cluster"],
+                "weight_l2_bytes": clusters * weights}
+    tiles = -(-n // 32)
+    return {"kernel": "ffn_ln_kernel", "tile_rows": 32, "cluster": 1,
+            "blocks": tiles, "weight_l2_bytes": tiles * weights}
 
 
 def nbytes(*tensors):
@@ -807,10 +861,6 @@ K3_CASES = (("layer1_0", 256, 256, 64, 64, True, 1),
 # the transitions: (name, H, W, C_in, M)
 K4_CASES = (("layer2_0", 256, 256, 256, 128), ("layer3_0", 128, 128, 512, 256),
             ("layer4_0", 64, 64, 1024, 512))
-# K4's and K5's bf16 error against the float64 truth, at most this times
-# the plain version's: the same roundings (K4's of a and b, K5's of the
-# images and the kernel), only the sums' order differs
-SAME_ROUNDINGS_BF16_RATIO = 1.1
 
 
 def _launch_mean(recs, weights_, key):
@@ -1308,7 +1358,7 @@ def phase_featurize():
     prof_trunk_unfused = device_profile(lambda: trunk(x12), 1)
     detr.fused_backbone = True
     kernel_groups = {"attention": ("attention_tc_kernel",),
-                     "ffn_ln": ("ffn_ln_tc_kernel",),
+                     "ffn_ln": ("ffn_ln_hopper",),
                      "bottleneck": ("bottleneck", "conv1_s2"),  # K3, K4
                      "stem_conv_pool": ("stem_conv_pool_kernel",
                                         "stem_conv_pool_hopper")}

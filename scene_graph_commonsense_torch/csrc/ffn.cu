@@ -1,11 +1,13 @@
-// Fused transformer FFN + residual + LayerNorm of the DETR encoder.  One
-// kernel with a plain C entry point for ctypes:
+// Fused transformer FFN + residual + LayerNorm of the DETR encoder.  Two
+// kernels behind one plain C entry point for ctypes:
 //
 //   sgc_ffn_ln   out = LayerNorm(x + relu(x W1 + b1) W2 + b2)
 //
 // x, out: contiguous (N, 256) float32 (the post-norm residual stream);
-// w1: (256, F) and w2: (F, 256) in the compute dtype (float32 or bfloat16,
-// the flax (in, out) layout); b1 (F), b2, gamma, beta (256): float32.
+// b1 (F), b2, gamma, beta (256): float32; the weights in the compute dtype:
+// float32 w1 (256, F) and w2 (F, 256), the flax (in, out) layout; bfloat16
+// their transposes W1^T (F, 256) and W2^T (256, F), nn.Linear's (out, in)
+// layout (ops/ffn.py kernel_weights).
 //
 // Replaces the TPU kernel `_ffn_kernel` of
 // scene_graph_commonsense_tpu/ops/pallas/ffn.py (reached through
@@ -20,27 +22,39 @@
 // As on the TPU, only x goes in and y comes out: the (N, F) intermediate
 // never leaves the block.
 //
-// Bound at the DETR shape (N = 12 * 1024, D = 256, F = 2048): 25.8 GFLOP of
-// products (26 us at the 989 TFLOP/s bf16 tensor-core peak) against 27 MB
-// moved (8 us): the products set the bound.  Two kernels, one per compute
-// dtype; both keep the rounding points above:
+// Bound at the DETR shape (N = 12 * 1024, D = 256, F = 2048; H100 SXM, 989
+// TFLOP/s bf16, 3.35 TB/s): 25.8 GFLOP of products (26 us) against 27 MB
+// moved (8 us): the products set the bound.  A 128-token tile is 268 MFLOP,
+// 36 us at one SM's share of the peak, so the 96 tiles at N = 12288 take
+// one round on 132 SMs (0.036 ms) and the 192 at N = 24576 two (0.072 ms).
 //
-// bfloat16 (the production path), ffn_ln_tc_kernel: the products on the
-// tensor cores through WMMA (16x16x16 bf16 tiles, float32 accumulators:
-// the products are exact and summed in float32, as on the TPU's MXU).
-//   * one block of 8 warps per tile of 64 tokens; x rounded to bf16 in
-//     shared memory;
-//   * a loop over F in chunks of 64: the chunk's W1 columns and W2 rows are
-//     staged in shared memory with 16-byte loads (rows padded by 16 bytes
-//     against bank conflicts); each warp computes two 16x16 tiles of
-//     h = x W1 into shared memory; b1, ReLU and the rounding to bf16 are
-//     one pass over the (64 x 64) chunk; then each warp adds h W2 into its
-//     eight 16x16 tiles of the (64 x 256) y, which stay in registers as
-//     WMMA accumulators for the whole loop;
-//   * the epilogue stores y to shared memory, adds b2 and x, and one warp
-//     per 8 rows takes the row statistics with shuffles.
-//   The staging is synchronous (no cp.async double buffering, no wgmma):
-//   each block reads both weight matrices (2 MB) from L2 once per tile.
+// bfloat16 (the production path), ffn_ln_hopper, on the warp-specialised
+// pipeline of csrc/hopper_pipe.cuh (K3's):
+//   * a block owns 128 tokens: two consumer warpgroups of 64 rows each
+//     stage their rows of x rounded to bf16 in shared memory, K-major in
+//     TMA's 128-byte swizzle (TMA cannot round float32 to bf16);
+//   * F is walked in chunks of 64.  One producer thread issues TMA copies
+//     of each chunk's W1^T rows (64 x 256) and W2^T columns (256 x 64),
+//     32 KB each, into a ring of 5 slots; both are K-major, so the kernel
+//     reads nn.Linear's weights as they are.  Clusters of 2 blocks share
+//     every chunk: each block loads half its rows and multicasts them to
+//     both.  Every cluster reads the 2 MB of weights from L2 once: 0.10 GB
+//     a launch at N = 12288 (0.018 ms at 5.5 TB/s; read once per 64-token
+//     tile, as the WMMA kernel did, it was 0.40 GB, 0.073 ms);
+//   * per chunk and warpgroup: h = x W1[:, chunk] on wgmma m64n64k16 (16
+//     k-steps, both operands in shared memory); b1, ReLU and the rounding
+//     to bf16 in registers, where the m64n64 accumulators already lie as
+//     the m16n8k16 A fragments of the second product; y += h W2[chunk, :]
+//     on wgmma m64n256k16 with A from registers (4 k-steps), y's 128
+//     accumulators a thread in registers for the whole F loop.  h never
+//     touches shared memory.  The second product is left in flight under
+//     the next chunk's first; the two warpgroups run the same loop, so
+//     one's bias/ReLU/rounding runs under the other's products;
+//   * the epilogue adds b2 and x (re-read in float32 from L2), takes each
+//     row's two-pass statistics over the quad of lanes holding it
+//     (shuffles) and stores 16-byte vectors, lane pairs trading halves.
+//   Any N (partial tiles and clusters are masked) and any F that is a
+//   multiple of 64.
 //
 // float32 (the card-vs-CPU parity runs), ffn_ln_kernel: float32 FMAs, since
 // the tensor cores would round float32 operands to TF32.
@@ -56,8 +70,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
+
+#include "hopper_pipe.cuh"
 
 namespace {
 
@@ -206,214 +221,273 @@ ffn_ln_kernel(const float* __restrict__ x, const float* __restrict__ w1,
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16: tensor cores through WMMA
+// bfloat16: ffn_ln_hopper (see the design note)
 // ---------------------------------------------------------------------------
 
-namespace tc {
+namespace hopper {
 
-using bf16 = __nv_bfloat16;
-constexpr int kT = 64;          // tokens per block
-constexpr int kF = 64;          // dim_ff chunk
-constexpr int kWarps = 8;
-constexpr int kThreads = 32 * kWarps;
-// shared-memory row strides in elements, padded by 16 bytes (8 bf16 or 4
-// float) so that the rows of a 16x16 tile fall on different banks
-constexpr int kXs = kD + 8;
-constexpr int kW1s = kF + 8;
-constexpr int kW2s = kD + 8;
-constexpr int kHfs = kF + 4;
-constexpr int kHbs = kF + 8;
-constexpr int kYs = kD + 4;
-constexpr size_t kXsBytes = size_t(kT) * kXs * 2;
-constexpr size_t kW1Bytes = size_t(kD) * kW1s * 2;
-constexpr size_t kW2Bytes = size_t(kF) * kW2s * 2;
-constexpr size_t kHfBytes = size_t(kT) * kHfs * 4;
-constexpr size_t kHbBytes = size_t(kT) * kHbs * 2;
-constexpr size_t kW1Off = kXsBytes;
-constexpr size_t kW2Off = kW1Off + kW1Bytes;
-constexpr size_t kHfOff = kW2Off + kW2Bytes;
-constexpr size_t kHbOff = kHfOff + kHfBytes;
-constexpr size_t kSmemBytes = kHbOff + kHbBytes;
-// the epilogue's float32 y reuses the weight staging area
-static_assert(size_t(kT) * kYs * 4 <= kW1Bytes + kW2Bytes, "y tile");
-static_assert(kXsBytes % 32 == 0 && kW1Bytes % 32 == 0 &&
-                  kW2Bytes % 32 == 0 && kHfBytes % 32 == 0,
-              "WMMA needs 32-byte aligned tiles");
+using sgc::hop::align_smem;
+using sgc::hop::kConsumerRegs;
+using sgc::hop::kProducerRegs;
+using sgc::hop::kSmemMax;
+using sgc::hop::kThreads;
+using sgc::hop::make_rings;
+using sgc::hop::pack2;
+using sgc::hop::Rings;
 
-using namespace nvcuda;
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16,
-                             wmma::row_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16,
-                             wmma::row_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+constexpr int kRows = 128;              // tokens a block: 64 a consumer WG
+constexpr int kChunk = 64;              // F columns a chunk
+constexpr int kAtom = 64 * 128;         // 64 rows x 64 K values of bf16
 
-__global__ void __launch_bounds__(kThreads)
-ffn_ln_tc_kernel(const float* __restrict__ x, const bf16* __restrict__ w1,
-                 const float* __restrict__ b1, const bf16* __restrict__ w2,
-                 const float* __restrict__ b2,
-                 const float* __restrict__ gamma,
-                 const float* __restrict__ beta, float* __restrict__ out,
-                 int n, int f, float eps) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* xs = reinterpret_cast<bf16*>(smem);
-  bf16* w1s = reinterpret_cast<bf16*>(smem + kW1Off);
-  bf16* w2s = reinterpret_cast<bf16*>(smem + kW2Off);
-  float* hf = reinterpret_cast<float*>(smem + kHfOff);
-  bf16* hb = reinterpret_cast<bf16*>(smem + kHbOff);
-  const int t = threadIdx.x;
-  const int warp = t / 32;
+// The ring: SW slots of one weight chunk each (the chunk's W1 rows, or its
+// W2 columns: 64 x 256 bf16, 32 KB) beside the block's x tile (128 x 256
+// bf16, 64 KB); no box ring.
+struct Cfg {
+  static constexpr int SX = 0, XB = 0;
+  static constexpr int WB = kChunk * kD * 2;
+  static constexpr int XS = kRows * kD * 2;
+  static constexpr int SW = sgc::hop::cmin(
+      (kSmemMax - 1024 - XS - 16 * 8) / WB, 8);
+  static constexpr int SMEM = 1024 + SW * WB + XS + 16 * SW;
+  static_assert(SW >= 3, "a chunk (two slots) in flight beside one in use");
+};
+
+// The producer: W1 and W2 of chunk after chunk, each slot multicast to
+// both blocks of the cluster, this block loading half of its rows.  w1m
+// views W1^T (F, D) in boxes of 64 K values x 32 rows, w2m W2^T (D, F) in
+// boxes of 64 K values x 128 rows; a slot holds its chunk in the K-major
+// layout wgmma reads (atoms of 64 K values, rows 128 bytes apart).
+__device__ void produce(Rings<Cfg>& ring, const CUtensorMap* w1m,
+                        const CUtensorMap* w2m, int f, unsigned rank) {
+  for (int f0 = 0; f0 < f; f0 += kChunk) {
+    int s = ring.w.acquire(Cfg::WB);
+    for (int q = 0; q < kD / 64; ++q) {
+      sgc::tma_load_2d_multicast(ring.w.slot(s) + q * kAtom + rank * 32 * 128,
+                                 w1m, ring.w.full(s), 64 * q, f0 + 32 * rank,
+                                 0x3);
+    }
+    s = ring.w.acquire(Cfg::WB);
+    sgc::tma_load_2d_multicast(ring.w.slot(s) + rank * 128 * 128, w2m,
+                               ring.w.full(s), f0, 128 * rank, 0x3);
+  }
+}
+
+// A K-major operand in TMA's 128-byte swizzle: k16 step kk of rows from
+// `base` (atoms of 64 K values, 8-row groups 1024 bytes apart).
+__device__ __forceinline__ uint64_t kdesc(uint32_t base, int kk) {
+  return sgc::wgmma_desc(base + (kk / 4) * kAtom + (kk % 4) * 32, 16, 1024,
+                         true);
+}
+
+struct Args {
+  const float* x;
+  const float* b1;
+  const float* b2;
+  const float* gamma;
+  const float* beta;
+  float* out;
+  int n, f;
+  float eps;
+};
+
+// One consumer warpgroup: rows r0 .. r0 + 63 of the tile, xs its 32 KB of
+// the staged x.
+__device__ void consume(Rings<Cfg>& ring, unsigned char* xs, const Args& p,
+                        int r0, int wg) {
+  const int t = threadIdx.x % 128;
   const int lane = t % 32;
-  const int tok0 = blockIdx.x * kT;
+  const int c0 = 2 * (lane % 4);        // the thread's first column of an
+                                        // 8-column block
+  const int rw = 16 * (t / 32) + lane / 4;  // its rows rw and rw + 8
 
-  for (int i = t; i < kT * kD / 4; i += kThreads) {
-    const int r = i / (kD / 4);
-    const int c = (i - r * (kD / 4)) * 4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (tok0 + r < n) {
-      v = *reinterpret_cast<const float4*>(
-          &x[static_cast<size_t>(tok0 + r) * kD + c]);
+  // x rounded to bf16 in the swizzled K-major layout: row r's 16-byte
+  // chunk c of atom q at q kAtom + r 128 + (c ^ r % 8) 16; zero past n
+  for (int i = t; i < 64 * kD / 8; i += 128) {
+    const int r = i / (kD / 8);
+    const int c8 = i % (kD / 8);
+    float4 v0 = make_float4(0.f, 0.f, 0.f, 0.f), v1 = v0;
+    if (r0 + r < p.n) {
+      const float4* src = reinterpret_cast<const float4*>(
+          p.x + static_cast<size_t>(r0 + r) * kD + c8 * 8);
+      v0 = src[0];
+      v1 = src[1];
     }
-    bf16* dst = &xs[r * kXs + c];
-    dst[0] = __float2bfloat16_rn(v.x);
-    dst[1] = __float2bfloat16_rn(v.y);
-    dst[2] = __float2bfloat16_rn(v.z);
-    dst[3] = __float2bfloat16_rn(v.w);
+    *reinterpret_cast<uint4*>(xs + (c8 / 8) * kAtom + r * 128 +
+                              ((c8 % 8) ^ (r % 8)) * 16) =
+        make_uint4(pack2(v0.x, v0.y), pack2(v0.z, v0.w), pack2(v1.x, v1.y),
+                   pack2(v1.z, v1.w));
   }
+  sgc::fence_proxy_async();             // wgmma reads xs through the async
+  sgc::named_sync(2 + wg, 128);         // proxy
+  const uint32_t xs_s = sgc::smem_addr(xs);
 
-  // this warp's y tiles: tile row warp / 2, tile columns (warp % 2) * 8 + j
-  const int yr = warp / 2;
-  const int yc0 = (warp % 2) * 8;
-  FragC y[8];
+  float y[128];                         // (64 x 256) accumulators
+  float h[32];                          // the chunk's (64 x 64) h
+  unsigned a[4][4];                     // h in bf16, 4 A fragments of k16
+  int prev = -1;                        // the last chunk's W2 slot
+  for (int j = 0; j < p.f / kChunk; ++j) {
+    // h = x W1[:, chunk]
+    const int s1 = ring.w.take();
+    sgc::wgmma_fence();
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    wmma::fill_fragment(y[j], 0.f);
-  }
-
-  for (int f0 = 0; f0 < f; f0 += kF) {
-    __syncthreads();                    // the last chunk's reads are done
-    for (int i = t; i < kD * kF / 8; i += kThreads) {
-      const int k = i / (kF / 8);
-      const int v = i - k * (kF / 8);
-      *reinterpret_cast<uint4*>(&w1s[k * kW1s + v * 8]) =
-          *reinterpret_cast<const uint4*>(
-              &w1[static_cast<size_t>(k) * f + f0 + v * 8]);
+    for (int kk = 0; kk < kD / 16; ++kk) {
+      sgc::wgmma_ss_kk_m64n64k16(h, kdesc(xs_s, kk),
+                                 kdesc(ring.w.slot(s1), kk), kk > 0);
     }
-    for (int i = t; i < kF * kD / 8; i += kThreads) {
-      const int k = i / (kD / 8);
-      const int v = i - k * (kD / 8);
-      *reinterpret_cast<uint4*>(&w2s[k * kW2s + v * 8]) =
-          *reinterpret_cast<const uint4*>(
-              &w2[static_cast<size_t>(f0 + k) * kD + v * 8]);
+    sgc::wgmma_commit();
+    sgc::wgmma_wait<0>();               // also the last chunk's h W2
+    sgc::fence_acc(h);
+    ring.w.release(s1);
+    if (prev >= 0) {
+      ring.w.release(prev);
     }
-    __syncthreads();
-
-    // h = x W1[:, chunk]: 16 tiles of 16x16, two per warp
+    // b1 and ReLU in float32, h rounded to bf16: the accumulators of
+    // 8-column blocks 2 kk and 2 kk + 1 are A fragment kk
+    const float* bias = p.b1 + j * kChunk + c0;
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int tile = warp * 2 + j;
-      const int hr = tile / (kF / 16);
-      const int hc = tile % (kF / 16);
-      FragC h;
-      wmma::fill_fragment(h, 0.f);
-#pragma unroll 4
-      for (int k = 0; k < kD; k += 16) {
-        FragA a;
-        FragB b;
-        wmma::load_matrix_sync(a, &xs[hr * 16 * kXs + k], kXs);
-        wmma::load_matrix_sync(b, &w1s[k * kW1s + hc * 16], kW1s);
-        wmma::mma_sync(h, a, b, h);
-      }
-      wmma::store_matrix_sync(&hf[hr * 16 * kHfs + hc * 16], h, kHfs,
-                              wmma::mem_row_major);
-    }
-    __syncthreads();
-    // b1, ReLU in float32, then h rounded to bf16
-    for (int i = t; i < kT * kF; i += kThreads) {
-      const int r = i / kF;
-      const int c = i - r * kF;
-      hb[r * kHbs + c] =
-          __float2bfloat16_rn(fmaxf(hf[r * kHfs + c] + b1[f0 + c], 0.f));
-    }
-    __syncthreads();
-    // y += h W2[chunk, :]
+    for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
-    for (int k = 0; k < kF; k += 16) {
-      FragA a;
-      wmma::load_matrix_sync(a, &hb[yr * 16 * kHbs + k], kHbs);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        FragB b;
-        wmma::load_matrix_sync(b, &w2s[k * kW2s + (yc0 + j) * 16], kW2s);
-        wmma::mma_sync(y[j], a, b, y[j]);
+      for (int hf = 0; hf < 2; ++hf) {
+        const int jb = 2 * kk + hf;
+        const float2 bb =
+            __ldg(reinterpret_cast<const float2*>(bias + 8 * jb));
+        a[kk][2 * hf] = pack2(fmaxf(h[4 * jb] + bb.x, 0.f),
+                              fmaxf(h[4 * jb + 1] + bb.y, 0.f));
+        a[kk][2 * hf + 1] = pack2(fmaxf(h[4 * jb + 2] + bb.x, 0.f),
+                                  fmaxf(h[4 * jb + 3] + bb.y, 0.f));
       }
     }
-  }
-
-  // epilogue: y to shared memory, + b2 + x (unrounded), row LayerNorm
-  __syncthreads();
-  float* ys = reinterpret_cast<float*>(smem + kW1Off);
+    // y += h W2[chunk, :], left in flight under the next chunk's h
+    const int s2 = ring.w.take();
+    sgc::wgmma_fence();
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    wmma::store_matrix_sync(&ys[yr * 16 * kYs + (yc0 + j) * 16], y[j], kYs,
-                            wmma::mem_row_major);
-  }
-  __syncthreads();
-  constexpr int kPerLane = kD / 32;
-  constexpr int kRowsPerWarp = kT / kWarps;
-  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-    const int r = warp * kRowsPerWarp + rr;
-    const int tok = tok0 + r;
-    if (tok >= n) {
-      break;                            // warp-uniform
+    for (int kk = 0; kk < kChunk / 16; ++kk) {
+      sgc::wgmma_m64n256k16(y, a[kk], kdesc(ring.w.slot(s2), kk),
+                            j > 0 || kk > 0);
     }
-    float vals[kPerLane];
+    sgc::wgmma_commit();
+    prev = s2;
+  }
+  sgc::wgmma_wait<0>();
+  sgc::fence_acc(y);
+  ring.w.release(prev);
+
+  // epilogue: (y + b2) + x, the row LayerNorm over each row's quad of
+  // lanes (64 values a lane), float32 out
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int row = r0 + rw + 8 * hf;
+    const bool live = row < p.n;
+    const float* xr = p.x + static_cast<size_t>(row) * kD + c0;
     float s = 0.f;
 #pragma unroll
-    for (int i = 0; i < kPerLane; ++i) {
-      const int c = lane + 32 * i;
-      vals[i] = (ys[r * kYs + c] + b2[c]) +
-                x[static_cast<size_t>(tok) * kD + c];
-      s += vals[i];
+    for (int jb = 0; jb < kD / 8; ++jb) {
+      const float2 bb =
+          __ldg(reinterpret_cast<const float2*>(p.b2 + 8 * jb + c0));
+      const float2 xv = live ? __ldg(reinterpret_cast<const float2*>(
+                                   xr + 8 * jb))
+                             : make_float2(0.f, 0.f);
+      float& v0 = y[4 * jb + 2 * hf];
+      float& v1 = y[4 * jb + 2 * hf + 1];
+      v0 = (v0 + bb.x) + xv.x;
+      v1 = (v1 + bb.y) + xv.y;
+      s += v0 + v1;
     }
-    const float mu = warp_sum(s) / kD;
+    s += __shfl_xor_sync(0xffffffffu, s, 1);
+    s += __shfl_xor_sync(0xffffffffu, s, 2);
+    const float mu = s / kD;
     float sq = 0.f;
 #pragma unroll
-    for (int i = 0; i < kPerLane; ++i) {
-      const float d = vals[i] - mu;
-      sq += d * d;
+    for (int jb = 0; jb < kD / 8; ++jb) {
+      const float d0 = y[4 * jb + 2 * hf] - mu;
+      const float d1 = y[4 * jb + 2 * hf + 1] - mu;
+      sq += d0 * d0 + d1 * d1;
     }
-    const float var = warp_sum(sq) / kD;
-    const float inv = 1.0f / sqrtf(var + eps);
+    sq += __shfl_xor_sync(0xffffffffu, sq, 1);
+    sq += __shfl_xor_sync(0xffffffffu, sq, 2);
+    const float inv = 1.0f / sqrtf(sq / kD + p.eps);
 #pragma unroll
-    for (int i = 0; i < kPerLane; ++i) {
-      const int c = lane + 32 * i;
-      const float yv = (vals[i] - mu) * inv;
-      out[static_cast<size_t>(tok) * kD + c] =
-          __fadd_rn(__fmul_rn(yv, gamma[c]), beta[c]);
+    for (int jb = 0; jb < kD / 8; ++jb) {
+      const float2 g =
+          __ldg(reinterpret_cast<const float2*>(p.gamma + 8 * jb + c0));
+      const float2 be =
+          __ldg(reinterpret_cast<const float2*>(p.beta + 8 * jb + c0));
+      float& v0 = y[4 * jb + 2 * hf];
+      float& v1 = y[4 * jb + 2 * hf + 1];
+      v0 = __fadd_rn(__fmul_rn((v0 - mu) * inv, g.x), be.x);
+      v1 = __fadd_rn(__fmul_rn((v1 - mu) * inv, g.y), be.y);
+    }
+  }
+  // 16-byte stores: lane pairs (2u, 2u + 1) trade halves, the even lane
+  // storing row rw's 4 columns from its c0, the odd one row rw + 8's 4
+  // columns from its c0 - 2
+  const bool odd = lane & 1;
+#pragma unroll
+  for (int jb = 0; jb < kD / 8; ++jb) {
+    const float v0 = y[4 * jb], v1 = y[4 * jb + 1];
+    const float v2 = y[4 * jb + 2], v3 = y[4 * jb + 3];
+    const float g0 = __shfl_xor_sync(0xffffffffu, odd ? v0 : v2, 1);
+    const float g1 = __shfl_xor_sync(0xffffffffu, odd ? v1 : v3, 1);
+    const int row = r0 + rw + (odd ? 8 : 0);
+    if (row < p.n) {
+      *reinterpret_cast<float4*>(p.out + static_cast<size_t>(row) * kD +
+                                 8 * jb + c0 - (odd ? 2 : 0)) =
+          odd ? make_float4(g0, g1, v2, v3) : make_float4(v0, v1, g0, g1);
     }
   }
 }
 
-cudaError_t launch(const void* x, const void* w1, const void* b1,
-                   const void* w2, const void* b2, const void* gamma,
+// Warpgroup 0 produces (one thread), warpgroups 1-2 consume.  A block past
+// the last tile (the partner of an odd tile count) takes part in every
+// multicast and slot release of its cluster and stores nothing; the
+// closing cluster barrier keeps either block from leaving while its
+// partner may still multicast into it or arrive on its barriers.
+__global__ void __launch_bounds__(kThreads, 1)
+ffn_ln_hopper(const __grid_constant__ CUtensorMap w1m,
+              const __grid_constant__ CUtensorMap w2m, const Args p) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_smem(smem_raw);
+  Rings<Cfg> ring = make_rings<Cfg>(smem, Cfg::XS);
+  unsigned char* xs = smem + Cfg::SW * Cfg::WB;
+  if (threadIdx.x < 128) {
+    sgc::regs_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      produce(ring, &w1m, &w2m, p.f, sgc::cluster_rank());
+    }
+  } else {
+    sgc::regs_inc<kConsumerRegs>();
+    const int wg = threadIdx.x / 128 - 1;
+    consume(ring, xs + wg * (Cfg::XS / 2), p, blockIdx.x * kRows + 64 * wg,
+            wg);
+  }
+  sgc::cluster_sync();
+}
+
+// w1t: W1^T (F, D), w2t: W2^T (D, F), bf16.
+cudaError_t launch(const void* x, const void* w1t, const void* b1,
+                   const void* w2t, const void* b2, const void* gamma,
                    const void* beta, void* out, int n, int f, float eps,
                    cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      ffn_ln_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kSmemBytes));
-  if (err != cudaSuccess) {
-    return err;
+  CUtensorMap w1m, w2m;
+  if (sgc::hop::matrix_map(&w1m, w1t, f, kD, 32) != CUDA_SUCCESS ||
+      sgc::hop::matrix_map(&w2m, w2t, kD, f, 128) != CUDA_SUCCESS) {
+    return cudaErrorInvalidValue;
   }
-  const int blocks = (n + kT - 1) / kT;
-  ffn_ln_tc_kernel<<<blocks, kThreads, kSmemBytes, stream>>>(
-      static_cast<const float*>(x), static_cast<const bf16*>(w1),
-      static_cast<const float*>(b1), static_cast<const bf16*>(w2),
-      static_cast<const float*>(b2), static_cast<const float*>(gamma),
-      static_cast<const float*>(beta), static_cast<float*>(out), n, f, eps);
-  return cudaGetLastError();
+  const Args p{static_cast<const float*>(x),
+               static_cast<const float*>(b1),
+               static_cast<const float*>(b2),
+               static_cast<const float*>(gamma),
+               static_cast<const float*>(beta),
+               static_cast<float*>(out),
+               n,
+               f,
+               eps};
+  return sgc::hop::launch_clusters(ffn_ln_hopper, Cfg::SMEM,
+                                   (n + kRows - 1) / kRows, 1, stream, w1m,
+                                   w2m, p);
 }
 
-}  // namespace tc
+}  // namespace hopper
 
 cudaError_t use_device(int device) {
   int current = -1;
@@ -445,10 +519,10 @@ cudaError_t launch(const void* x, const void* w1, const void* b1,
 
 }  // namespace
 
-// Plain C entry point for ctypes.  dtype (of w1 and w2): 0 = float32,
-// 1 = bfloat16.  The caller guarantees contiguous, 16-byte aligned tensors
-// of the shapes above with D = 256, F a positive multiple of 64 and
-// n >= 1.  Returns the
+// Plain C entry point for ctypes.  dtype (of w1 and w2): 0 = float32 (w1
+// (D, F), w2 (F, D)), 1 = bfloat16 (w1 = W1^T (F, D), w2 = W2^T (D, F)).
+// The caller guarantees contiguous, 16-byte aligned tensors of the shapes
+// above with D = 256, F a positive multiple of 64 and n >= 1.  Returns the
 // cudaError_t of the launch.
 extern "C" int sgc_ffn_ln(const void* x, const void* w1, const void* b1,
                           const void* w2, const void* b2, const void* gamma,
@@ -465,8 +539,21 @@ extern "C" int sgc_ffn_ln(const void* x, const void* w1, const void* b1,
                                             out, n, f, eps, st));
     case 1:
       return static_cast<int>(
-          tc::launch(x, w1, b1, w2, b2, gamma, beta, out, n, f, eps, st));
+          hopper::launch(x, w1, b1, w2, b2, gamma, beta, out, n, f, eps,
+                         st));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The plan of the bfloat16 kernel: out = {tokens a block, consumer
+// warpgroups, cluster size, weight-chunk slots, shared-memory bytes}.
+extern "C" int sgc_ffn_ln_plan(int* out) {
+  const int plan[5] = {hopper::kRows, sgc::hop::kConsumerThreads / 128,
+                       sgc::hop::kCluster, hopper::Cfg::SW,
+                       hopper::Cfg::SMEM};
+  for (int i = 0; i < 5; ++i) {
+    out[i] = plan[i];
+  }
+  return 0;
 }

@@ -38,7 +38,7 @@ import torch.nn.functional as F
 from scene_graph_commonsense_torch.models.resnet_fused import (
     resnet_forward_fused)
 from scene_graph_commonsense_torch.ops.attention import fused_attention
-from scene_graph_commonsense_torch.ops.ffn import fused_ffn_ln
+from scene_graph_commonsense_torch.ops.ffn import fused_ffn_ln, kernel_weights
 
 RESNET101_BLOCKS = (3, 4, 23, 3)
 
@@ -130,6 +130,10 @@ class Bottleneck(nn.Module):
 
 def _drop_fused(module, incompatible_keys) -> None:
     module.drop_fused()
+
+
+def _drop_ffn(module, incompatible_keys) -> None:
+    module.drop_ffn()
 
 
 class ResNet101(nn.Module):
@@ -292,10 +296,30 @@ class EncoderLayer(nn.Module):
         self.linear2 = nn.Linear(dim_ff, d_model)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
+        self.ffn_cache = {}
+        self.register_load_state_dict_post_hook(_drop_ffn)
 
     def uses_kernel(self, tokens: int) -> bool:
         return (self.flash and tokens % 512 == 0
                 and self.dtype != torch.float64)
+
+    def ffn_weights(self):
+        """The FFN kernel's weights (ops/ffn.kernel_weights) in the compute
+        dtype on the parameters' device, built at the first call and kept
+        until the next load_state_dict; call drop_ffn() after changing the
+        parameters in place by other means."""
+        key = (self.dtype, self.linear1.weight.device)
+        prep = self.ffn_cache.get(key)
+        if prep is None:
+            with torch.no_grad():
+                prep = kernel_weights(self.linear1.weight.t().to(self.dtype),
+                                      self.linear2.weight.t().to(self.dtype))
+            self.ffn_cache[key] = prep
+        return prep
+
+    def drop_ffn(self) -> None:
+        """Forgets the FFN kernel's prepared weights."""
+        self.ffn_cache.clear()
 
     def forward(self, src: torch.Tensor, pos: torch.Tensor,
                 key_padding_mask: Optional[torch.Tensor]) -> torch.Tensor:
@@ -308,7 +332,7 @@ class EncoderLayer(nn.Module):
                 src.reshape(b * l, d), self.linear1.weight.t(),
                 self.linear1.bias, self.linear2.weight.t(),
                 self.linear2.bias, self.norm2.weight, self.norm2.bias,
-                compute_dtype=self.dtype)
+                compute_dtype=self.dtype, prepared=self.ffn_weights())
             return out.reshape(b, l, d)
         src2 = _dense(self.linear2,
                       torch.relu(_dense(self.linear1, src, self.dtype)),
