@@ -49,7 +49,32 @@ Phases, each printing JSON lines:
               hold device time) and the relation head, and
               the fused trunk's per-stage split (CUDA events over chained
               prefixes, `upto`).
-  8. parity:  the same weights and batch through make_eval_step, and one
+  8. detect:  SGDET/SGCLS detection at full width (the featurizer's DETR-101
+              plus 6 decoder layers, 100 queries, 151 classes, bf16, seeded
+              random weights, the default config) through load_detr
+              (detection=True) and eval.engines.make_detr_detect_fn on 12
+              seeded 1000x1000 canvases (data.nonsq_canvas) with VG-like
+              pixel masks (600x800 and 800x600 valid regions in turn, one
+              full image; about half of the encoder's keys masked):
+              finite logits, boxes in [0, 1], the post-process equal on
+              the card and on the CPU; detect_12 by CUDA events over 3
+              dispatches after a warm-up, exactly 1 stem, 30 stride-1, 1
+              stride-2 (layer3_0 and layer4_0 take odd inputs and the
+              plain fallback) and 6 of each encoder kernel per dispatch;
+              peak memory; the split into trunk, encoder, decoder and
+              heads, post-process (torch.profiler, and host clock beside
+              CUDA events per nested prefix) and the NMS loop's wall
+              time; the trunk kernels and attention at the canvas shapes
+              against their plain versions (phase `kernel`'s rules;
+              attention under the canvases' own key mask, beside SDPA);
+              run_eval_sgd and run_eval_sgc over 2 synthetic full-VG-width
+              batches (the pair-pool kernel once per batch, recall in
+              [0, 1], wall time per batch); the detection forward on the
+              card and on the CPU at reduced depth in float32 on two
+              1024x512 canvases, one padded (within 1e-4), and the
+              post-process of the same outputs on both (equal integer
+              outputs).
+  9. parity:  the same weights and batch through make_eval_step, and one
               train step, on the card (kernels) and on the CPU (plain
               versions) at a reduced size in float32 with TF32 off: outputs
               and parameters after the step within 1e-4, integer outputs
@@ -109,10 +134,11 @@ import torch.nn.functional as F
 from scene_graph_commonsense_torch import bench
 from scene_graph_commonsense_torch import config as config_lib
 from scene_graph_commonsense_torch.__main__ import synthetic_batches
-from scene_graph_commonsense_torch.constants import class_weights
+from scene_graph_commonsense_torch.constants import (
+    OBJ_ALP2FRE, class_weights)
 from scene_graph_commonsense_torch.data.artifacts import load_vg_artifacts
 from scene_graph_commonsense_torch.data.synthetic import (
-    synthetic_batch, synthetic_images)
+    BGR_MEAN, synthetic_batch, synthetic_images)
 from scene_graph_commonsense_torch.device import disable_tf32
 from scene_graph_commonsense_torch.eval import engines
 from scene_graph_commonsense_torch.inference import SceneGraphPredictor
@@ -125,6 +151,9 @@ from scene_graph_commonsense_torch.ops import _build, pair_pool, pairs
 from scene_graph_commonsense_torch.ops import attention, ffn
 from scene_graph_commonsense_torch.ops import bottleneck, stem
 from scene_graph_commonsense_torch.ops import boxes as box_ops
+from scene_graph_commonsense_torch.ops.detection import (
+    postprocess_detections)
+from scene_graph_commonsense_torch.ops.nms import class_aware_nms
 from scene_graph_commonsense_torch.train import engine
 from scene_graph_commonsense_torch.train import loop
 
@@ -187,6 +216,21 @@ KERNELS = {
 # one attention and one FFN per encoder layer
 PER_ENCODE = {"stem_conv_pool": 1, "bottleneck": 30, "bottleneck_s2": 3,
               "ffn_ln": 6, "attention": 6}
+# the detection canvas (data.nonsq_canvas) and the launches per detect
+# dispatch of 12 canvases: the stem (1000 % 8 == 0), 30 stride-1 blocks at
+# 250^2, 125^2, 63^2 and 32^2, K4 at layer2_0 only (layer3_0 and layer4_0
+# take odd inputs, 125^2 and 63^2, and run the plain fallback), one
+# attention and one FFN per encoder layer; the decoder runs no kernel
+CANVAS = 1000
+PER_DETECT = {"stem_conv_pool": 1, "bottleneck": 30, "bottleneck_s2": 1,
+              "ffn_ln": 6, "attention": 6}
+# the trunk's blocks at the canvas, batch 12, as K3_CASES / K4_CASES
+K3_CANVAS_CASES = (("layer1_0", 250, 250, 64, 64, True, 1),
+                   ("layer1_1", 250, 250, 256, 64, False, 2),
+                   ("layer2", 125, 125, 512, 128, False, 3),
+                   ("layer3", 63, 63, 1024, 256, False, 22),
+                   ("layer4", 32, 32, 2048, 512, False, 2))
+K4_CANVAS_CASES = (("layer2_0", 250, 250, 256, 128),)
 
 
 PAIR_POOL_KERNELS = ("pair_pool", "pair_pool_idx", "pair_pool_bwd")
@@ -538,6 +582,54 @@ def check_bf16(name, got, want, truth, ratio=2.0):
     return {"err_vs_f64": err, "plain_err_vs_f64": plain_err}
 
 
+def attention_record(q, k, v, valid, mask_name, scale, exp_per_s, phase):
+    """K8 against its plain version on these inputs (float32: within
+    ATTN_F32_TOL; bf16: the 2x rule against the float64 truth; an image
+    whose keys are all masked: uniform), timed in turns with the plain
+    version and SDPA beside its bound; emits and returns the record."""
+    b, l, h, dh = q.shape
+    dtype = q.dtype
+    got = attention.attention_kernel(q, k, v, valid, scale=scale)
+    want = attention.attention_plain(q, k, v, valid, scale=scale)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    rec = {"b": b, "l": l, "h": h, "dh": dh, "mask": mask_name,
+           "masked_keys": 1 - valid.float().mean().item(),
+           "dtype": str(dtype).split(".")[1], "max_abs_err": err}
+    if dtype == torch.float32:
+        ratio = close(got, want, ATTN_F32_TOL)
+        if ratio > 1:
+            raise AssertionError(f"attention kernel vs plain ({mask_name}, "
+                                 f"f32, B={b}): {ratio:.3g} x the "
+                                 f"tolerance")
+        rec["max_err_over_tol"] = ratio
+    else:
+        rec.update(check_bf16(f"attention ({mask_name}, B={b})", got, want,
+                              attention_truth(q, k, v, valid, scale)))
+    if not valid.any(dim=1).all():
+        i = int((~valid.any(dim=1)).nonzero()[0])
+        uniform = v[i].float().mean(dim=0).expand_as(got[i])
+        uerr = (got[i].float() - uniform).abs().max().item()
+        if uerr > (2e-2 if dtype == torch.bfloat16 else 1e-5):
+            raise AssertionError(f"attention: a fully masked image is not "
+                                 f"uniform ({uerr})")
+        rec["masked_image_uniform_err"] = uerr
+    del got, want
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    sdpa_mask = valid[:, None, None, :]
+    rec.update(timed(
+        lambda: attention.attention_kernel(q, k, v, valid, scale=scale),
+        lambda: attention.attention_plain(q, k, v, valid, scale=scale),
+        library_fn=lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=sdpa_mask, scale=scale)))
+    rec["library"] = "F.scaled_dot_product_attention"
+    rec.update(attention_bound(q, valid, exp_per_s))
+    emit({"phase": phase, "name": "attention", **rec})
+    del qt, kt, vt
+    torch.cuda.empty_cache()
+    return rec
+
+
 def phase_kernel_encoder(exp_per_s):
     """The encoder kernels vs their plain versions at the DETR shapes, B =
     12 (the serving batch) and 24 (fit's two views in one dispatch).
@@ -562,51 +654,14 @@ def phase_kernel_encoder(exp_per_s):
         masks["one_image_masked"][0] = False
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = (t.to(dtype) for t in qkv32)
-            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
             for mask_name, valid in masks.items():
-                got = attention.attention_kernel(q, k, v, valid, scale=scale)
-                want = attention.attention_plain(q, k, v, valid, scale=scale)
-                torch.cuda.synchronize()
-                err = (got.float() - want.float()).abs().max().item()
-                rec = {"b": b, "l": l, "h": 8, "dh": 32, "mask": mask_name,
-                       "dtype": str(dtype).split(".")[1],
-                       "max_abs_err": err}
-                if dtype == torch.float32:
-                    ratio = close(got, want, ATTN_F32_TOL)
-                    if ratio > 1:
-                        raise AssertionError(
-                            f"attention kernel vs plain ({mask_name}, f32, "
-                            f"B={b}): {ratio:.3g} x the tolerance")
-                    rec["max_err_over_tol"] = ratio
-                else:
-                    rec.update(check_bf16(
-                        f"attention ({mask_name}, B={b})", got, want,
-                        attention_truth(q, k, v, valid, scale)))
-                if mask_name == "one_image_masked":
-                    uniform = v[0].float().mean(dim=0).expand_as(got[0])
-                    uerr = (got[0].float() - uniform).abs().max().item()
-                    if uerr > (2e-2 if dtype == torch.bfloat16 else 1e-5):
-                        raise AssertionError(
-                            f"attention: a fully masked image is not "
-                            f"uniform ({uerr})")
-                    rec["masked_image_uniform_err"] = uerr
-                del got, want
-                sdpa_mask = valid[:, None, None, :]
-                rec.update(timed(
-                    lambda: attention.attention_kernel(q, k, v, valid,
-                                                       scale=scale),
-                    lambda: attention.attention_plain(q, k, v, valid,
-                                                      scale=scale),
-                    library_fn=lambda: F.scaled_dot_product_attention(
-                        qt, kt, vt, attn_mask=sdpa_mask, scale=scale)))
-                rec["library"] = "F.scaled_dot_product_attention"
-                rec.update(attention_bound(q, valid, exp_per_s))
-                max_err["attention"] = max(max_err["attention"], err)
-                emit({"phase": "kernel", "name": "attention", **rec})
+                rec = attention_record(q, k, v, valid, mask_name, scale,
+                                       exp_per_s, "kernel")
+                max_err["attention"] = max(max_err["attention"],
+                                           rec["max_abs_err"])
                 if b == 12 and dtype == torch.bfloat16 \
                         and mask_name == "all_valid":
                     main["attention"] = rec
-                torch.cuda.empty_cache()
         del qkv32, masks
 
     for n in (12288, 24576):
@@ -863,8 +918,101 @@ K4_CASES = (("layer2_0", 256, 256, 256, 128), ("layer3_0", 128, 128, 512, 256),
             ("layer4_0", 64, 64, 1024, 512))
 
 
+def trunk_timing(kernel_fn, plain_fn, unfused_fn, dtype):
+    """A trunk kernel beside its plain version (in turns, `timed`) and the
+    port's unfused counterpart; fewer runs of the slow float32 kernels."""
+    few = dtype == torch.float32
+    rec = timed(kernel_fn, plain_fn, plain_iters=2 if few else 3,
+                kernel_iters=3 if few else 10)
+    rec["unfused_ms"] = cuda_ms(unfused_fn, 3)
+    return rec
+
+
 def _launch_mean(recs, weights_, key):
     return sum(r[key] * n for r, n in zip(recs, weights_)) / sum(weights_)
+
+
+def stem_records(side, phase, gen, cpu_gen, dev, b=12):
+    """K5 against its plain version on (b, side, side, 3) images, bf16
+    (1.1x rule) and float32, each timed beside the plain version and the
+    cuDNN stem; emits and returns both records (bf16 first)."""
+    net = detr_lib.ResNet101((0, 0, 0, 0))
+    with torch.no_grad():
+        net.conv1.weight.normal_(0, 147 ** -0.5, generator=cpu_gen)
+        net.bn1.running_var.uniform_(0.5, 2.0, generator=cpu_gen)
+        net.bn1.bias.normal_(0, 0.2, generator=cpu_gen)
+    net = net.to(dev).requires_grad_(False)
+    images = torch.randn((b, side, side, 3), device=dev, generator=gen)
+    recs = []
+    for dtype in (torch.bfloat16, torch.float32):
+        prep = resnet_fused.prepared(net, dtype)
+        args = (images, prep.stem_w7, prep.stem_fold)
+        got = stem.stem_conv_pool_kernel(*args, prep.stem_wk)
+        want = stem.stem_conv_pool_plain(*args, compute_dtype=dtype)
+        torch.cuda.synchronize()
+        rec = {"shape": list(images.shape), "dtype": str(dtype)[6:],
+               **stem_plan(images, dtype),
+               **check_trunk_kernel("stem_conv_pool", got, want,
+                                    lambda: stem_truth(*args),
+                                    SAME_ROUNDINGS_BF16_RATIO),
+               **trunk_timing(
+                   lambda: stem.stem_conv_pool_kernel(*args, prep.stem_wk),
+                   lambda: stem.stem_conv_pool_plain(*args,
+                                                     compute_dtype=dtype),
+                   lambda: net(images, dtype), dtype),
+               "library_ms": None, **stem_bound(*args, got)}
+        del got, want
+        emit({"phase": phase, "name": "stem_conv_pool", **rec})
+        recs.append(rec)
+    del images, net
+    torch.cuda.empty_cache()
+    return recs
+
+
+def block_records(name, cases, stride, phase, gen, cpu_gen, dev, b=12):
+    """K3 (stride 1) or K4 (stride 2) against its plain version at each
+    case's block shape, bf16 (2x rule; K4 1.1x) and float32, each timed
+    beside the plain version and the port's unfused block; emits every
+    record.  Returns the bf16 records, each case's launches (K3: the
+    case's last field; K4: 1) and the largest error."""
+    main, counts, max_err = [], [], 0.0
+    kernel = bottleneck.bottleneck_kernel if stride == 1 \
+        else bottleneck.bottleneck_s2_kernel
+    plain = bottleneck.fused_bottleneck_plain if stride == 1 \
+        else bottleneck.fused_bottleneck_s2_plain
+    for case in cases:
+        label, h, w, cin, m = case[:5]
+        proj = case[5] if stride == 1 else True
+        mod = random_bottleneck(cin, m, stride, proj, cpu_gen, dev)
+        x32 = torch.randn((b, h, w, cin), device=dev, generator=gen)
+        for dtype in (torch.bfloat16, torch.float32):
+            blk = resnet_fused.prepare_block(mod, stride, dtype)
+            x = x32.to(dtype)
+            got = kernel(x, *blk.args())
+            want = plain(x, *blk.args())
+            torch.cuda.synchronize()
+            rec = {"case": label, "shape": list(x.shape), "m": m,
+                   "co": 4 * m, "dtype": str(dtype)[6:],
+                   **check_trunk_kernel(
+                       f"{name} {label}", got, want,
+                       lambda: bottleneck_truth(x, blk, stride),
+                       SAME_ROUNDINGS_BF16_RATIO if stride == 2 else 2.0),
+                   "library_ms": None, **bottleneck_bound(x, blk, got),
+                   **weight_stream(x, blk, stride)}
+            del got, want
+            x_nchw = x.permute(0, 3, 1, 2)
+            rec.update(trunk_timing(lambda: kernel(x, *blk.args()),
+                                    lambda: plain(x, *blk.args()),
+                                    lambda: mod(x_nchw, dtype), dtype))
+            emit({"phase": phase, "name": name, **rec})
+            max_err = max(max_err, rec["max_abs_err"])
+            if dtype == torch.bfloat16:
+                main.append(rec)
+                counts.append(case[6] if stride == 1 else 1)
+            del x, x_nchw, blk
+            torch.cuda.empty_cache()
+        del mod, x32
+    return main, counts, max_err
 
 
 def phase_kernel_trunk():
@@ -881,46 +1029,10 @@ def phase_kernel_trunk():
     b = 12
     summary = {}
 
-    def timing(kernel_fn, plain_fn, unfused_fn, dtype):
-        few = dtype == torch.float32
-        rec = timed(kernel_fn, plain_fn, plain_iters=2 if few else 3,
-                    kernel_iters=3 if few else 10)
-        rec["unfused_ms"] = cuda_ms(unfused_fn, 3)
-        return rec
-
     # K5: the whole stem at (12, 1024, 1024, 3)
-    net = detr_lib.ResNet101((0, 0, 0, 0))
-    with torch.no_grad():
-        net.conv1.weight.normal_(0, 147 ** -0.5, generator=cpu_gen)
-        net.bn1.running_var.uniform_(0.5, 2.0, generator=cpu_gen)
-        net.bn1.bias.normal_(0, 0.2, generator=cpu_gen)
-    net = net.to(dev).requires_grad_(False)
-    images = torch.randn((b, 1024, 1024, 3), device=dev, generator=gen)
-    recs = []
-    for dtype in (torch.bfloat16, torch.float32):
-        prep = resnet_fused.prepared(net, dtype)
-        args = (images, prep.stem_w7, prep.stem_fold)
-        got = stem.stem_conv_pool_kernel(*args, prep.stem_wk)
-        want = stem.stem_conv_pool_plain(*args, compute_dtype=dtype)
-        torch.cuda.synchronize()
-        rec = {"shape": list(images.shape), "dtype": str(dtype)[6:],
-               **stem_plan(images, dtype),
-               **check_trunk_kernel("stem_conv_pool", got, want,
-                                    lambda: stem_truth(*args),
-                                    SAME_ROUNDINGS_BF16_RATIO),
-               **timing(lambda: stem.stem_conv_pool_kernel(
-                            *args, prep.stem_wk),
-                        lambda: stem.stem_conv_pool_plain(
-                            *args, compute_dtype=dtype),
-                        lambda: net(images, dtype), dtype),
-               "library_ms": None, **stem_bound(*args, got)}
-        del got, want
-        emit({"phase": "kernel", "name": "stem_conv_pool", **rec})
-        recs.append(rec)
+    recs = stem_records(1024, "kernel", gen, cpu_gen, dev, b)
     summary["stem_conv_pool"] = {**recs[0], "max_abs_err": max(
         r["max_abs_err"] for r in recs)}
-    del images, net
-    torch.cuda.empty_cache()
 
     # K6: BN + ReLU + pool of the stem conv output of 1020^2 images
     bn = detr_lib.FrozenBatchNorm(64)
@@ -942,10 +1054,11 @@ def phase_kernel_trunk():
         nchw = conv.permute(0, 3, 1, 2)
         rec = {"shape": list(conv.shape), "dtype": str(dtype)[6:],
                "max_abs_err": 0.0, "exact": True,
-               **timing(lambda: stem.stem_pool_kernel(conv, fold),
-                        lambda: stem.stem_pool_plain(conv, fold),
-                        lambda: F.max_pool2d(torch.relu(bn(nchw, dtype)),
-                                             3, 2, 1), dtype),
+               **trunk_timing(
+                   lambda: stem.stem_pool_kernel(conv, fold),
+                   lambda: stem.stem_pool_plain(conv, fold),
+                   lambda: F.max_pool2d(torch.relu(bn(nchw, dtype)),
+                                        3, 2, 1), dtype),
                "library_ms": None, **stem_pool_bound(conv, fold, got)}
         del got, want
         emit({"phase": "kernel", "name": "stem_pool", **rec})
@@ -957,43 +1070,8 @@ def phase_kernel_trunk():
     # K3 and K4 at the trunk's shapes
     for name, cases, stride in (("bottleneck", K3_CASES, 1),
                                 ("bottleneck_s2", K4_CASES, 2)):
-        main, counts, max_err = [], [], 0.0
-        for case in cases:
-            label, h, w, cin, m = case[:5]
-            proj = case[5] if stride == 1 else True
-            mod = random_bottleneck(cin, m, stride, proj, cpu_gen, dev)
-            x32 = torch.randn((b, h, w, cin), device=dev, generator=gen)
-            kernel = bottleneck.bottleneck_kernel if stride == 1 \
-                else bottleneck.bottleneck_s2_kernel
-            plain = bottleneck.fused_bottleneck_plain if stride == 1 \
-                else bottleneck.fused_bottleneck_s2_plain
-            for dtype in (torch.bfloat16, torch.float32):
-                blk = resnet_fused.prepare_block(mod, stride, dtype)
-                x = x32.to(dtype)
-                got = kernel(x, *blk.args())
-                want = plain(x, *blk.args())
-                torch.cuda.synchronize()
-                rec = {"case": label, "shape": list(x.shape), "m": m,
-                       "co": 4 * m, "dtype": str(dtype)[6:],
-                       **check_trunk_kernel(
-                           f"{name} {label}", got, want,
-                           lambda: bottleneck_truth(x, blk, stride),
-                           SAME_ROUNDINGS_BF16_RATIO if stride == 2 else 2.0),
-                       "library_ms": None, **bottleneck_bound(x, blk, got),
-                       **weight_stream(x, blk, stride)}
-                del got, want
-                x_nchw = x.permute(0, 3, 1, 2)
-                rec.update(timing(lambda: kernel(x, *blk.args()),
-                                  lambda: plain(x, *blk.args()),
-                                  lambda: mod(x_nchw, dtype), dtype))
-                emit({"phase": "kernel", "name": name, **rec})
-                max_err = max(max_err, rec["max_abs_err"])
-                if dtype == torch.bfloat16:
-                    main.append(rec)
-                    counts.append(case[6] if stride == 1 else 1)
-                del x, x_nchw, blk
-                torch.cuda.empty_cache()
-            del mod, x32
+        main, counts, max_err = block_records(name, cases, stride, "kernel",
+                                              gen, cpu_gen, dev, b)
         # per launch over one encode: the launch-weighted means, bound by
         # what bounds the case with the most launches
         summary[name] = {
@@ -1087,24 +1165,45 @@ def phase_slice():
     return launches, (cfg, model, estep, batches, artifacts)
 
 
+PROFILED = "chip_smoke.profiled"
+
+
 def device_profile(fn, n, top_ops=16, groups=None):
     """torch.profiler over fn(): device busy share of the wall time, kernels
     by name, operators by input shape, per call of n; with `groups` (label
-    -> substrings of kernel names) also each group's device time."""
+    -> substrings of kernel names) also each group's device time.
+
+    fn runs twice with the tracer on, a warm-up and the call that counts,
+    marked by a record_function range: only what starts inside it is
+    counted.  A trace at times lacked the first kernel of its window or of
+    such a range (the fused trunk's stem kernel, an encode's first), as if
+    the device's clock ran behind the host's: the warm-up and a pause after
+    the mark keep that kernel in."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
-        # a tiny kernel first: the trace at times lacks the window's first
-        # kernel (seen with the fused trunk's stem kernel)
-        torch.ones(1, device="cuda").add_(1)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+        with record_function(PROFILED):
+            # the trace's host and device clocks agree to some tens of
+            # microseconds: a pause keeps the first kernel after the mark
+            time.sleep(0.005)
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.events()
+    # the range's host event (on the card the profiler adds its device
+    # span under the same name)
+    marks = [e.time_range.start for e in events
+             if e.name == PROFILED and e.device_type == DeviceType.CPU]
+    if len(marks) != 1:
+        raise AssertionError(f"the trace holds {len(marks)} marked ranges")
+    events = [e for e in events
+              if e.time_range.start >= marks[0] and e.name != PROFILED]
     kernels = {}
-    for e in prof.events():
+    for e in events:
         if e.device_type == DeviceType.CUDA:
             kernels[e.name] = kernels.get(e.name, 0.0) \
                 + e.time_range.elapsed_us()
@@ -1116,13 +1215,13 @@ def device_profile(fn, n, top_ops=16, groups=None):
                           if any(p in name for p in parts)) / 1e3 / n
                for label, parts in (groups or {}).items()}
 
-    def self_dev(e):
-        return getattr(e, "self_device_time_total", None) \
-            or getattr(e, "self_cuda_time_total", 0.0)
-
-    ops = [e for e in prof.key_averages(group_by_input_shape=True)
-           if e.device_type == DeviceType.CPU and self_dev(e) > 0]
-    top = sorted(ops, key=lambda e: -self_dev(e))[:top_ops]
+    ops = {}                  # (operator, input shapes) -> [calls, self us]
+    for e in events:
+        if e.device_type == DeviceType.CPU and e.self_device_time_total > 0:
+            op = ops.setdefault((e.name, str(e.input_shapes)[:120]), [0, 0.0])
+            op[0] += 1
+            op[1] += e.self_device_time_total
+    top = sorted(ops.items(), key=lambda kv: -kv[1][1])[:top_ops]
     return {"calls": n,
             "wall_ms_per_call": wall_us / 1e3 / n,
             "device_ms_per_call": busy_us / 1e3 / n,
@@ -1131,10 +1230,9 @@ def device_profile(fn, n, top_ops=16, groups=None):
             "top_kernels": [{"name": k[:90], "ms_per_call": v / 1e3 / n,
                              "share": v / busy_us}
                             for k, v in top_kernels],
-            "top_ops": [{"op": e.key, "shapes": str(e.input_shapes)[:120],
-                         "calls_per_call": e.count / n,
-                         "ms_per_call": self_dev(e) / 1e3 / n,
-                         "share": self_dev(e) / busy_us} for e in top]}
+            "top_ops": [{"op": op, "shapes": shapes, "calls_per_call": c / n,
+                         "ms_per_call": us / 1e3 / n, "share": us / busy_us}
+                        for (op, shapes), (c, us) in top]}
 
 
 def phase_profile(cfg, model, estep, batches, artifacts):
@@ -1473,6 +1571,343 @@ def phase_featurize():
     return {k: predict_launches[k] for k in PER_ENCODE}
 
 
+def detection_canvases(rng, regions, canvas=(CANVAS, CANVAS)):
+    """Seeded canvases as the VG detection view builds them (JAX
+    data/dataset.py nonsquare_canvas: BGR pixels in 0..255 minus the BGR
+    means in the top-left valid region, zero outside) with their pixel
+    masks; `regions` gives each image's valid (h, w)."""
+    images = np.zeros((len(regions), *canvas, 3), np.float32)
+    mask = np.zeros((len(regions), *canvas), bool)
+    for i, (h, w) in enumerate(regions):
+        pixels = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        images[i, :h, :w] = pixels.astype(np.float32) - BGR_MEAN
+        mask[i, :h, :w] = True
+    return {"image_nonsq": images, "pixel_mask": mask}
+
+
+def canvas_regions(n):
+    """4:3 images at min side 600 / max side 1000: 600 x 800 landscape and
+    800 x 600 portrait valid regions in turn, the last image a full
+    1000 x 1000 one."""
+    return [(600, 800) if i % 2 == 0 else (800, 600)
+            for i in range(n - 1)] + [(CANVAS, CANVAS)]
+
+
+def phase_kernel_canvas(key_valid, exp_per_s):
+    """The trunk kernels and K8 at the detection canvas's shapes, batch 12:
+    K5 on 1000^2 images (250 pool columns: a partial 64-column chunk), K3
+    at the five block shapes (250^2, 125^2, 63^2, 32^2), K4 at 250^2 ->
+    125^2, K8 at (12, 1024, 8, 32) under the canvases' own key mask, each
+    against its plain version by the rules of phase `kernel` and timed
+    beside it (K8 beside SDPA too).  Returns the bf16 records by case."""
+    dev = torch.device("cuda")
+    disable_tf32()
+    gen = torch.Generator(device=dev).manual_seed(5)
+    cpu_gen = torch.Generator().manual_seed(6)
+    out = {"stem_conv_pool": stem_records(CANVAS, "detect_kernel", gen,
+                                          cpu_gen, dev)[0]}
+    for name, cases, stride in (("bottleneck", K3_CANVAS_CASES, 1),
+                                ("bottleneck_s2", K4_CANVAS_CASES, 2)):
+        for rec in block_records(name, cases, stride, "detect_kernel", gen,
+                                 cpu_gen, dev)[0]:
+            out[f"{name} {rec['case']}"] = rec
+    qkv32 = [torch.randn((12, 1024, 8, 32), device=dev, generator=gen)
+             for _ in range(3)]
+    for dtype in (torch.bfloat16, torch.float32):
+        rec = attention_record(*(t.to(dtype) for t in qkv32), key_valid,
+                               "detect_canvas", 1.0 / math.sqrt(32),
+                               exp_per_s, "detect_kernel")
+        if dtype == torch.bfloat16:
+            out["attention"] = rec
+    del qkv32
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_detect(exp_per_s):
+    """SGDET/SGCLS detection at full width through the port's entry points:
+    load_detr(detection=True) with the default config (fused trunk and
+    encoder kernels on the card; no checkpoint in the repo, so seeded
+    random weights), make_detr_detect_fn on 12 seeded 1000^2 canvases
+    with VG-like pixel masks, then run_eval_sgd and run_eval_sgc over 2
+    synthetic full-VG-width batches; the kernels at the canvas shapes;
+    card against CPU at reduced depth in float32."""
+    torch.cuda.empty_cache()
+    cfg = config_lib.derive("vg", hierarchical_pred=True, run_mode="eval",
+                            eval_mode="sgd", training={"batch_size": 12})
+    b = cfg.training.batch_size
+    log = []
+    t0 = time.perf_counter()
+    detr = loop.load_detr(cfg, device="cuda",
+                          generator=torch.Generator().manual_seed(0),
+                          log_fn=log.append, detection=True)
+    init_s = time.perf_counter() - t0
+    if not (log and log[0].startswith("WARNING")):
+        raise AssertionError(f"expected the random-weights warning: {log}")
+    if not (detr.fused_backbone and detr.flash_encoder) \
+            or detr.backbone.blocks != (3, 4, 23, 3) \
+            or len(detr.encoder_layers()) != 6 \
+            or len(detr.decoder_layers()) != 6 \
+            or (detr.num_classes, detr.num_queries) != (151, 100):
+        raise AssertionError("not the full DETR-101 detector with "
+                             "fused_backbone and flash_encoder on")
+    canvases = detection_canvases(np.random.default_rng(50),
+                                  canvas_regions(b))
+    images = torch.from_numpy(canvases["image_nonsq"]).cuda()
+    mask = torch.from_numpy(canvases["pixel_mask"]).cuda()
+    on_card = {"image_nonsq": images, "pixel_mask": mask}
+    detect_fn = engines.make_detr_detect_fn(cfg, detr)
+    det = detect_fn(on_card)                            # warm-up
+    torch.cuda.synchronize()
+
+    # the forward's outputs
+    with torch.inference_mode():
+        out = detr(images, mask)
+        _, _, kmask, grid = detr._encode(images, mask)
+    logits, boxes = out["pred_logits"], out["pred_boxes"]
+    if logits.shape != (b, 100, 151) or boxes.shape != (b, 100, 4) \
+            or logits.dtype != torch.float32 \
+            or not bool(torch.isfinite(logits).all()) \
+            or not bool(((boxes >= 0) & (boxes <= 1)).all()):
+        raise AssertionError(f"detection outputs {tuple(logits.shape)} "
+                             f"{tuple(boxes.shape)} {logits.dtype}: finite "
+                             f"logits and boxes in [0, 1] expected")
+    n = cfg.data.max_objects
+    if det["cats"].shape != (b, n) or det["boxes"].shape != (b, n, 4) \
+            or not ((det["cats"] >= 0) & (det["cats"] < 150)).all() \
+            or not ((det["boxes"] >= 0) & (det["boxes"] <= 32)).all():
+        raise AssertionError("detect_fn returned malformed detections")
+    # the post-process on the card and on the CPU, fed the same logits
+    # and boxes: equal integer outputs
+    with torch.inference_mode():
+        post_cpu = engines.to_numpy(postprocess_detections(
+            logits.cpu(), boxes.cpu(), OBJ_ALP2FRE))
+        post_card = engines.to_numpy(postprocess_detections(
+            logits, boxes, OBJ_ALP2FRE))
+    post_err = {}
+    for k, v in post_card.items():
+        want = post_cpu[k]
+        if k in ("cats", "valid"):
+            if not np.array_equal(v, want):
+                raise AssertionError(f"card vs CPU post-process {k} differ")
+        else:
+            post_err[k] = float(np.abs(v - want).max())
+            if post_err[k] > 1e-5:
+                raise AssertionError(f"card vs CPU post-process {k}: "
+                                     f"{post_err[k]}")
+
+    # launches and device time per detect dispatch (CUDA events over 3,
+    # after the warm-up), from canvases on the card and from the host
+    reps = 3
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(reps):
+        detect_fn(on_card)
+    end.record()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    launches = read_counts()
+    want = expected(**{k: v * reps for k, v in PER_DETECT.items()})
+    if launches != want:
+        raise AssertionError(f"launches over {reps} detect dispatches "
+                             f"{launches}, expected {want}")
+    detect_ms = start.elapsed_time(end) / reps
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    host_ms = cuda_ms(lambda: detect_fn(canvases), reps)
+
+    # where the time of one detect goes: trunk, encoder, decoder and heads,
+    # post-process (each profiled; differences of nested prefixes)
+    def run(fn):
+        def call():
+            with torch.inference_mode():
+                return fn()
+        return call
+
+    kernel_groups = {"attention": ("attention_tc_kernel",),
+                     "ffn_ln": ("ffn_ln_hopper",),
+                     "bottleneck": ("bottleneck", "conv1_s2"),  # K3, K4
+                     "stem_conv_pool": ("stem_conv_pool_hopper",)}
+    parts = {"trunk": run(lambda: resnet_fused.resnet_forward_fused(
+                 detr.backbone, images, detr.dtype)),
+             "encode": run(lambda: detr._encode(images, mask)),
+             "forward": run(lambda: detr(images, mask)),
+             "postprocess": run(lambda: postprocess_detections(
+                 logits, boxes, OBJ_ALP2FRE)),
+             "detect": lambda: detect_fn(on_card)}
+    prof = {k: device_profile(fn, 1, groups=kernel_groups)
+            for k, fn in parts.items()}
+    missing = [k for k, ms in prof["detect"]["group_ms_per_call"].items()
+               if ms <= 0]
+    if missing:
+        raise AssertionError(f"the detect profile holds no time of the "
+                             f"kernel groups {missing}")
+
+    def wall(fn, iters=3):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3 / iters
+
+    def enqueue(fn, iters=3):
+        """Host time until fn returns, from an idle card: what issuing its
+        work costs the host (the detect dispatch's ends in its copy out)."""
+        total = 0.0
+        for _ in range(iters):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            total += time.perf_counter() - t
+        torch.cuda.synchronize()
+        return total * 1e3 / iters
+
+    # each nested prefix alone: host clock (ending in a synchronise), CUDA
+    # events, and the host's time to issue it; where issuing takes as long
+    # as the events' time, the host holds the card back
+    part_ms = {k: {"wall_ms": wall(fn), "event_ms": cuda_ms(fn, 3),
+                   "enqueue_ms": enqueue(fn)}
+               for k, fn in parts.items()}
+    q = logits.shape[1] * cfg.model.topk_cat
+    nms_args = (torch.rand((b, q, 4), device="cuda").sort(-1).values,
+                torch.rand((b, q), device="cuda"),
+                torch.randint(0, 150, (b, q), device="cuda"),
+                torch.ones((b, q), dtype=torch.bool, device="cuda"))
+    ms = {k: p["device_ms_per_call"] for k, p in prof.items()}
+    split = {"trunk_ms": ms["trunk"],
+             "encoder_ms": ms["encode"] - ms["trunk"],
+             "decoder_and_heads_ms": ms["forward"] - ms["encode"],
+             "postprocess_ms": ms["postprocess"],
+             "nms_wall_ms": wall(run(lambda: class_aware_nms(*nms_args,
+                                                             0.5))),
+             "kernel_ms": prof["detect"]["group_ms_per_call"],
+             "device_busy_share": prof["detect"]["device_busy_share"],
+             "parts": part_ms}
+    del out, logits, boxes, nms_args
+
+    # the kernels at the canvas shapes, K8 under the canvases' key mask
+    canvas_kernels = phase_kernel_canvas(kmask, exp_per_s)
+    del kmask
+
+    # SGDET and SGCLS over 2 synthetic full-VG-width batches (features and
+    # objects as phase `slice`, canvases to detect on), after a warm-up
+    model = make_relation_classifier(
+        cfg, device="cuda", generator=torch.Generator().manual_seed(0))
+    artifacts = load_vg_artifacts("datasets/artifacts")
+    rng = np.random.default_rng(51)
+    batches = [{**synthetic_batch(rng, batch_size=b, max_objects=n,
+                                  with_aug=False),
+                **detection_canvases(rng, canvas_regions(b))}
+               for _ in range(2)]
+    engines.run_eval_sgd(cfg, model, batches[:1], detect_fn,
+                         artifacts=artifacts, device="cuda")
+    evals = {}
+    for mode, runner in (("sgd", engines.run_eval_sgd),
+                         ("sgc", engines.run_eval_sgc)):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = runner(cfg, model, batches, detect_fn, artifacts=artifacts,
+                     device="cuda")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = read_counts()
+        want = expected(**{k: v * len(batches)
+                           for k, v in PER_DETECT.items()},
+                        pair_pool=len(batches))
+        if counts != want:
+            raise AssertionError(f"run_eval_{mode} launched {counts}, "
+                                 f"expected {want}")
+        recalls = [*res["recall"], *res["mean_recall"], *res["recall_zs"]]
+        if not all(0 <= r <= 1 for r in recalls) or not res["num_targets"]:
+            raise AssertionError(f"run_eval_{mode}: {res}")
+        evals[mode] = {"recall": res["recall"],
+                       "mean_recall": res["mean_recall"],
+                       "recall_zs": res["recall_zs"],
+                       "num_targets": res["num_targets"],
+                       "launches": counts, "batches": len(batches),
+                       "wall_s_per_batch": secs / len(batches)}
+    del model, batches
+    emit({"phase": "detect", "batch_size": b, "canvas": CANVAS,
+          "regions": canvas_regions(b),
+          "masked_keys": 1 - mask_fraction(canvases["pixel_mask"], grid),
+          "compute_dtype": cfg.model.compute_dtype, "weights": log[0],
+          "init_s": init_s,
+          "detect_12": {"ms": detect_ms, "wall_ms": wall_ms,
+                        "from_host_ms": host_ms, "peak_mem_gb": peak_gb,
+                        "launches": launches, "reps": reps},
+          "launches_per_detect": PER_DETECT,
+          "detections_per_image": det["valid"].sum(1).tolist(),
+          "postprocess_card_vs_cpu_err": post_err,
+          "device_split_detect_12": split,
+          "canvas_kernels": {k: {f: r[f] for f in (
+              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+              "unfused_ms", "max_abs_err") if f in r}
+              for k, r in canvas_kernels.items()},
+          **{f"run_eval_{k}": v for k, v in evals.items()},
+          "profile_detect_12": prof["detect"]})
+    del detr, images, mask, on_card
+    torch.cuda.empty_cache()
+    phase_detect_parity()
+
+
+def mask_fraction(pixel_mask, grid):
+    """The share of valid keys on the (h, w) feature grid."""
+    fmask = detr_lib.downsample_mask(torch.from_numpy(pixel_mask), *grid)
+    return fmask.float().mean().item()
+
+
+def phase_detect_parity():
+    """The detection forward on the card (K7, K8) and on the CPU (plain
+    versions), float32, reduced depth (blocks (1, 1, 1, 1), 1 encoder and 2
+    decoder layers, full width), seeded weights, two 1024 x 512 canvases
+    (L = 512 tokens), one with a 700 x 400 valid region: outputs within
+    1e-4; the post-process of the CPU's outputs on both devices gives
+    equal integer outputs."""
+    dcfg = config_lib.derive("vg", model={
+        "detr_blocks": (1, 1, 1, 1), "detr_enc_layers": 1,
+        "detr_dec_layers": 2, "compute_dtype": "float32",
+        "flash_encoder": "on"})
+    sd = weights.init_detr_params(dcfg, torch.Generator().manual_seed(7),
+                                  detection=True)
+    canv = detection_canvases(np.random.default_rng(52),
+                              [(700, 400), (1024, 512)], canvas=(1024, 512))
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        detr = detr_lib.make_detr(dcfg, device=dev, state_dict=sd,
+                                  detection=True)
+        reset_counts()
+        with torch.inference_mode():
+            outs[dev] = {k: v.cpu() for k, v in detr(
+                torch.from_numpy(canv["image_nonsq"]).to(dev),
+                torch.from_numpy(canv["pixel_mask"]).to(dev)).items()}
+        if dev == "cuda" and read_counts() != expected(ffn_ln=1,
+                                                       attention=1):
+            raise AssertionError(f"card detect launched {read_counts()}")
+    errs = {k: float((outs["cuda"][k] - outs["cpu"][k]).abs().max())
+            for k in outs["cpu"]}
+    if not all(e <= 1e-4 for e in errs.values()):
+        raise AssertionError(f"card vs CPU detection forward: {errs} > 1e-4")
+    logits, boxes = outs["cpu"]["pred_logits"], outs["cpu"]["pred_boxes"]
+    with torch.inference_mode():
+        posts = {dev: engines.to_numpy(postprocess_detections(
+            logits.to(dev), boxes.to(dev), OBJ_ALP2FRE)) for dev in
+            ("cuda", "cpu")}
+    for k in ("cats", "valid"):
+        if not np.array_equal(posts["cuda"][k], posts["cpu"][k]):
+            raise AssertionError(f"card vs CPU post-process {k} differ")
+    emit({"phase": "detect_parity", "canvas": [1024, 512],
+          "regions": [[700, 400], [1024, 512]], "detr_blocks": [1, 1, 1, 1],
+          "encoder_layers": 1, "decoder_layers": 2, "max_abs_err": errs,
+          "tolerance": 1e-4, "postprocess_int_equal": True,
+          "detections": posts["cpu"]["valid"].sum(1).tolist()})
+
+
 def phase_parity():
     """Card (kernels) vs CPU (plain versions) on the same weights and batch,
     float32, reduced size: the eval step, one train step, and the forward
@@ -1654,8 +2089,9 @@ def phase_parity_trunk():
 
 def main():
     ap = argparse.ArgumentParser(description="chip smoke of the port")
-    ap.add_argument("--phases",
-                    default="kernel,slice,profile,train,featurize,parity")
+    ap.add_argument(
+        "--phases",
+        default="kernel,slice,profile,train,featurize,detect,parity")
     phases = set(ap.parse_args().phases.split(","))
     info = phase_device()
     phase_build()
@@ -1677,6 +2113,8 @@ def main():
         launches["pair_pool_bwd"] = train_launches["pair_pool_bwd"]
     if "featurize" in phases:
         launches.update(phase_featurize())
+    if "detect" in phases:
+        phase_detect(info["exp_per_s"])
     if "parity" in phases:
         # K6 runs on the fallback for images that are even but not
         # divisible by 8, not at 1024^2: its count is the parity run's

@@ -1,8 +1,8 @@
-"""Command line of the port, mirroring main.py's PredCLS paths:
+"""Command line of the port, mirroring main.py:
 
   python -m scene_graph_commonsense_torch --run_mode train|train_cs|eval|eval_cs
-      --eval_mode pc [--hierar] [--cluster C] [--dataset D] [--synthetic N]
-      [--config YAML] [--batch_size B] [--device cpu|cuda]
+      --eval_mode pc|sgc|sgd [--hierar] [--cluster C] [--dataset D]
+      [--synthetic N] [--config YAML] [--batch_size B] [--device cpu|cuda]
 
 train / train_cs run train.loop.fit from the seeded initialisation over N
 synthetic VG-shaped batches per epoch (seed 0 + epoch, with the augmented
@@ -11,8 +11,11 @@ and a PredCLS test pass over max(N // 4, 1) synthetic batches (seed 100 +
 epoch), as main.py does.  eval / eval_cs load the checkpoint of
 training.test_epoch if it exists (else warn and evaluate the seeded
 initialisation), run PredCLS evaluation over max(N // 4, 1) synthetic
-batches (seed 100) and print the result as one JSON line.  Run modes and
-eval modes the port does not cover yet exit with a message.
+batches (seed 100) and print the result as one JSON line.  SGCLS and
+SGDET evaluation (--eval_mode sgc|sgd) need detector outputs on real
+images: with --synthetic they exit as main.py does, and without it the
+Visual Genome loader is not ported yet.  prepare_cs, and real data for any
+run mode, exit with a message.
 """
 
 import argparse
@@ -85,14 +88,16 @@ def main():
           f"hierar={cfg.model.hierarchical_pred} "
           f"cluster={cfg.data.supcat_clustering}")
     run_mode = cfg.training.run_mode
-    if run_mode == "prepare_cs" or cfg.training.eval_mode != "pc":
-        sys.exit(f"run_mode={run_mode} eval_mode={cfg.training.eval_mode} "
-                 f"is not yet ported to PyTorch; the port runs "
-                 f"--run_mode train|train_cs|eval|eval_cs --eval_mode pc "
-                 f"(use main.py for the rest)")
+    if run_mode == "prepare_cs":
+        sys.exit(f"run_mode={run_mode} is not yet ported to PyTorch; the "
+                 f"port runs --run_mode train|train_cs|eval|eval_cs (use "
+                 f"main.py for the rest)")
     if not args.synthetic:
         sys.exit("the Visual Genome loader is not yet ported to PyTorch; "
                  "use --synthetic N")
+    if run_mode in ("eval", "eval_cs") and cfg.training.eval_mode != "pc":
+        sys.exit("sgc/sgd need detector outputs; run on real data with a "
+                 "converted DETR checkpoint")
 
     from scene_graph_commonsense_torch.data.artifacts import (
         load_vg_artifacts)

@@ -1,8 +1,9 @@
-"""Label-space tables that PredCLS evaluation, serving and training need.
+"""Label-space tables that evaluation, serving, training and the detection
+post-process need.
 
 A subset of scene_graph_commonsense_tpu/constants.py, copied so that the port
 imports nothing of the JAX package (reference dataset_utils.py:586-650,
-764-787, utils.py:250-274, 355-373, train_test.py:105-106).
+606-614, 764-787, utils.py:250-274, 355-373, train_test.py:105-106).
 """
 
 from __future__ import annotations
@@ -105,6 +106,21 @@ OIV6_REL_COUNTS = np.array(
 OIV6_WMAP_WEIGHT = np.array(
     [1974, 120, 27, 2, 284, 571, 2059, 8, 26, 2, 0, 163, 25, 30, 2, 0, 0,
      1, 0, 17, 0, 29, 14, 4, 3, 0, 6, 0, 67, 5], dtype=np.int64) + 1
+
+# DETR label remap.  The pretrained DETR-101 detector orders VG object
+# classes alphabetically; the pipeline orders them by frequency (index 150,
+# the no-object slot, maps to itself).  reference dataset_utils.py:606-614
+OBJ_ALP2FRE = np.array(
+    [137, 108, 25, 41, 77, 127, 100, 111, 107, 56, 84, 90, 74, 54, 83, 125,
+     47, 64, 59, 38, 48, 4, 63, 76, 93, 14, 105, 22, 124, 68, 85, 69, 96,
+     91, 110, 118, 81, 15, 132, 20, 71, 129, 65, 32, 19, 115, 114, 35, 60,
+     138, 144, 72, 44, 26, 88, 141, 12, 13, 34, 36, 8, 46, 79, 67, 75, 27,
+     62, 148, 103, 121, 94, 128, 16, 7, 43, 17, 80, 1, 149, 95, 73, 101,
+     70, 53, 119, 142, 18, 78, 136, 23, 5, 143, 61, 106, 92, 50, 24, 113,
+     9, 55, 135, 133, 120, 37, 42, 140, 139, 86, 102, 57, 3, 21, 40, 29, 6,
+     104, 97, 109, 147, 146, 30, 112, 122, 28, 99, 10, 31, 134, 39, 49,
+     131, 117, 126, 52, 51, 0, 87, 66, 45, 130, 145, 123, 58, 33, 2, 116,
+     82, 98, 11, 89, 150], dtype=np.int32)
 
 # SGDET/SGCLS object-category equivalence for label matching.
 # reference utils.py:355-373

@@ -1,7 +1,7 @@
 """Builders turning packed-pair model outputs into evaluator inputs.
 
-A copy of the PredCLS half of scene_graph_commonsense_tpu/eval/builders.py,
-kept so that the port imports nothing of the JAX package.
+A copy of scene_graph_commonsense_tpu/eval/builders.py, kept so that the
+port imports nothing of the JAX package.
 
 The reference interleaves evaluation bookkeeping into its pair loop
 (reference train_utils.py:105-110, evaluate.py:162-183); here one vectorized
@@ -207,3 +207,18 @@ def eval_column_keep(boxes: np.ndarray, valid: np.ndarray,
     col_alive = overlap.any(axis=0)
     col_alive = col_alive | col_alive.T                      # unordered
     return np.broadcast_to(col_alive, overlap.shape)
+
+
+def sgd_target_keep(valid: np.ndarray) -> np.ndarray:
+    """SGDET target parity (reference utils.py:305-313): match_target_sgd
+    iterates `for graph_iter in range(len(relationships[i]))` over the n-1
+    relation rows but indexes row `graph_iter - 1`, so the LAST object's
+    relation row is never visited — every GT pair involving an image's
+    final (smallest-area) object is silently dropped from the SGDET target
+    set.  Returns the (B, N, N) keep mask replicating that drop."""
+    valid = np.asarray(valid).astype(bool)
+    b, n = valid.shape
+    n_live = valid.sum(axis=1)                                # (B,)
+    idx = np.arange(n)
+    pair_max = np.maximum(idx[:, None], idx[None, :])         # (N, N)
+    return pair_max[None] < (n_live[:, None, None] - 1)

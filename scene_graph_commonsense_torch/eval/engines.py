@@ -1,26 +1,44 @@
-"""PredCLS evaluation engine (torch port of the PredCLS half of
-scene_graph_commonsense_tpu/eval/engines.py; SGCLS and SGDET come with the
-detection slice).
+"""Evaluation engines: PredCLS / SGCLS / SGDET (torch port of
+scene_graph_commonsense_tpu/eval/engines.py, one device; the mesh branches
+come with multi-GPU).
 
-The engine runs the eval step per batch, moves its outputs to numpy once,
+Mirrors reference evaluate.py's three modes:
+  * run_eval_pc  (reference evaluate.py:29-227): GT boxes + GT labels;
+  * run_eval_sgc (reference evaluate.py:464-703): GT boxes + predicted
+    labels matched per GT box by best IoU;
+  * run_eval_sgd (reference evaluate.py:230-461): fully predicted
+    boxes/labels through the static detection postprocess.
+
+Each engine runs the eval step per batch, moves its outputs to numpy once,
 turns them into flat Candidates/Targets and streams them into the numpy
-evaluators (GT boxes + GT labels, overlap-filtered pair grid; reference
-evaluate.py:29-227).
+evaluators.  SGCLS and SGDET take a `detect_fn(batch)` returning the
+detection dict of ops/detection.postprocess_detections;
+make_detr_detect_fn builds it from the frozen DETR detector, on the device.
+
+Documented deviation (the JAX package's): the reference's SGCLS label
+matcher duplicates a GT box when the two best-IoU predicted slots tie (the
+top-2 class candidates of one predicted box, reference utils.py:404-415);
+by default each GT box is conditioned on the single best-IoU predicted
+slot's class (training.sgcls_top2_duplicates restores the duplication).
 """
 
 from __future__ import annotations
 
 import warnings
-from typing import Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, Optional
 
 import numpy as np
 import torch
 
-from scene_graph_commonsense_torch.constants import OIV6_WMAP_WEIGHT
+from scene_graph_commonsense_torch.constants import (
+    OBJ_ALP2FRE, OIV6_WMAP_WEIGHT)
 from scene_graph_commonsense_torch.eval.builders import (
     build_candidates, build_candidates_top3, build_targets,
-    eval_column_keep)
-from scene_graph_commonsense_torch.eval.recall import Evaluator, EvaluatorTop3
+    eval_column_keep, sgd_target_keep)
+from scene_graph_commonsense_torch.eval.recall import (
+    Evaluator, EvaluatorTop3, np_mask_iou)
+from scene_graph_commonsense_torch.ops.detection import (
+    postprocess_detections)
 from scene_graph_commonsense_torch.train import engine as engine_lib
 
 
@@ -47,10 +65,17 @@ def check_pair_overflow(out, warned: list) -> bool:
     return over
 
 
+def _model_batch(batch: Dict) -> Dict:
+    """Keeps only the entries the eval step reads (drops annotation paths,
+    raw images, pixel masks)."""
+    return {k: batch[k] for k in engine_lib.MODEL_KEYS
+            if batch.get(k) is not None}
+
+
 def _accumulate_batch(evaluator, ev3, cfg, out, batch, artifacts,
-                      use_cs: bool):
+                      use_cs: bool, predcls: bool, cats, boxes,
+                      cat_conf=None, target_keep=None):
     m = cfg.model
-    cats, boxes = np.asarray(batch["cats"]), np.asarray(batch["boxes"])
     cs_a = cs_v = None
     if use_cs and artifacts is not None:
         cs_a, cs_v = artifacts.cs_aligned, artifacts.cs_violated
@@ -59,15 +84,19 @@ def _accumulate_batch(evaluator, ev3, cfg, out, batch, artifacts,
         out["pair_img"], out["pair_sub"], out["pair_obj"],
         out["pair_mask"], out["iou_ok"], cats, boxes,
         hierarchical=m.hierarchical_pred, num_geometric=m.num_geometric,
-        num_possessive=m.num_possessive, predcls=True,
-        cs_aligned=cs_a, cs_violated=cs_v, num_obj_classes=m.num_classes)
-    keep = None
+        num_possessive=m.num_possessive, predcls=predcls,
+        cat_conf=cat_conf, cs_aligned=cs_a, cs_violated=cs_v,
+        num_obj_classes=m.num_classes)
+    keep = target_keep
     if cfg.training.faithful_eval_targets:
         # deviation 4: drop targets of pair columns whose overlap filter
         # failed for every image in this batch (eval/builders docstring)
-        keep = eval_column_keep(boxes, np.asarray(batch["valid"]),
-                                cfg.model.feature_size)
-    tgt = build_targets(np.asarray(batch["rel"]), cats, boxes,
+        col = eval_column_keep(np.asarray(batch["boxes"]),
+                               np.asarray(batch["valid"]),
+                               cfg.model.feature_size)
+        keep = col if keep is None else (keep & col)
+    tgt = build_targets(np.asarray(batch["rel"]), np.asarray(batch["cats"]),
+                        np.asarray(batch["boxes"]),
                         np.asarray(batch["valid"]), keep=keep)
     evaluator.accumulate(cand, tgt)
     if cfg.data.dataset == "oiv6":
@@ -81,11 +110,11 @@ def _accumulate_batch(evaluator, ev3, cfg, out, batch, artifacts,
         ev3.accumulate(cand3, tgt)
 
 
-def _make_evaluators(cfg, artifacts):
+def _make_evaluators(cfg, artifacts, predcls: bool):
     zs = artifacts.zs_table if (artifacts is not None
                                 and cfg.data.dataset == "vg") else None
     ev = Evaluator(num_classes=cfg.model.num_relations,
-                   feature_size=cfg.model.feature_size, predcls=True,
+                   feature_size=cfg.model.feature_size, predcls=predcls,
                    zs_table=zs, num_obj_classes=cfg.model.num_classes,
                    oiv6_weights=OIV6_WMAP_WEIGHT
                    if cfg.data.dataset == "oiv6" else None)
@@ -115,7 +144,7 @@ def run_eval_pc(cfg, model, batches: Iterable[Dict],
     train.engine.make_eval_step, which also turns TF32 off).  Pass a
     prebuilt `estep` to reuse it across calls; `max_batches` truncates the
     pass (the training loop's per-epoch test)."""
-    ev, ev3 = _make_evaluators(cfg, artifacts)
+    ev, ev3 = _make_evaluators(cfg, artifacts, predcls=True)
     if estep is None:
         estep = engine_lib.make_eval_step(model, cfg, device=device)
     warned = [False]
@@ -124,5 +153,216 @@ def run_eval_pc(cfg, model, batches: Iterable[Dict],
             break
         out = to_numpy(estep(batch))
         check_pair_overflow(out, warned)
-        _accumulate_batch(ev, ev3, cfg, out, batch, artifacts, use_cs)
+        _accumulate_batch(ev, ev3, cfg, out, batch, artifacts, use_cs,
+                          predcls=True, cats=np.asarray(batch["cats"]),
+                          boxes=np.asarray(batch["boxes"]))
     return _results(cfg, ev, ev3)
+
+
+def match_predicted_labels(det: Dict[str, np.ndarray],
+                           gt_boxes: np.ndarray, gt_valid: np.ndarray,
+                           feature_size: int = 32):
+    """SGCLS label matching: each GT box takes the class/confidence of the
+    best-IoU predicted slot, confidence scaled by that IoU (reference
+    utils.py:376-422)."""
+    b, n = gt_valid.shape
+    cats = np.zeros((b, n), np.int32)
+    conf = np.zeros((b, n), np.float32)
+    pb, pc, pv = (np.asarray(det["boxes"]), np.asarray(det["cats"]),
+                  np.asarray(det["valid"]))
+    pconf = np.asarray(det["cat_conf"])
+    for bi in range(b):
+        if not pv[bi].any():
+            continue
+        ious = np_mask_iou(gt_boxes[bi][:, None], pb[bi][None],
+                           feature_size)
+        ious = np.where(pv[bi][None, :], ious, -1.0)
+        best = ious.argmax(axis=1)
+        cats[bi] = pc[bi][best]
+        conf[bi] = pconf[bi][best] * np.maximum(ious[np.arange(n), best], 0)
+    cats[~gt_valid] = 0
+    conf[~gt_valid] = 0
+    return cats, conf
+
+
+def match_predicted_labels_top2(det: Dict[str, np.ndarray],
+                                gt_boxes: np.ndarray, gt_valid: np.ndarray,
+                                feature_size: int = 32):
+    """Reference-faithful SGCLS matching incl. the top-2 tie duplication
+    (reference utils.py:376-422): each GT box takes the best-IoU predicted
+    slot's class with confidence pred_conf * best_iou; when the two best
+    IoUs tie EXACTLY (the same detection box repeated for its two class
+    candidates, reference evaluate.py:313-315), the GT box is duplicated
+    with both candidates.  Returns slot-expanded (cats, conf, boxes, valid)
+    of width 2N (slots 2k / 2k+1 belong to GT box k; the reference inserts
+    the duplicate adjacently, which is order-equivalent for the
+    confidence-ranked evaluator).  An image with fewer than two predicted
+    slots is dropped entirely (reference utils.py:393-394 returns None and
+    eval_sgc skips the batch)."""
+    b, n = gt_valid.shape
+    cats = np.zeros((b, 2 * n), np.int32)
+    conf = np.zeros((b, 2 * n), np.float32)
+    boxes = np.zeros((b, 2 * n, 4), np.float32)
+    valid = np.zeros((b, 2 * n), bool)
+    pb, pc, pv = (np.asarray(det["boxes"]), np.asarray(det["cats"]),
+                  np.asarray(det["valid"]))
+    pconf = np.asarray(det["cat_conf"])
+    for bi in range(b):
+        if pv[bi].sum() < 2:
+            continue
+        ious = np_mask_iou(gt_boxes[bi][:, None], pb[bi][None],
+                           feature_size)
+        ious = np.where(pv[bi][None, :], ious, -1.0)
+        order = np.argsort(-ious, axis=1, kind="stable")
+        top1, top2 = order[:, 0], order[:, 1]
+        iou1 = ious[np.arange(n), top1]
+        iou2 = ious[np.arange(n), top2]
+        for k in range(n):
+            if not gt_valid[bi, k]:
+                continue
+            boxes[bi, 2 * k] = gt_boxes[bi, k]
+            valid[bi, 2 * k] = True
+            cats[bi, 2 * k] = pc[bi][top1[k]]
+            conf[bi, 2 * k] = pconf[bi][top1[k]] * max(iou1[k], 0)
+            if iou1[k] == iou2[k]:
+                boxes[bi, 2 * k + 1] = gt_boxes[bi, k]
+                valid[bi, 2 * k + 1] = True
+                cats[bi, 2 * k + 1] = pc[bi][top2[k]]
+                conf[bi, 2 * k + 1] = pconf[bi][top2[k]] * max(iou2[k], 0)
+    return cats, conf, boxes, valid
+
+
+def run_eval_sgc(cfg, model, batches: Iterable[Dict],
+                 detect_fn: Callable[[Dict], Dict],
+                 artifacts=None, use_cs: bool = False,
+                 max_batches: Optional[int] = None, device=None) -> Dict:
+    """SGCLS: GT boxes, predicted labels.  detect_fn(batch) returns the
+    detection dict of ops/detection.postprocess_detections (numpy or
+    tensors).  `model` runs on `device` (default cuda)."""
+    ev, _ = _make_evaluators(cfg, artifacts, predcls=False)
+    cap = 0
+    if cfg.training.sgcls_top2_duplicates:
+        # slot-expanded 2N grid needs its own worst-case capacity
+        n2 = 2 * cfg.data.max_objects
+        cap = cfg.training.batch_size * n2 * (n2 - 1)
+    estep = engine_lib.make_eval_step(model, cfg, capacity=cap,
+                                      device=device)
+    sub2super = artifacts.sub2super if artifacts is not None else None
+    warned = [False]
+    for i, batch in enumerate(batches):
+        if max_batches is not None and i >= max_batches:
+            break
+        det = to_numpy(detect_fn(batch))
+        gt_boxes = np.asarray(batch["boxes"])
+        gt_valid = np.asarray(batch["valid"])
+        run_batch = _model_batch(batch)
+        if cfg.training.sgcls_top2_duplicates:
+            # faithful slot-expanded grid (2N slots, GT boxes duplicated
+            # on exact top-2 IoU ties)
+            cats, conf, boxes, valid = match_predicted_labels_top2(
+                det, gt_boxes, gt_valid, cfg.model.feature_size)
+            n2 = cats.shape[1]
+            run_batch.update(cats=cats, boxes=boxes, valid=valid,
+                             rel=np.full((cats.shape[0], n2, n2), -1,
+                                         np.int32))
+        else:
+            cats, conf = match_predicted_labels(
+                det, gt_boxes, gt_valid, cfg.model.feature_size)
+            boxes = gt_boxes
+            run_batch["cats"] = cats
+        if sub2super is not None:
+            run_batch["super_mh"] = sub2super[cats].astype(np.float32)
+        out = to_numpy(estep(run_batch))
+        check_pair_overflow(out, warned)
+        # targets keep GT cats; candidates use matched predicted cats.  The
+        # reference adds the RAW class confidences (softmax prob x IoU) to
+        # the log-space relation confidence (reference evaluator.py:164-166,
+        # utils.py:410-418), replicated as it is.  The reference's SGCLS
+        # targets also come from match_target_sgd (reference
+        # evaluate.py:597), so the faithful last-object-row drop applies as
+        # in run_eval_sgd.
+        tk = (sgd_target_keep(gt_valid)
+              if cfg.training.faithful_sgd_targets else None)
+        _accumulate_batch(ev, None, cfg, out, batch, artifacts, use_cs,
+                          predcls=False, cats=cats, boxes=boxes,
+                          cat_conf=conf, target_keep=tk)
+    return _results(cfg, ev, None)   # Top-3 is a PredCLS-only report
+
+
+def run_eval_sgd(cfg, model, batches: Iterable[Dict],
+                 detect_fn: Callable[[Dict], Dict],
+                 artifacts=None, use_cs: bool = False,
+                 max_batches: Optional[int] = None, device=None) -> Dict:
+    """SGDET: predicted boxes + labels drive the pair grid; GT pairs are the
+    unmatched target set (reference utils.py:294-352).  `model` runs on
+    `device` (default cuda)."""
+    ev, _ = _make_evaluators(cfg, artifacts, predcls=False)
+    estep = engine_lib.make_eval_step(model, cfg, device=device)
+    sub2super = artifacts.sub2super if artifacts is not None else None
+    warned = [False]
+    for i, batch in enumerate(batches):
+        if max_batches is not None and i >= max_batches:
+            break
+        det = to_numpy(detect_fn(batch))
+        run_batch = _model_batch(batch)
+        run_batch.update(cats=det["cats"], boxes=det["boxes"],
+                         valid=det["valid"])
+        if sub2super is not None:
+            run_batch["super_mh"] = sub2super[det["cats"]].astype(np.float32)
+        out = to_numpy(estep(run_batch))
+        check_pair_overflow(out, warned)
+        m = cfg.model
+        cs_a = cs_v = None
+        if use_cs and artifacts is not None:
+            cs_a, cs_v = artifacts.cs_aligned, artifacts.cs_violated
+        # confidence adds subject + object class confidence (reference
+        # evaluator.py:164-166); the reference adds raw softmax
+        # probabilities.  Candidates on the detections, targets on the GT
+        # (no overlap-column drop: that is the PredCLS/SGCLS pair loop's).
+        cand = build_candidates(
+            out["relation"], out["connectivity"], out["super_relation"],
+            out["pair_img"], out["pair_sub"], out["pair_obj"],
+            out["pair_mask"], out["iou_ok"], det["cats"], det["boxes"],
+            hierarchical=m.hierarchical_pred, num_geometric=m.num_geometric,
+            num_possessive=m.num_possessive, predcls=False,
+            cat_conf=det["cat_conf"], cs_aligned=cs_a, cs_violated=cs_v,
+            num_obj_classes=m.num_classes)
+        keep = (sgd_target_keep(np.asarray(batch["valid"]))
+                if cfg.training.faithful_sgd_targets else None)
+        tgt = build_targets(np.asarray(batch["rel"]),
+                            np.asarray(batch["cats"]),
+                            np.asarray(batch["boxes"]),
+                            np.asarray(batch["valid"]), keep=keep)
+        ev.accumulate(cand, tgt)
+        if cfg.data.dataset == "oiv6":
+            ev.accumulate_precision(cand, tgt)
+    return _results(cfg, ev, None)   # Top-3 is a PredCLS-only report
+
+
+def make_detr_detect_fn(cfg, detr_model):
+    """Returns detect_fn(batch) -> the detection dict (numpy): the full DETR
+    forward of the detection view batch["image_nonsq"] under
+    batch["pixel_mask"] (all pixels real when absent), then the static
+    postprocess (reference evaluate.py:309-368), both under
+    torch.inference_mode on the model's device; one copy to the host at the
+    end.  `detr_model` is a models.detr.DETR built with `detection`."""
+    dev = next(detr_model.parameters()).device
+    alp2fre = torch.as_tensor(OBJ_ALP2FRE, device=dev)
+    m = cfg.model
+
+    def detect_fn(batch: Dict) -> Dict[str, np.ndarray]:
+        with torch.inference_mode():
+            images = torch.as_tensor(batch["image_nonsq"], device=dev)
+            mask = batch.get("pixel_mask")
+            mask = torch.ones(images.shape[:3], dtype=torch.bool,
+                              device=dev) if mask is None \
+                else torch.as_tensor(mask, device=dev)
+            out = detr_model(images, mask)
+            det = postprocess_detections(
+                out["pred_logits"], out["pred_boxes"], alp2fre,
+                num_classes=m.num_classes, topk_cat=m.topk_cat,
+                feature_size=m.feature_size, nms_iou=m.nms_iou,
+                max_objects=cfg.data.max_objects)
+        return to_numpy(det)
+
+    return detect_fn

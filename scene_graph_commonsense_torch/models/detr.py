@@ -1,7 +1,8 @@
-"""DETR-ResNet101, encode half (torch port of
-scene_graph_commonsense_tpu/models/detr.py): the frozen featurizer that turns
-images into the (B, S, S, 256) feature map of the relation stage
-(reference train_utils.py:9-18).
+"""DETR-ResNet101 (torch port of scene_graph_commonsense_tpu/models/detr.py):
+the frozen featurizer that turns images into the (B, S, S, 256) feature map
+of the relation stage (reference train_utils.py:9-18) and, built with
+`detection=True`, the frozen detector of SGCLS and SGDET (reference
+evaluate.py:309).
 
   * ResNet-101 v1.5 trunk to C5 (stride on conv2, a strided 1x1 projection
     on the first block of each stage), frozen batch norm with its four
@@ -14,14 +15,20 @@ images into the (B, S, S, 256) feature map of the relation stage
     ops/attention.py and ops/ffn.py where the JAX package runs its Pallas
     ones (`flash_encoder`).
 
-The decoder, the query embedding and the class and box heads (`__call__` of
-the JAX module) belong to the detection slice and are not here.
+  * with `detection`, the post-norm decoder (6 layers, 100 learned queries,
+    final LayerNorm; plain attention and FFN, as in the JAX module), the
+    class head (num_classes logits, 151 for VG with the no-object slot) and
+    the 3-layer box MLP with a sigmoid cxcywh output (`forward`).  Without
+    it the module holds the encode half alone, the featurizer's weights.
 
 Same rounding points as the flax modules: every layer casts its input and
 weights to the compute dtype; the frozen-BN scale and shift are computed in
 the parameters' dtype and cast; the position embedding is computed in at
 least float32; LayerNorm promotes to its float32 parameters, so under bf16
-compute the residual stream after the first norm is float32.  The public
+compute the residual stream after the first norm is float32; the decoder's
+zero target and query embedding are in the compute dtype, the logits and
+the box MLP's output are rounded to it, then promoted to float32 (the box
+sigmoid runs in float32).  The public
 functions take and return NHWC tensors as the JAX package does; the trunk's
 convolutions run on the NCHW view of that memory (channels-last).
 """
@@ -29,7 +36,7 @@ convolutions run on the NCHW view of that memory (channels-last).
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -266,12 +273,13 @@ class MHA(nn.Module):
             logits = torch.einsum("bqhd,bkhd->bhqk", qh, kh) \
                 / math.sqrt(d_head)
             if key_padding_mask is not None:
-                bias = torch.where(
-                    key_padding_mask[:, None, None, :],
-                    torch.zeros((), dtype=torch.float32, device=q.device),
-                    torch.tensor(torch.finfo(torch.float32).min,
-                                 device=q.device))
-                logits = logits + bias
+                # float32 0 or float32 min per key, filled on the device (a
+                # scalar tensor built from the host would synchronise it)
+                bias = torch.zeros(key_padding_mask.shape,
+                                   dtype=torch.float32, device=q.device)
+                bias.masked_fill_(~key_padding_mask,
+                                  torch.finfo(torch.float32).min)
+                logits = logits + bias[:, None, None, :]
             # softmax in at least float32, no downcast under float64
             attn = torch.softmax(
                 logits.to(torch.promote_types(logits.dtype, torch.float32)),
@@ -340,31 +348,86 @@ class EncoderLayer(nn.Module):
         return _layer_norm(self.norm2, src + src2)
 
 
+class DecoderLayer(nn.Module):
+    """Post-norm transformer decoder layer: self-attention over the queries,
+    cross-attention into the encoder memory under its key mask, FFN; each
+    followed by a residual add and a LayerNorm.  Always the plain path: the
+    JAX module builds its attention with flash off and has no fused FFN."""
+
+    def __init__(self, d_model: int = 256, nhead: int = 8,
+                 dim_ff: int = 2048, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.self_attn = MHA(d_model, nhead, dtype)
+        self.cross_attn = MHA(d_model, nhead, dtype)
+        self.linear1 = nn.Linear(d_model, dim_ff)
+        self.linear2 = nn.Linear(dim_ff, d_model)
+        self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
+        self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
+        self.norm3 = nn.LayerNorm(d_model, eps=1e-5)
+
+    def forward(self, tgt: torch.Tensor, memory: torch.Tensor,
+                pos: torch.Tensor, query_pos: torch.Tensor,
+                key_padding_mask: Optional[torch.Tensor]) -> torch.Tensor:
+        q = k = tgt + query_pos
+        tgt2 = self.self_attn(q, k, tgt)
+        tgt = _layer_norm(self.norm1, tgt + tgt2)
+        tgt2 = self.cross_attn(tgt + query_pos, memory + pos, memory,
+                               key_padding_mask)
+        tgt = _layer_norm(self.norm2, tgt + tgt2)
+        tgt2 = _dense(self.linear2,
+                      torch.relu(_dense(self.linear1, tgt, self.dtype)),
+                      self.dtype)
+        return _layer_norm(self.norm3, tgt + tgt2)
+
+
 class DETR(nn.Module):
-    """The encode half of DETR-ResNet101: trunk, input_proj and the encoder
-    layers (named encoder_<i> as in the flax tree).  `fused_backbone` routes
-    the trunk through the fused kernels (models/resnet_fused.py), same
-    parameters, forward only; `flash_encoder` the encoder through K7/K8."""
+    """DETR-ResNet101: trunk, input_proj and the encoder layers (named
+    encoder_<i> as in the flax tree) and, with `detection`, the decoder
+    layers (decoder_<i>), decoder_norm, query_embed, class_embed (num_classes
+    logits: 151 for VG, 602 for OIv6) and the box MLP bbox_embed_0/1/2.
+    `fused_backbone` routes the trunk through the fused kernels
+    (models/resnet_fused.py), same parameters, forward only;
+    `flash_encoder` the encoder through K7/K8."""
 
     def __init__(self, d_model: int = 256, nhead: int = 8,
                  num_encoder_layers: int = 6,
                  backbone_blocks: Tuple[int, ...] = RESNET101_BLOCKS,
                  dim_ff: int = 2048, dtype: torch.dtype = torch.float32,
-                 fused_backbone: bool = False, flash_encoder: bool = False):
+                 fused_backbone: bool = False, flash_encoder: bool = False,
+                 detection: bool = False, num_decoder_layers: int = 6,
+                 num_classes: int = 151, num_queries: int = 100):
         super().__init__()
         self.d_model, self.dtype = d_model, dtype
         self.fused_backbone = fused_backbone
         self.flash_encoder = flash_encoder
         self.num_encoder_layers = num_encoder_layers
+        self.detection = detection
+        self.num_decoder_layers = num_decoder_layers if detection else 0
+        self.num_classes, self.num_queries = num_classes, num_queries
         self.backbone = ResNet101(backbone_blocks)
         self.input_proj = nn.Conv2d(2048, d_model, 1)
         for i in range(num_encoder_layers):
             self.add_module(f"encoder_{i}", EncoderLayer(
                 d_model, nhead, dim_ff, dtype, flash=flash_encoder))
+        if detection:
+            for i in range(num_decoder_layers):
+                self.add_module(f"decoder_{i}", DecoderLayer(
+                    d_model, nhead, dim_ff, dtype))
+            self.decoder_norm = nn.LayerNorm(d_model, eps=1e-5)
+            self.query_embed = nn.Embedding(num_queries, d_model)
+            self.class_embed = nn.Linear(d_model, num_classes)
+            self.bbox_embed_0 = nn.Linear(d_model, d_model)
+            self.bbox_embed_1 = nn.Linear(d_model, d_model)
+            self.bbox_embed_2 = nn.Linear(d_model, 4)
 
     def encoder_layers(self):
         return [getattr(self, f"encoder_{i}")
                 for i in range(self.num_encoder_layers)]
+
+    def decoder_layers(self):
+        return [getattr(self, f"decoder_{i}")
+                for i in range(self.num_decoder_layers)]
 
     def _encode(self, images: torch.Tensor,
                 pixel_mask: Optional[torch.Tensor]):
@@ -398,6 +461,32 @@ class DETR(nn.Module):
         src, _, _, (h, w) = self._encode(images, pixel_mask)
         return src.reshape(src.shape[0], h, w, self.d_model)
 
+    def forward(self, images: torch.Tensor,
+                pixel_mask: Optional[torch.Tensor] = None
+                ) -> Dict[str, torch.Tensor]:
+        """Full detection forward: pred_logits (B, Q, num_classes) and
+        pred_boxes (B, Q, 4) in normalized cxcywh, both in the promotion of
+        the compute dtype and float32 (reference evaluate.py:309)."""
+        if not self.detection:
+            raise RuntimeError("this DETR holds the encode half only; build "
+                               "it with detection=True to detect")
+        dt = self.dtype
+        memory, pos, kmask, _ = self._encode(images, pixel_mask)
+        b = memory.shape[0]
+        tgt = torch.zeros((b, self.num_queries, self.d_model), dtype=dt,
+                          device=memory.device)
+        query_pos = self.query_embed.weight.to(dt)[None].expand_as(tgt)
+        for layer in self.decoder_layers():
+            tgt = layer(tgt, memory, pos, query_pos, kmask)
+        hs = _layer_norm(self.decoder_norm, tgt)
+        logits = _dense(self.class_embed, hs, dt)
+        x = hs
+        for lyr in (self.bbox_embed_0, self.bbox_embed_1):
+            x = torch.relu(_dense(lyr, x, dt))
+        up = torch.promote_types(dt, torch.float32)
+        boxes = torch.sigmoid(_dense(self.bbox_embed_2, x, dt).to(up))
+        return {"pred_logits": logits.to(up), "pred_boxes": boxes}
+
 
 def resolve_detr_modes(cfg, device: torch.device) -> Tuple[bool, bool]:
     """(fused_backbone, flash_encoder) of a config on `device`.
@@ -425,22 +514,30 @@ def resolve_detr_modes(cfg, device: torch.device) -> Tuple[bool, bool]:
 
 
 def module_from_cfg(cfg, fused_backbone: bool = False,
-                    flash_encoder: bool = False) -> DETR:
+                    flash_encoder: bool = False,
+                    detection: bool = False) -> DETR:
+    """The config's DETR: 151 classes for VG, 602 for OIv6 (each with the
+    no-object slot), detr_dec_layers decoder layers with `detection`."""
     m = cfg.model
     return DETR(num_encoder_layers=m.detr_enc_layers,
                 backbone_blocks=tuple(m.detr_blocks),
                 dtype=getattr(torch, m.compute_dtype),
-                fused_backbone=fused_backbone, flash_encoder=flash_encoder)
+                fused_backbone=fused_backbone, flash_encoder=flash_encoder,
+                detection=detection, num_decoder_layers=m.detr_dec_layers,
+                num_classes=151 if cfg.data.dataset == "vg" else 602)
 
 
 def make_detr(cfg, device=None, state_dict=None,
-              generator: Optional[torch.Generator] = None) -> DETR:
-    """The frozen encode half of DETR on `device` (default cuda), in eval
-    mode with no gradients.  Weights come from `state_dict` (the port's
-    names, see models/weights.py) if given, else from
-    weights.init_detr_params(cfg, generator).  Parameters are float32, or
-    float64 under float64 compute (the parity runs).  TF32 is turned off
-    (device.disable_tf32), so float32 convolutions run in full float32."""
+              generator: Optional[torch.Generator] = None,
+              detection: bool = False) -> DETR:
+    """The frozen DETR on `device` (default cuda), in eval mode with no
+    gradients: the encode half (the featurizer), or with `detection` the
+    whole detector.  Weights come from `state_dict` (the port's names, see
+    models/weights.py; exactly the keys of the module built) if given, else
+    from weights.init_detr_params(cfg, generator, detection).  Parameters
+    are float32, or float64 under float64 compute (the parity runs).  TF32
+    is turned off (device.disable_tf32), so float32 convolutions run in full
+    float32."""
     from scene_graph_commonsense_torch.device import (
         disable_tf32, resolve_device)
     from scene_graph_commonsense_torch.models.weights import (
@@ -450,11 +547,11 @@ def make_detr(cfg, device=None, state_dict=None,
     fused, flash = resolve_detr_modes(cfg, dev)
     with torch.device("meta"):        # allocated once, on the device, below
         model = module_from_cfg(cfg, fused_backbone=fused,
-                                flash_encoder=flash)
+                                flash_encoder=flash, detection=detection)
     model = model.to_empty(device=dev)
     if model.dtype == torch.float64:
         model = model.to(torch.float64)
     if state_dict is None:
-        state_dict = init_detr_params(cfg, generator)
+        state_dict = init_detr_params(cfg, generator, detection)
     model.load_state_dict(state_dict)
     return model.eval().requires_grad_(False)

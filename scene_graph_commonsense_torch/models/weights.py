@@ -161,14 +161,14 @@ def init_params(cfg, generator: Optional[torch.Generator] = None
     return sd
 
 # ---------------------------------------------------------------------------
-# DETR (encode half): flax tree <-> port, torch-hub names -> port, seeded init
+# DETR: flax tree <-> port, torch-hub names -> port, seeded init
 # ---------------------------------------------------------------------------
 
-# top-level entries of the JAX DETR tree that the encode half uses; the
-# decoder, query embedding and heads come with the detection slice
-_DETR_ENCODE_PREFIXES = ("backbone", "input_proj", "encoder_")
-# torch-hub DETR keys of the detection half, kept aside by
-# detr_from_hub_state_dict
+# top-level entries of the DETR tree that the encode half (the featurizer)
+# holds; the rest (decoder_<i>, decoder_norm, query_embed, class_embed,
+# bbox_embed_<i>) is the detection half
+_DETR_ENCODE_PREFIXES = ("backbone.", "input_proj.", "encoder_")
+# torch-hub DETR keys of the detection half
 _HUB_DETECTION_PREFIXES = ("transformer.decoder.", "query_embed.",
                            "class_embed.", "bbox_embed.")
 
@@ -181,24 +181,31 @@ def _flat(tree: Mapping, prefix: str = ""):
             yield f"{prefix}{name}", v
 
 
+def detr_encode_half(state_dict: Mapping[str, torch.Tensor]
+                     ) -> Dict[str, torch.Tensor]:
+    """The entries of a DETR state dict (the port's names) that the encode
+    half holds: what a featurizer built without `detection` loads."""
+    return {k: v for k, v in state_dict.items()
+            if k.startswith(_DETR_ENCODE_PREFIXES)}
+
+
 def detr_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
     """The JAX package's DETR param tree ({"params": {...}} or the inner
     dict) of numpy arrays or torch tensors -> the state dict of
-    models.detr.DETR: conv kernels HWIO -> OIHW, dense kernels (in, out) ->
-    (out, in), LayerNorm scale -> weight, frozen-BN statistics by name.
-    Keys outside the encode half (decoder, query embedding, heads) are left
-    out."""
+    models.detr.DETR, every key of the tree: conv kernels HWIO -> OIHW,
+    dense kernels (in, out) -> (out, in), LayerNorm scale -> weight, the
+    query embedding table as it is, frozen-BN statistics by name.  A tree
+    of the encode half alone gives the encode half."""
     tree = params.get("params", params)
     sd: Dict[str, torch.Tensor] = {}
-    for key, leaf in _flat({k: v for k, v in tree.items()
-                            if k.startswith(_DETR_ENCODE_PREFIXES)}):
+    for key, leaf in _flat(tree):
         path, name = key.rsplit(".", 1)
         a = leaf.clone() if isinstance(leaf, torch.Tensor) \
             else torch.from_numpy(np.array(leaf))
         if name == "kernel":
             name = "weight"
             a = a.permute(3, 2, 0, 1) if a.dim() == 4 else a.T
-        elif name == "scale":
+        elif name in ("scale", "embedding"):
             name = "weight"
         sd[f"{path}.{name}"] = a.contiguous()
     return sd
@@ -217,12 +224,14 @@ def detr_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
     for key, v in state_dict.items():
         path, name = key.rsplit(".", 1)
         a = _np(v)
-        if name == "weight" and a.ndim == 4:
+        if path == "query_embed":
+            name = "embedding"
+        elif name == "weight" and a.ndim == 4:
             name, a = "kernel", np.ascontiguousarray(a.transpose(2, 3, 1, 0))
         elif name == "weight" and a.ndim == 2:
             name, a = "kernel", np.ascontiguousarray(a.T)
-        elif name == "weight" and path.rsplit(".", 1)[-1].startswith("norm"):
-            name = "scale"
+        elif name == "weight" and "norm" in path.rsplit(".", 1)[-1]:
+            name = "scale"          # norm1-3, decoder_norm (not the BNs)
         node = tree
         for part in path.split("."):
             node = node.setdefault(part, {})
@@ -230,14 +239,21 @@ def detr_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
     return {"params": tree}
 
 
-def _hub_key_map(num_encoder_layers: int, blocks) -> Dict[str, str]:
-    """Port key -> torch-hub key for every tensor of the encode half (the
-    in_proj rows are split by the caller)."""
+def _hub_key_map(num_encoder_layers: int, blocks,
+                 num_decoder_layers: Optional[int]) -> Dict[str, str]:
+    """Port key -> torch-hub key for every tensor of the encode half and,
+    unless num_decoder_layers is None, of the detection half (the in_proj
+    rows of each attention are split by the caller)."""
     m: Dict[str, str] = {}
 
     def bn(port, hub):
         for stat in ("weight", "bias", "running_mean", "running_var"):
             m[f"{port}.{stat}"] = f"{hub}.{stat}"
+
+    def same(port, hub, names):
+        for name in names:
+            for kind in ("weight", "bias"):
+                m[f"{port}.{name}.{kind}"] = f"{hub}.{name}.{kind}"
 
     body = "backbone.0.body"
     m["backbone.conv1.weight"] = f"{body}.conv1.weight"
@@ -255,23 +271,41 @@ def _hub_key_map(num_encoder_layers: int, blocks) -> Dict[str, str]:
     m["input_proj.weight"] = "input_proj.weight"
     m["input_proj.bias"] = "input_proj.bias"
     for i in range(num_encoder_layers):
-        port, hub = f"encoder_{i}", f"transformer.encoder.layers.{i}"
-        for name in ("self_attn.out_proj", "linear1", "linear2", "norm1",
-                     "norm2"):
-            for kind in ("weight", "bias"):
-                m[f"{port}.{name}.{kind}"] = f"{hub}.{name}.{kind}"
+        same(f"encoder_{i}", f"transformer.encoder.layers.{i}",
+             ("self_attn.out_proj", "linear1", "linear2", "norm1", "norm2"))
+    if num_decoder_layers is None:
+        return m
+    for i in range(num_decoder_layers):
+        port, hub = f"decoder_{i}", f"transformer.decoder.layers.{i}"
+        same(port, hub, ("self_attn.out_proj", "linear1", "linear2",
+                         "norm1", "norm2", "norm3"))
+        for kind in ("weight", "bias"):
+            m[f"{port}.cross_attn.out_proj.{kind}"] = \
+                f"{hub}.multihead_attn.out_proj.{kind}"
+    for kind in ("weight", "bias"):
+        m[f"decoder_norm.{kind}"] = f"transformer.decoder.norm.{kind}"
+        m[f"class_embed.{kind}"] = f"class_embed.{kind}"
+        for j in range(3):
+            m[f"bbox_embed_{j}.{kind}"] = f"bbox_embed.layers.{j}.{kind}"
+    m["query_embed.weight"] = "query_embed.weight"
     return m
 
 
 def detr_from_hub_state_dict(state: Mapping, num_encoder_layers: int = 6,
-                             blocks=(3, 4, 23, 3)):
+                             blocks=(3, 4, 23, 3),
+                             num_decoder_layers: Optional[int] = 6
+                             ) -> Dict[str, torch.Tensor]:
     """facebookresearch/detr `detr_resnet101` state dict (the names that
-    scene_graph_commonsense_tpu's convert_detr_state_dict reads) -> (the
-    port's encode-half state dict, the detection-half tensors by their hub
-    names, kept for the detection slice).  The fused in_proj of each
-    encoder self-attention splits into q/k/v rows.  Raises KeyError on a
-    missing key and ValueError on a key that belongs to neither half
-    (BatchNorm's num_batches_tracked counters are dropped)."""
+    scene_graph_commonsense_tpu's convert_detr_state_dict reads) -> the
+    port's state dict of the whole detector (models.detr.DETR with
+    `detection`).  The fused in_proj of each attention splits into q/k/v
+    rows (the decoder's multihead_attn becomes cross_attn), the box MLP's
+    layers.<j> become bbox_embed_<j>.  With num_decoder_layers None only the
+    encode half is converted and the detection half's keys are passed over
+    unread (the featurizer's load, whatever the checkpoint's decoder
+    depth).  Raises KeyError on a missing key and ValueError on a key that
+    belongs to neither half (BatchNorm's num_batches_tracked counters are
+    dropped)."""
     st = {k.removeprefix("module."): v for k, v in state.items()}
     used = set()
 
@@ -281,41 +315,48 @@ def detr_from_hub_state_dict(state: Mapping, num_encoder_layers: int = 6,
         used.add(hub)
         return torch.as_tensor(_np(st[hub]))
 
-    sd = {port: take(hub) for port, hub in
-          _hub_key_map(num_encoder_layers, blocks).items()}
-    for i in range(num_encoder_layers):
-        hub = f"transformer.encoder.layers.{i}.self_attn"
+    sd = {port: take(hub) for port, hub in _hub_key_map(
+        num_encoder_layers, blocks, num_decoder_layers).items()}
+    attns = [(f"encoder_{i}.self_attn",
+              f"transformer.encoder.layers.{i}.self_attn")
+             for i in range(num_encoder_layers)]
+    for i in range(num_decoder_layers or 0):
+        hub = f"transformer.decoder.layers.{i}"
+        attns += [(f"decoder_{i}.self_attn", f"{hub}.self_attn"),
+                  (f"decoder_{i}.cross_attn", f"{hub}.multihead_attn")]
+    for port, hub in attns:
         w, b = take(f"{hub}.in_proj_weight"), take(f"{hub}.in_proj_bias")
         d = w.shape[1]
         for j, name in enumerate(("q_proj", "k_proj", "v_proj")):
-            sd[f"encoder_{i}.self_attn.{name}.weight"] = \
-                w[j * d:(j + 1) * d].contiguous()
-            sd[f"encoder_{i}.self_attn.{name}.bias"] = \
-                b[j * d:(j + 1) * d].contiguous()
-    detection = {k: torch.as_tensor(_np(v)) for k, v in st.items()
-                 if k.startswith(_HUB_DETECTION_PREFIXES)}
-    stray = sorted(k for k in st if k not in used and k not in detection
+            sd[f"{port}.{name}.weight"] = w[j * d:(j + 1) * d].contiguous()
+            sd[f"{port}.{name}.bias"] = b[j * d:(j + 1) * d].contiguous()
+    unread = set() if num_decoder_layers is not None \
+        else {k for k in st if k.startswith(_HUB_DETECTION_PREFIXES)}
+    stray = sorted(k for k in st if k not in used and k not in unread
                    and not k.endswith(".num_batches_tracked"))
     if stray:
         raise ValueError(f"DETR state dict keys of neither the encode nor "
                          f"the detection half: {stray[:8]}")
-    return sd, detection
+    return sd
 
 
-def init_detr_params(cfg, generator: Optional[torch.Generator] = None
-                     ) -> Dict[str, torch.Tensor]:
-    """Fresh float32 DETR encode-half weights with flax's default
-    distributions: lecun-normal conv and dense kernels, zero biases,
-    LayerNorm scale 1, frozen BN as the identity (weight 1, bias 0, mean 0,
-    variance 1).  The distributions of the JAX package's detr.init, not its
-    numbers.  `generator` defaults to one seeded with cfg.training.seed."""
+def init_detr_params(cfg, generator: Optional[torch.Generator] = None,
+                     detection: bool = False) -> Dict[str, torch.Tensor]:
+    """Fresh float32 DETR weights (the encode half, or with `detection` the
+    whole detector) with flax's default distributions: lecun-normal conv
+    and dense kernels, zero biases, LayerNorm scale 1, frozen BN as the
+    identity (weight 1, bias 0, mean 0, variance 1), the query embedding
+    normal with variance 1/features.  The distributions of the JAX
+    package's detr.init, not its numbers.  The encode half draws first, so
+    one seed gives the same encode half in both.  `generator` defaults to
+    one seeded with cfg.training.seed."""
     from scene_graph_commonsense_torch.models.detr import (
         module_from_cfg as detr_module)
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.training.seed)
     with torch.device("meta"):        # shapes only: allocates nothing
-        shapes = {k: v.shape
-                  for k, v in detr_module(cfg).state_dict().items()}
+        shapes = {k: v.shape for k, v in detr_module(
+            cfg, detection=detection).state_dict().items()}
     sd: Dict[str, torch.Tensor] = {}
     for key, shape in shapes.items():
         name = key.rsplit(".", 1)[1]
@@ -323,6 +364,9 @@ def init_detr_params(cfg, generator: Optional[torch.Generator] = None
             sd[key] = torch.zeros(shape)
         elif name == "running_var" or len(shape) == 1:
             sd[key] = torch.ones(shape)
+        elif key == "query_embed.weight":
+            sd[key] = torch.empty(shape).normal_(
+                0.0, 1.0 / math.sqrt(shape[1]), generator=generator)
         else:
             fan_in = math.prod(shape[1:])
             sd[key] = _trunc_normal(

@@ -28,7 +28,7 @@ from scene_graph_commonsense_torch.eval.builders import (
 from scene_graph_commonsense_torch.models.detr import (
     DETR, make_detr, module_from_cfg as detr_module)
 from scene_graph_commonsense_torch.models.weights import (
-    detr_from_flax_bytes, detr_from_hub_state_dict)
+    detr_encode_half, detr_from_flax_bytes, detr_from_hub_state_dict)
 from scene_graph_commonsense_torch.train import checkpoint as ckpt_lib
 from scene_graph_commonsense_torch.train import engine
 from scene_graph_commonsense_torch.utils.logging import (
@@ -67,20 +67,21 @@ def checkpoint_file(cfg, epoch: int) -> str:
     return os.path.join(cfg.training.checkpoint_path, name + ".pt")
 
 
-def load_detr_featurizer(cfg, device=None,
-                         generator: Optional[torch.Generator] = None,
-                         log_fn: Callable[[str], None] = print):
-    """The frozen DETR-101 featurizer on `device` (default cuda).  Weights
-    come from cfg.model.detr_pretrained: a `.msgpack` is the JAX package's
-    converted checkpoint (flax.serialization.to_bytes of its DETR params,
-    read without flax); any other file is a torch state dict in torch-hub
-    names (`torch.save` of the hub model's state_dict, or a dict with it
-    under "model").  Either must hold exactly the encode half that the
-    config builds, or a ValueError names the keys missing or left over.
-    When the file is absent, the weights come from a seeded random init
-    (`generator`, default seeded with cfg.training.seed) with a loud
-    warning: fine for plumbing and timing, useless for recall.  Returns
-    (featurize_fn, detr_model)."""
+def load_detr(cfg, device=None, generator: Optional[torch.Generator] = None,
+              log_fn: Callable[[str], None] = print,
+              detection: bool = False) -> DETR:
+    """The frozen DETR-101 on `device` (default cuda): the encode half (the
+    featurizer), or with `detection` the whole detector.  Weights come from
+    cfg.model.detr_pretrained: a `.msgpack` is the JAX package's converted
+    checkpoint (flax.serialization.to_bytes of its DETR params, read
+    without flax); any other file is a torch state dict in torch-hub names
+    (`torch.save` of the hub model's state_dict, or a dict with it under
+    "model").  The encode half is taken from a checkpoint of the whole
+    detector; otherwise the file must hold exactly what the config builds,
+    or a ValueError names the keys missing or left over.  When the file is
+    absent, the weights come from a seeded random init (`generator`,
+    default seeded with cfg.training.seed) with a loud warning: fine for
+    plumbing and timing, useless for recall."""
     path = cfg.model.detr_pretrained
     state_dict = None
     if os.path.exists(path):
@@ -89,25 +90,37 @@ def load_detr_featurizer(cfg, device=None,
                 state_dict = detr_from_flax_bytes(f.read())
         else:
             ckpt = torch.load(path, map_location="cpu", weights_only=True)
-            state_dict, _ = detr_from_hub_state_dict(
+            state_dict = detr_from_hub_state_dict(
                 ckpt.get("model", ckpt), cfg.model.detr_enc_layers,
-                tuple(cfg.model.detr_blocks))
+                tuple(cfg.model.detr_blocks),
+                cfg.model.detr_dec_layers if detection else None)
+        if not detection:
+            state_dict = detr_encode_half(state_dict)
         with torch.device("meta"):        # names only: allocates nothing
-            want = set(detr_module(cfg).state_dict())
+            want = set(detr_module(cfg, detection=detection).state_dict())
         missing = sorted(want - set(state_dict))
         extra = sorted(set(state_dict) - want)
         if missing or extra:
             raise ValueError(
-                f"{path} does not hold the DETR encode half this config "
+                f"{path} does not hold the DETR "
+                f"{'detector' if detection else 'encode half'} this config "
                 f"builds: {len(missing)} keys missing {missing[:8]}, "
                 f"{len(extra)} left over {extra[:8]}")
     else:
         log_fn(f"WARNING: {path} not found — using randomly initialized "
                f"DETR weights (give the JAX package's DETR checkpoint "
                f"(.msgpack) or a torch-hub DETR state dict for meaningful "
-               f"features)")
-    detr = make_detr(cfg, device=device, state_dict=state_dict,
-                     generator=generator)
+               f"{'detections' if detection else 'features'})")
+    return make_detr(cfg, device=device, state_dict=state_dict,
+                     generator=generator, detection=detection)
+
+
+def load_detr_featurizer(cfg, device=None,
+                         generator: Optional[torch.Generator] = None,
+                         log_fn: Callable[[str], None] = print):
+    """The frozen DETR-101 featurizer on `device` (default cuda), its
+    weights as load_detr gives them.  Returns (featurize_fn, detr_model)."""
+    detr = load_detr(cfg, device, generator, log_fn)
     return make_detr_featurize_fn(cfg, detr), detr
 
 
@@ -206,7 +219,7 @@ def fit(cfg, model, train_batches_fn: Callable[[int], Iterable],
     test_recorder = ResultRecorder(tc.result_path, "test_results",
                                    fresh=not tc.continue_train)
     timer = StepTimer()
-    train_eval, _ = engines._make_evaluators(cfg, artifacts)
+    train_eval, _ = engines._make_evaluators(cfg, artifacts, predcls=True)
     train_estep = engine.make_eval_step(model, cfg, device=dev)
     host_step = state.step
     overflow_warned = False

@@ -1,7 +1,7 @@
 """The CUDA attention kernel (csrc/attention.cu) against its plain PyTorch
 version, on the card, at a small shape with a ragged query tile and at the
 DETR encoder's (B = 12 and 24, L = 1024, H = 8, dh = 32), also with scores
-of large magnitude.
+of large magnitude and with the key mask of the 1000^2 detection canvas.
 
 Imports neither JAX nor the repo's conftest, so it runs where only PyTorch
 is installed:
@@ -99,6 +99,30 @@ def _check(q, k, v, valid, mask):
         torch.testing.assert_close(got[0].float(),
                                    uniform.expand_as(got[0]).to(got.dtype)
                                    .float(), atol=2e-2, rtol=0)
+
+
+def _canvas_valid(device, b=12, side=32):
+    """The key mask of the encoder at the 1000^2 detection canvas: 600 x
+    800 and 800 x 600 valid regions in turn (4:3 images at min side 600,
+    max side 1000), the last image full, downsampled by index to the 32 x
+    32 grid: about half of the keys masked, in contiguous rows and
+    columns."""
+    idx = np.arange(side) * 1000 // side
+    valid = np.ones((b, side, side), bool)
+    for i in range(b - 1):
+        h, w = (600, 800) if i % 2 == 0 else (800, 600)
+        valid[i] = (idx[:, None] < h) & (idx[None, :] < w)
+    return torch.from_numpy(valid.reshape(b, side * side)).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_torch_attention_kernel_canvas_mask(cuda_device, dtype):
+    q, k, v, _ = _inputs(cuda_device, getattr(torch, dtype), 12, 1024, 8,
+                         "none", seed=2)
+    valid = _canvas_valid(cuda_device)
+    assert 0.4 < 1 - valid[:-1].float().mean().item() < 0.6
+    _check(q, k, v, valid, "canvas")
 
 
 @pytest.mark.cuda

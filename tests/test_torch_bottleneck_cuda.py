@@ -1,7 +1,7 @@
 """The CUDA bottleneck kernels (csrc/bottleneck.cu, stride 1 and 2) against
 their plain PyTorch versions, on the card, at small shapes with ragged
 tiles and at production shapes of the DETR-101 trunk (batch 12, 1024^2
-images).
+images and the 1000^2 detection canvas).
 
 Imports neither JAX nor the repo's conftest, so it runs where only PyTorch
 is installed:
@@ -114,7 +114,11 @@ STRIDE1 = {"identity_m64": (2, 9, 13, 256, 64, 256, False),
            "identity_m512": (1, 3, 5, 2048, 512, 2048, False),
            "identity_m512_2x3_tiles": (2, 12, 20, 2048, 512, 2048, False),
            "proj_m512": (1, 5, 9, 1024, 512, 2048, True),
-           "layer3_12x64x64": (12, 64, 64, 1024, 256, 1024, False)}
+           "layer3_12x64x64": (12, 64, 64, 1024, 256, 1024, False),
+           # the 1000^2 detection canvas: odd sides, partial tiles at the
+           # right and bottom edge of every image
+           "canvas_layer2_12x125x125": (12, 125, 125, 512, 128, 512, False),
+           "canvas_layer3_12x63x63": (12, 63, 63, 1024, 256, 1024, False)}
 # Stride 2 (bfloat16: conv1 over 128-row tiles of (B H W, C), then output
 # tiles of 16 x 8 at M = 128 and 256, 8 x 8 at M = 512, both in clusters of
 # two): for each M an image smaller than one output tile (its partner past
@@ -130,7 +134,10 @@ STRIDE2 = {"m128": (2, 10, 14, 256, 128, 512),
            "m512_3_tiles": (1, 16, 48, 1024, 512, 2048),
            "m512_odd_halves": (2, 18, 14, 1024, 512, 2048),
            "layer3_0_12x128x128": (12, 128, 128, 512, 256, 1024),
-           "layer4_0_12x64x64": (12, 64, 64, 1024, 512, 2048)}
+           "layer4_0_12x64x64": (12, 64, 64, 1024, 512, 2048),
+           # the detection canvas's one transition on the kernel: 250^2 ->
+           # 125^2 (an odd output side, a partial output tile)
+           "canvas_layer2_0_12x250x250": (12, 250, 250, 256, 128, 512)}
 
 
 @pytest.mark.cuda

@@ -153,28 +153,32 @@ def test_torch_detr_weights_round_trip(flax_params):
 
 def test_torch_detr_from_hub_state_dict_matches_converter():
     """torch-hub names -> the port equals the JAX converter followed by
-    detr_from_flax; the port then computes the hub replica's features."""
+    detr_from_flax, both halves; the port's encode half then computes the
+    hub replica's features."""
     torch.manual_seed(0)
     hub = TorchDETR(blocks=BLOCKS, n_enc=2, n_dec=1)
     randomize_bn_stats(hub)
     hub = hub.double().eval()
     state = hub.state_dict()
-    got, detection = weights.detr_from_hub_state_dict(state, 2, BLOCKS)
+    got = weights.detr_from_hub_state_dict(state, 2, BLOCKS, 1)
     want = weights.detr_from_flax(convert_detr_state_dict(
         {k: v.numpy() for k, v in state.items()}, num_encoder_layers=2,
         num_decoder_layers=1, blocks=BLOCKS))
     assert got.keys() == want.keys()
     for k in want:
         assert torch.equal(got[k], want[k]), k
+    detection = set(got) - set(weights.detr_encode_half(got))
     assert detection and all(k.startswith(
-        ("transformer.decoder.", "query_embed.", "class_embed.",
-         "bbox_embed.")) for k in detection)
+        ("decoder_0.", "decoder_norm.", "query_embed.", "class_embed.",
+         "bbox_embed_")) for k in detection)
     assert "query_embed.weight" in detection
+    encode = weights.detr_from_hub_state_dict(state, 2, BLOCKS, None)
+    assert encode.keys() == weights.detr_encode_half(got).keys()
 
     cfg = torch_config.derive("vg", model={
         "detr_blocks": BLOCKS, "detr_enc_layers": 2,
         "compute_dtype": "float64"})
-    port = tdetr.make_detr(cfg, device="cpu", state_dict=got)
+    port = tdetr.make_detr(cfg, device="cpu", state_dict=encode)
     rng = np.random.default_rng(9)
     images = rng.standard_normal((2, 64, 96, 3))
     valid = np.ones((2, 64, 96), bool)
@@ -191,9 +195,11 @@ def test_torch_detr_from_hub_state_dict_matches_converter():
     missing = dict(state)
     del missing["transformer.encoder.layers.1.norm2.bias"]
     with pytest.raises(KeyError, match="layers.1.norm2.bias"):
-        weights.detr_from_hub_state_dict(missing, 2, BLOCKS)
+        weights.detr_from_hub_state_dict(missing, 2, BLOCKS, 1)
     with pytest.raises(ValueError, match="neither"):
-        weights.detr_from_hub_state_dict(state, 1, BLOCKS)
+        weights.detr_from_hub_state_dict(state, 1, BLOCKS, 1)
+    with pytest.raises(KeyError, match="decoder.layers.1"):
+        weights.detr_from_hub_state_dict(state, 2, BLOCKS, 2)
 
 
 def test_torch_init_detr_params_is_seeded():

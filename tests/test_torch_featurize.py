@@ -239,7 +239,8 @@ def test_torch_load_detr_featurizer(tmp_path):
     torch.save({"model": hub.state_dict()}, tmp_path / "detr.pth")
     featurize, detr = loop.load_detr_featurizer(
         cfg(tmp_path / "detr.pth"), device="cpu", log_fn=lines.append)
-    want, _ = weights.detr_from_hub_state_dict(hub.state_dict(), 1, BLOCKS)
+    want = weights.detr_from_hub_state_dict(hub.state_dict(), 1, BLOCKS,
+                                            None)
     assert all(torch.equal(detr.state_dict()[k], v) for k, v in want.items())
     out = featurize({"image": np.zeros((1, 64, 64, 3), np.float32)})
     assert out["features"].shape == (1, 2, 2, 256)

@@ -73,9 +73,33 @@ def test_torch_flax_checkpoint_matches_jax_featurizer(tmp_path):
     got = featurize({"image": image})["features"].numpy()
     assert got.shape == want.shape == (2, 2, 3, 256)
     np.testing.assert_allclose(got, want, atol=1e-8, rtol=0)
-    # the file holds the decoder too; the port keeps the encode half
-    want_sd = weights.detr_from_flax(params)
+    # the file holds the decoder too; the featurizer keeps the encode half
+    want_sd = weights.detr_encode_half(weights.detr_from_flax(params))
     assert detr.state_dict().keys() == want_sd.keys()
+
+
+def test_torch_flax_checkpoint_loads_the_detector(tmp_path):
+    """The same file through load_detr(detection=True): every key of the
+    tree, and the JAX detector's outputs on a padded canvas (float64,
+    1e-8)."""
+    path = tmp_path / "detr.msgpack"
+    jc, tc = _cfgs(path)
+    params = _seeded_params(jc)
+    path.write_bytes(flax.serialization.to_bytes(params))
+    image = np.random.default_rng(9).normal(size=(2, 64, 64, 3))
+    mask = np.ones((2, 64, 64), bool)
+    mask[1, :, 32:] = False
+    with jax.enable_x64():
+        want = jax.tree.map(np.asarray, jax.jit(jdetr.make_detr(jc).apply)(
+            params, jnp.asarray(image), jnp.asarray(mask)))
+    detector = loop.load_detr(tc, device="cpu", log_fn=pytest.fail,
+                              detection=True)
+    assert detector.state_dict().keys() == weights.detr_from_flax(
+        params).keys()
+    got = detector(torch.from_numpy(image), torch.from_numpy(mask))
+    for k in ("pred_logits", "pred_boxes"):
+        np.testing.assert_allclose(got[k].numpy(), want[k], atol=1e-8,
+                                   rtol=0, err_msg=k)
 
 
 def test_torch_flax_checkpoint_lacking_keys_raises(tmp_path):

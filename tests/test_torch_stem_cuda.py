@@ -17,7 +17,8 @@ version's (the same roundings, only the sums' order differs).  The
 bfloat16 kernel's tile is 4 pool rows x 64 pool columns:
 (1, 8, 8) is smaller than one, (3, 264, 1048) has a partial band (66 pool
 rows) and a partial chunk (262 columns), (2, 1024, 512) two full chunks a
-band."""
+band, (12, 1000, 1000) the detection canvas (250 pool columns: a partial
+chunk of 58 a band, 250 pool rows: a partial band)."""
 
 import numpy as np
 import pytest
@@ -58,7 +59,8 @@ def _conv_pool_truth(images, w7, fold, cd):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", [(2, 40, 24), (1, 16, 88),
                                    (12, 1024, 1024), (1, 8, 8),
-                                   (3, 264, 1048), (2, 1024, 512)])
+                                   (3, 264, 1048), (2, 1024, 512),
+                                   (12, 1000, 1000)])
 def test_torch_stem_conv_pool_kernel_matches_plain(cuda_device, shape,
                                                    dtype):
     cd = getattr(torch, dtype)
