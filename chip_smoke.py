@@ -85,6 +85,29 @@ Phases, each printing JSON lines:
               on a 1024x512 image (stem, stride-1 and stride-2 kernels) and
               a 1020x508 one (the stem-pool kernel and the odd-size
               fallback) within TRUNK_F32_TOL of the output's scale.
+ 10. real_data: real Visual Genome data at full width (the featurizer and
+              the detector as in phases featurize and detect): a mini-VG
+              of 60 JPEGs in the reference's on-disk format (36 train, 24
+              test; VG's common sizes 800x600, 600x800, 500x375, 500x333,
+              1024x768 in turn; up to 20 objects of 150 classes), its SGRC
+              records (train v2, test v1, tools/sgrecords.py) and its
+              feature cache (tools/precompute_features.py); run_eval_pc
+              from images over the Python loader and prepped_batches
+              (exactly 1 stem, 30 stride-1, 3 stride-2, 6 of each encoder
+              kernel and 1 pair-pool kernel per batch; wall time per batch
+              from disk and from loaded batches; busy share);
+              run_eval_sgd / run_eval_sgc from images on the 1000^2
+              canvas, one detector giving features and detections (the
+              encode's and the detect dispatch's launches per batch);
+              fit over NativeRecordPipeline (v2, plain view) for 3 steps
+              (one 2B encode and 2 + 2 training-kernel launches a step),
+              the train step from records and from features and the 2B
+              encode by CUDA events, the step's busy share; the loaders
+              alone on the host (the Python loader's training batches,
+              the packer at 1, 4 and 8 threads); the native path (v1
+              records + the cache) equal to the Python loader key by key;
+              the CLI as a user runs it: train on v2 records, then eval
+              pc (v1 records + cache) and eval sgd, each exiting 0.
 Phase `kernel` also holds the encoder kernels against their plain versions:
 attention at (B, 1024, 8, 32) for B = 12 and 24, with all keys valid, 80%
 of the keys masked, and one image's keys all masked; FFN + LayerNorm at
@@ -119,6 +142,7 @@ need all phases).
 """
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -133,10 +157,16 @@ import torch.nn.functional as F
 
 from scene_graph_commonsense_torch import bench
 from scene_graph_commonsense_torch import config as config_lib
+from scene_graph_commonsense_torch import __main__ as cli
 from scene_graph_commonsense_torch.__main__ import synthetic_batches
 from scene_graph_commonsense_torch.constants import (
     OBJ_ALP2FRE, class_weights)
 from scene_graph_commonsense_torch.data.artifacts import load_vg_artifacts
+from scene_graph_commonsense_torch.data.dataset import (
+    VGDataset, batches_from_dataset, color_jitter_params)
+from scene_graph_commonsense_torch.data import native as native_lib
+from scene_graph_commonsense_torch.data.pipeline import (
+    NativeRecordPipeline, to_device)
 from scene_graph_commonsense_torch.data.synthetic import (
     BGR_MEAN, synthetic_batch, synthetic_images)
 from scene_graph_commonsense_torch.device import disable_tf32
@@ -154,6 +184,10 @@ from scene_graph_commonsense_torch.ops import boxes as box_ops
 from scene_graph_commonsense_torch.ops.detection import (
     postprocess_detections)
 from scene_graph_commonsense_torch.ops.nms import class_aware_nms
+from scene_graph_commonsense_torch.tools.make_mini_vg import make_mini_vg
+from scene_graph_commonsense_torch.tools.precompute_features import (
+    precompute_features)
+from scene_graph_commonsense_torch.tools.sgrecords import write_sgrecords
 from scene_graph_commonsense_torch.train import engine
 from scene_graph_commonsense_torch.train import loop
 
@@ -231,6 +265,14 @@ K3_CANVAS_CASES = (("layer1_0", 250, 250, 64, 64, True, 1),
                    ("layer3", 63, 63, 1024, 256, False, 22),
                    ("layer4", 32, 32, 2048, 512, False, 2))
 K4_CANVAS_CASES = (("layer2_0", 250, 250, 256, 128),)
+# phase real_data: a mini-VG of 60 JPEGs in the reference's on-disk format
+# (36 train, 24 test), at VG's common sizes (height, width), taken in turn,
+# so both the 1024^2 square view and the 1000^2 canvas resample and most
+# canvases carry masked padding; the packer's thread counts timed
+REAL_IMAGES = 60
+REAL_TRAIN_FRAC = 0.6
+REAL_SIZES = ((600, 800), (800, 600), (375, 500), (333, 500), (768, 1024))
+PACKER_THREADS = (1, 4, 8)
 
 
 PAIR_POOL_KERNELS = ("pair_pool", "pair_pool_idx", "pair_pool_bwd")
@@ -2087,11 +2129,388 @@ def phase_parity_trunk():
     return k6
 
 
+def image_names(paths):
+    """Image names of annotation paths (<name>_annotations.pkl) or SGRC
+    record paths (<name>.sgrec)."""
+    return [os.path.basename(p).rsplit("_annotations", 1)[0]
+            .rsplit(".sgrec", 1)[0] for p in paths]
+
+
+def same_batches(got, want):
+    """Key-by-key equality of two lists of host batches (np.array_equal,
+    same dtype); annotation paths compared by image name."""
+    if len(got) != len(want) or not got:
+        raise AssertionError(f"{len(got)} batches against {len(want)}")
+    for g, w in zip(got, want):
+        if set(g) != set(w):
+            raise AssertionError(f"keys {sorted(g)} against {sorted(w)}")
+        for k in w:
+            if k == "annot_path":
+                if image_names(g[k]) != image_names(w[k]):
+                    raise AssertionError(f"annot_path {g[k]}")
+            elif g[k].dtype != w[k].dtype or not np.array_equal(g[k], w[k]):
+                raise AssertionError(f"batches differ in {k}")
+
+
+def loader_rate(batches):
+    """Images per second of a host batch source, drained on this thread."""
+    t0 = time.perf_counter()
+    n = sum(len(b["cats"]) for b in batches)
+    return n / (time.perf_counter() - t0), n
+
+
+def run_cli(root, yaml_path, *args):
+    """python -m scene_graph_commonsense_torch as a user runs it (on the
+    card, no --synthetic); returns the process after it exits."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "scene_graph_commonsense_torch", "--hierar",
+         "--config", yaml_path, *args], cwd=root, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+
+def finish_cli(name, proc, timeout=600):
+    out, err = proc.communicate(timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f"CLI {name} exited {proc.returncode}:\n"
+                             f"{err[-3000:]}")
+    return out
+
+
+def phase_real_data():
+    """Real Visual Genome data through the port's loaders, records and
+    CLI at full width: a mini-VG fabricated in a temporary directory, its
+    SGRC records (train v2, test v1) and its feature cache; PredCLS eval
+    from images (the Python loader, prepped_batches, the live featurizer);
+    SGCLS and SGDET from images (the detection canvas, one detector);
+    fit from v2 records through NativeRecordPipeline; the loaders alone;
+    the native path against the Python loader; the CLI three times."""
+    torch.cuda.empty_cache()
+    root = os.path.dirname(os.path.abspath(__file__))
+    art = load_vg_artifacts("datasets/artifacts")
+    gen = lambda: torch.Generator().manual_seed(0)  # noqa: E731
+    t0 = time.perf_counter()
+    native_lib.build_library()              # g++, unless already built
+    native_build_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        vg = os.path.join(tmp, "vg")
+        n_train, n_test = make_mini_vg(
+            vg, images=REAL_IMAGES, feature_size=32, max_objects=20,
+            num_classes=150, seed=0, train_frac=REAL_TRAIN_FRAC,
+            sizes=REAL_SIZES)
+        data = {"image_dir": os.path.join(vg, "images"),
+                "annot_dir": os.path.join(vg, "annot"),
+                **{f"annotation_{split}": os.path.join(
+                    vg, f"instances_vg_{split}.json")
+                   for split in ("train", "test")}}
+        cfg = config_lib.derive("vg", hierarchical_pred=True,
+                                run_mode="eval", data=data,
+                                training={"batch_size": 12})
+        b = cfg.training.batch_size
+        if (n_train, n_test) != (3 * b, 2 * b):
+            raise AssertionError(f"mini-VG split {n_train}/{n_test}")
+        quiet = dict(log_fn=lambda *a: None)
+        sgrc_train = os.path.join(tmp, "sgrc_train")
+        sgrc_test = os.path.join(tmp, "sgrc_test")
+        if write_sgrecords(cfg, "train", sgrc_train, embed_images=True,
+                           **quiet) != n_train \
+                or write_sgrecords(cfg, "test", sgrc_test,
+                                   **quiet) != n_test:
+            raise AssertionError("SGRC records missing")
+        fabricate_s = time.perf_counter() - t0
+
+        # PredCLS eval from images: the Python loader, prepped_batches
+        # (the featurizer on the prefetch thread), run_eval_pc
+        log = []
+        featurize, detr = loop.load_detr_featurizer(
+            cfg, device="cuda", generator=gen(), log_fn=log.append)
+        model = make_relation_classifier(cfg, device="cuda",
+                                         generator=gen())
+        estep = engine.make_eval_step(model, cfg, device="cuda")
+        test_fn = cli.real_batches(cfg, training=False)
+
+        def eval_pc():
+            return engines.run_eval_pc(
+                cfg, model, cli.prepped_batches(cfg, test_fn(0), featurize),
+                artifacts=art, estep=estep, device="cuda")
+
+        engines.run_eval_pc(cfg, model, cli.prepped_batches(
+            cfg, test_fn(0), featurize), artifacts=art, estep=estep,
+            max_batches=1)                                  # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = eval_pc()
+        torch.cuda.synchronize()
+        pc_s = time.perf_counter() - t0
+        counts = read_counts()
+        want = expected(**{k: v * 2 for k, v in PER_ENCODE.items()},
+                        pair_pool=2)
+        if counts != want:
+            raise AssertionError(f"run_eval_pc from images launched "
+                                 f"{counts}, expected {want}")
+        if not res["num_targets"] or not all(
+                0 <= r <= 1 for r in res["recall"]):
+            raise AssertionError(f"run_eval_pc from images: {res}")
+        host = list(test_fn(0))                   # the loader's batches
+        if host[0]["image"].shape != (b, 1024, 1024, 3):
+            raise AssertionError(f"square view {host[0]['image'].shape}")
+        t0 = time.perf_counter()
+        engines.run_eval_pc(cfg, model, map(featurize, host), artifacts=art,
+                            estep=estep, device="cuda")
+        torch.cuda.synchronize()
+        pc_host_s = time.perf_counter() - t0
+        pc_prof = device_profile(eval_pc, 2)
+        predcls = {"wall_s_per_batch": pc_s / 2,
+                   "from_host_batches_s_per_batch": pc_host_s / 2,
+                   "launches_per_batch": {k: v // 2 for k, v in
+                                          counts.items()},
+                   "recall": res["recall"],
+                   "num_targets": res["num_targets"],
+                   "device_busy_share": pc_prof["device_busy_share"],
+                   "device_ms_per_batch": pc_prof["device_ms_per_call"],
+                   "wall_ms_per_batch_profiled":
+                       pc_prof["wall_ms_per_call"]}
+
+        # the feature cache of the test split by the port's tool, and the
+        # native path (v1 records + cache) against the Python loader
+        feat_dir = os.path.join(tmp, "features")
+        t0 = time.perf_counter()
+        written = precompute_features(cfg, "test", feat_dir, b,
+                                      featurize=featurize)
+        precompute_s = time.perf_counter() - t0
+        ccfg = cfg.replace(data=dataclasses.replace(
+            cfg.data, features_dir=feat_dir, sgrc_dir=sgrc_test))
+        with open(ccfg.data.annotation_test) as f:
+            test_ann = json.load(f)
+        native_b = list(cli.native_batches(ccfg)(0))
+        python_b = list(batches_from_dataset(
+            VGDataset(ccfg, test_ann, training=False), b, shuffle=False))
+        same_batches(native_b, python_b)
+        if "features" not in native_b[0] or "image" in native_b[0]:
+            raise AssertionError("the cached batches carry no features")
+
+        # training: fit over NativeRecordPipeline(v2, want_plain), 3 steps,
+        # one 2B encode a step
+        tcfg = config_lib.derive(
+            "vg", hierarchical_pred=True, run_mode="train", data=data,
+            training={"batch_size": b, "num_epoch": 1, "print_freq": 1,
+                      "eval_freq": 0,
+                      "checkpoint_path": os.path.join(tmp, "ck_fit"),
+                      "result_path": os.path.join(tmp, "res_fit")})
+        paths = sorted(os.path.join(sgrc_train, p)
+                       for p in os.listdir(sgrc_train))
+
+        def pipe(threads, want_plain=True):
+            return NativeRecordPipeline(
+                paths, b, max_objects=20, feature_size=32,
+                num_threads=threads, seed=0, training=True,
+                image_size=cfg.model.image_size, want_plain=want_plain)
+
+        tmodel = make_relation_classifier(tcfg, device="cuda",
+                                          generator=gen())
+        lines = []
+        reset_counts()
+        t0 = time.perf_counter()
+        loop.fit(tcfg, tmodel, pipe(8).iter_epoch, None,
+                 steps_per_epoch=1000, artifacts=art, device="cuda",
+                 featurize=featurize, log_fn=lines.append)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        counts = read_counts()
+        want = expected(**{k: v * 3 for k, v in PER_ENCODE.items()},
+                        pair_pool_idx=6, pair_pool_bwd=6)
+        if counts != want:
+            raise AssertionError(f"fit from records launched {counts}, "
+                                 f"expected {want}")
+        train_lines = [ln for ln in lines if ln.startswith("TRAIN")]
+        if len(train_lines) != 3 or "nan" in " ".join(train_lines):
+            raise AssertionError(f"fit from records printed {lines}")
+        if not os.path.exists(loop.checkpoint_file(tcfg, 0)):
+            raise AssertionError("fit from records wrote no checkpoint")
+
+        # the train step from records, from features, and the 2B encode,
+        # by CUDA events, and its busy share (featurize, copy, step)
+        opt = engine.make_optimizer(
+            tcfg.training.learning_rate, momentum=tcfg.training.momentum,
+            weight_decay=tcfg.training.weight_decay)
+        step = engine.make_train_step(tmodel, tcfg, opt, class_weights("vg"),
+                                      device="cuda")
+        state = engine.init_train_state(tmodel, opt)
+        record_batch = next(pipe(8).iter_epoch(1))
+        record_batch.pop("annot_path")
+        dev = torch.device("cuda")
+
+        def record_step():
+            nonlocal state
+            state, _ = step(state, to_device(featurize(record_batch), dev))
+
+        featured = to_device(featurize(record_batch), dev)
+
+        def feature_step():
+            nonlocal state
+            state, _ = step(state, featured)
+
+        images24 = torch.cat([torch.as_tensor(record_batch["image"]),
+                              torch.as_tensor(record_batch["image_aug"])]
+                             ).cuda()
+
+        def encode24():
+            with torch.inference_mode():
+                detr.encode_features(images24)
+
+        step_ms = cuda_ms(record_step, 3)
+        feature_step_ms = cuda_ms(feature_step, 3)
+        encode_ms = cuda_ms(encode24, 3)
+        train_prof = device_profile(record_step, 1)
+        training = {
+            "fit_s": fit_s, "fit_img_per_s": n_train / fit_s,
+            "steps": 3, "launches_per_step": {k: v // 3 for k, v in
+                                              counts.items()},
+            "record_step_ms": step_ms,
+            "record_step_img_per_s": b * 1e3 / step_ms,
+            "feature_step_ms": feature_step_ms,
+            "feature_step_img_per_s": b * 1e3 / feature_step_ms,
+            "encode_24_ms": encode_ms,
+            "pair_capacity": tcfg.pair_capacity,
+            "device_busy_share": train_prof["device_busy_share"],
+            "device_ms_per_step": train_prof["device_ms_per_call"],
+            "wall_ms_per_step_profiled": train_prof["wall_ms_per_call"],
+            "lines": train_lines}
+        del state, step, opt, tmodel, featured, images24, record_batch
+
+        # the loaders alone, on the host (both views of 36 training images)
+        with open(cfg.data.annotation_train) as f:
+            train_ann = json.load(f)
+        py_rate, py_n = loader_rate(batches_from_dataset(
+            VGDataset(tcfg, train_ann, training=True), b))
+        loaders = {"python_img_per_s": py_rate, "images": py_n,
+                   "native_img_per_s": {}, "native_no_plain_img_per_s": {},
+                   "pack_train_call_ms": {}}
+        jrng = np.random.default_rng(0)
+        jitter = np.array([[float(a), *o, *f] for a, o, f in (
+            color_jitter_params(jrng) for _ in range(b))], np.float32)
+        for threads in PACKER_THREADS:
+            p = pipe(threads)
+            rate, n = loader_rate(p.iter_epoch(0))
+            loaders["native_img_per_s"][threads] = rate
+            rate, _ = loader_rate(pipe(threads, False).iter_epoch(0))
+            loaders["native_no_plain_img_per_s"][threads] = rate
+            if n != n_train:
+                raise AssertionError(f"the packer gave {n} images")
+            # the C++ call alone, one batch, without the pipeline's
+            # per-example split and restacking
+            t0 = time.perf_counter()
+            p.packer.pack_train(paths[:b], jitter, cfg.model.image_size,
+                                want_plain=True)
+            loaders["pack_train_call_ms"][threads] = \
+                (time.perf_counter() - t0) * 1e3
+        loaders["host_cores"] = os.cpu_count()
+
+        # SGCLS and SGDET from images: one detector gives the features
+        # (its encode half) and the detections, on the 1000^2 canvas
+        del featurize, detr, model, estep
+        torch.cuda.empty_cache()
+        detector = loop.load_detr(cfg, device="cuda", generator=gen(),
+                                  detection=True, **quiet)
+        dfeat = loop.make_detr_featurize_fn(cfg, detector)
+        detect_fn = engines.make_detr_detect_fn(cfg, detector)
+        dmodel = make_relation_classifier(cfg, device="cuda",
+                                          generator=gen())
+        detect_evals = {}
+        for mode, runner in (("sgd", engines.run_eval_sgd),
+                             ("sgc", engines.run_eval_sgc)):
+            mcfg = cfg.replace(training=dataclasses.replace(
+                cfg.training, eval_mode=mode))
+            fn = cli.real_batches(mcfg, training=False)
+            if mode == "sgd":
+                first = next(iter(fn(0)))
+                if first["image_nonsq"].shape != (b, CANVAS, CANVAS, 3):
+                    raise AssertionError("canvas shape")
+                padded = float(1 - first["pixel_mask"].mean())
+                runner(mcfg, dmodel, cli.prepped_batches(mcfg, fn(0), dfeat),
+                       detect_fn, artifacts=art, max_batches=1,
+                       device="cuda")                       # warm-up
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            res = runner(mcfg, dmodel, cli.prepped_batches(mcfg, fn(0),
+                                                           dfeat),
+                         detect_fn, artifacts=art, device="cuda")
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = read_counts()
+            want = expected(**{k: 2 * (PER_ENCODE.get(k, 0)
+                                       + PER_DETECT.get(k, 0))
+                               for k in PER_ENCODE}, pair_pool=2)
+            if counts != want:
+                raise AssertionError(f"run_eval_{mode} from images "
+                                     f"launched {counts}, expected {want}")
+            if not res["num_targets"] or not all(
+                    0 <= r <= 1 for r in res["recall"]):
+                raise AssertionError(f"run_eval_{mode} from images: {res}")
+            detect_evals[mode] = {
+                "wall_s_per_batch": secs / 2,
+                "launches_per_batch": {k: v // 2 for k, v in
+                                       counts.items()},
+                "recall": res["recall"], "num_targets": res["num_targets"]}
+        del detector, dfeat, detect_fn, dmodel
+        torch.cuda.empty_cache()
+
+        # the CLI as a user runs it: train (v2 records), then eval pc (v1
+        # records + the cache) and eval sgd (the Python loader) at once
+        run = {"model": {}, "training": {
+            "batch_size": b, "num_epoch": 1, "print_freq": 1,
+            "eval_freq": 0, "test_epoch": 0,
+            "checkpoint_path": os.path.join(tmp, "ck"),
+            "result_path": os.path.join(tmp, "res")}}
+        yamls = {}
+        for name, extra in (("train", {"sgrc_dir": sgrc_train}),
+                            ("pc", {"sgrc_dir": sgrc_test,
+                                    "features_dir": feat_dir}),
+                            ("sgd", {})):
+            yamls[name] = os.path.join(tmp, f"{name}.yaml")
+            with open(yamls[name], "w") as f:
+                json.dump({**run, "data": {**data, **extra}}, f)
+        t0 = time.perf_counter()
+        out = finish_cli("train", run_cli(root, yamls["train"], "--run_mode",
+                                          "train", "--eval_mode", "pc"))
+        cli_s = {"train": time.perf_counter() - t0}
+        if "Saved checkpoint" not in out or "TEST, epoch 0, R@k" not in out:
+            raise AssertionError(f"CLI train printed {out[-2000:]}")
+        t0 = time.perf_counter()
+        procs = {m: run_cli(root, yamls[m], "--run_mode", "eval",
+                            "--eval_mode", m) for m in ("pc", "sgd")}
+        cli_out = {}
+        for m, proc in procs.items():
+            lines_m = finish_cli(m, proc).strip().splitlines()
+            if not any("Loaded relation checkpoint" in ln for ln in lines_m):
+                raise AssertionError(f"CLI eval {m} did not load the "
+                                     f"checkpoint: {lines_m[-5:]}")
+            cli_out[m] = json.loads(lines_m[-1])
+            if not all(0 <= r <= 1 for r in cli_out[m]["recall"]):
+                raise AssertionError(f"CLI eval {m}: {cli_out[m]}")
+        cli_s["eval_pc_and_sgd"] = time.perf_counter() - t0
+    emit({"phase": "real_data", "images": {"train": n_train,
+                                           "test": n_test},
+          "sizes_hw": REAL_SIZES, "fabricate_s": fabricate_s,
+          "native_build_s": native_build_s,
+          "weights": log[0], "predcls_from_images": predcls,
+          "precompute": {"written": written, "seconds": precompute_s},
+          "native_equals_python": True, "train_from_records": training,
+          "loaders": loaders, "canvas_padded_share": padded,
+          **{f"{m}_from_images": v for m, v in detect_evals.items()},
+          "cli_s": cli_s,
+          "cli_results": {m: {k: v[k] for k in ("recall", "num_targets")}
+                          for m, v in cli_out.items()}})
+
+
 def main():
     ap = argparse.ArgumentParser(description="chip smoke of the port")
     ap.add_argument(
         "--phases",
-        default="kernel,slice,profile,train,featurize,detect,parity")
+        default="kernel,slice,profile,train,featurize,detect,parity,"
+                "real_data")
     phases = set(ap.parse_args().phases.split(","))
     info = phase_device()
     phase_build()
@@ -2119,6 +2538,8 @@ def main():
         # K6 runs on the fallback for images that are even but not
         # divisible by 8, not at 1024^2: its count is the parity run's
         launches["stem_pool"] = phase_parity()
+    if "real_data" in phases:
+        phase_real_data()
     if len(kernel) != len(KERNELS) or len(launches) != len(KERNELS):
         return 0                                # a partial run: no summary
     rows = [{"name": name, "route": "cuda", "source": source,

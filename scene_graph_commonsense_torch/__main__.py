@@ -1,21 +1,31 @@
 """Command line of the port, mirroring main.py:
 
   python -m scene_graph_commonsense_torch --run_mode train|train_cs|eval|eval_cs
-      --eval_mode pc|sgc|sgd [--hierar] [--cluster C] [--dataset D]
+      --eval_mode pc|sgc|sgd [--hierar] [--cluster C] [--dataset vg]
       [--synthetic N] [--config YAML] [--batch_size B] [--device cpu|cuda]
 
-train / train_cs run train.loop.fit from the seeded initialisation over N
-synthetic VG-shaped batches per epoch (seed 0 + epoch, with the augmented
+Without --synthetic the run reads Visual Genome from disk as main.py does:
+the YAML's data.annotation_train / annotation_test (instances JSON),
+annot_dir (per-image *_annotations.pkl or .npz), image_dir, and optionally
+features_dir (a feature cache, python -m
+scene_graph_commonsense_torch.tools.precompute_features) and sgrc_dir (SGRC
+records for the C++ packer).  Batches come from the C++ packer over the
+records for training, and for PredCLS evaluation when a feature cache is
+given; otherwise from the Python loader (data/dataset.py).  The frozen
+DETR-101 featurizer encodes the images (model.detr_pretrained, seeded
+random weights with a warning when absent).
+
+train / train_cs run train.loop.fit from the seeded initialisation (real
+data: 1000 steps per epoch for the learning-rate schedule; --synthetic N: N
+synthetic VG-shaped batches per epoch, seed 0 + epoch, with the augmented
 view), each epoch ending in a checkpoint <training.checkpoint_path>/<name>.pt
-and a PredCLS test pass over max(N // 4, 1) synthetic batches (seed 100 +
-epoch), as main.py does.  eval / eval_cs load the checkpoint of
-training.test_epoch if it exists (else warn and evaluate the seeded
-initialisation), run PredCLS evaluation over max(N // 4, 1) synthetic
-batches (seed 100) and print the result as one JSON line.  SGCLS and
-SGDET evaluation (--eval_mode sgc|sgd) need detector outputs on real
-images: with --synthetic they exit as main.py does, and without it the
-Visual Genome loader is not ported yet.  prepare_cs, and real data for any
-run mode, exit with a message.
+and a PredCLS test pass (synthetic: max(N // 4, 1) batches, seed 100 +
+epoch).  eval / eval_cs load the checkpoint of training.test_epoch if it
+exists (else warn and evaluate the seeded initialisation), run PredCLS,
+SGCLS or SGDET evaluation and print the result as one JSON line; SGCLS and
+SGDET run the frozen DETR-101 detector on the detection canvas (one model
+gives the features and the detections) and with --synthetic exit as
+main.py does.  prepare_cs and OIv6 exit with a message.
 """
 
 import argparse
@@ -72,6 +82,96 @@ def synthetic_batches(cfg, n_batches, seed, with_aug=False):
             num_relations=cfg.model.num_relations, with_aug=with_aug)
 
 
+def native_batches(cfg, training: bool = False):
+    """Batch source assembled by the C++ packer (data/native): SGRC records
+    under cfg.data.sgrc_dir plus the feature cache.
+
+    Eval (PredCLS): annotation-only v1 records, features from the cache.
+    Training: v2 records with the embedded raw image; native threads
+    compute the per-epoch jittered contrastive view; the main view comes
+    from the feature cache when there is one, else from the natively
+    resized plain view."""
+    import glob
+    from scene_graph_commonsense_torch.data.pipeline import (
+        NativeRecordPipeline)
+    have_cache = bool(cfg.data.features_dir)
+    if not training and not have_cache:
+        sys.exit("data.sgrc_dir eval requires data.features_dir: SGRC "
+                 "records carry no plain view for PredCLS (python -m "
+                 "scene_graph_commonsense_torch.tools.precompute_features)")
+    paths = sorted(glob.glob(os.path.join(cfg.data.sgrc_dir, "*.sgrec")))
+    if not paths:
+        sys.exit(f"no .sgrec records under {cfg.data.sgrc_dir}; write them "
+                 f"with python -m scene_graph_commonsense_torch.tools."
+                 f"sgrecords" + (" --embed-images" if training else ""))
+    pct = cfg.data.percent_train if training else cfg.data.percent_test
+    paths = paths[:max(1, int(pct * len(paths)))]
+    pipe = NativeRecordPipeline(
+        paths, cfg.training.batch_size,
+        max_objects=cfg.data.max_objects,
+        feature_size=cfg.model.feature_size, shuffle=training,
+        seed=cfg.training.seed, training=training,
+        image_size=cfg.model.image_size if training else 0,
+        want_plain=training and not have_cache)
+
+    def attach_features(batch):
+        if not have_cache:
+            return batch
+        feats = []
+        for p in batch["annot_path"]:
+            name = os.path.splitext(os.path.basename(p))[0]
+            fp = os.path.join(cfg.data.features_dir,
+                              name + "_features.npz")
+            feats.append(np.load(fp)["features"].astype(np.float32))
+        batch["features"] = np.stack(feats)
+        return batch
+
+    def gen(epoch=0):
+        return map(attach_features, pipe.iter_epoch(epoch))
+
+    return gen
+
+
+def real_batches(cfg, training: bool):
+    """epoch -> batches of the split, chosen as main.py chooses: the C++
+    packer for training (v2 records carry pixels) and for PredCLS eval with
+    a feature cache (v1 records are annotation-only); otherwise the Python
+    loader."""
+    if (cfg.data.sgrc_dir and cfg.data.dataset == "vg"
+            and (training or (cfg.training.eval_mode == "pc"
+                              and cfg.data.features_dir))):
+        return native_batches(cfg, training=training)
+    annot = (cfg.data.annotation_train if training
+             else cfg.data.annotation_test)
+    if not os.path.exists(annot):
+        sys.exit(f"annotation file {annot} not found; run the preprocessing "
+                 f"pipeline (tools/preprocess_vg.py) or use --synthetic N")
+    from scene_graph_commonsense_torch.data.dataset import (
+        VGDataset, batches_from_dataset)
+    with open(annot) as f:
+        annotations = json.load(f)
+    ds = VGDataset(cfg, annotations, training=training)
+    pct = cfg.data.percent_train if training else cfg.data.percent_test
+
+    def gen(epoch=0):
+        return batches_from_dataset(ds, cfg.training.batch_size,
+                                    seed=epoch, shuffle=training,
+                                    percent=pct)
+
+    return gen
+
+
+def prepped_batches(cfg, batches, featurize):
+    """Background-prefetched (and DETR-featurized) batch stream for the eval
+    paths; training.prefetch_batches=0 loads synchronously."""
+    from scene_graph_commonsense_torch.data.pipeline import (
+        prefetch_iterator)
+    if cfg.training.prefetch_batches > 0:
+        return prefetch_iterator(batches, cfg.training.prefetch_batches,
+                                 featurize)
+    return map(featurize, batches) if featurize is not None else batches
+
+
 def _result_view(res):
     """The one-line JSON result record: scalars and metric lists, plus the
     Top-3 sub-dict (as main.py prints it)."""
@@ -92,10 +192,12 @@ def main():
         sys.exit(f"run_mode={run_mode} is not yet ported to PyTorch; the "
                  f"port runs --run_mode train|train_cs|eval|eval_cs (use "
                  f"main.py for the rest)")
-    if not args.synthetic:
-        sys.exit("the Visual Genome loader is not yet ported to PyTorch; "
-                 "use --synthetic N")
-    if run_mode in ("eval", "eval_cs") and cfg.training.eval_mode != "pc":
+    if not args.synthetic and cfg.data.dataset != "vg":
+        sys.exit(f"the {cfg.data.dataset} loader is not yet ported to "
+                 f"PyTorch; the port reads Visual Genome (use main.py)")
+    training = run_mode in ("train", "train_cs")
+    detect = not training and cfg.training.eval_mode != "pc"
+    if args.synthetic and detect:
         sys.exit("sgc/sgd need detector outputs; run on real data with a "
                  "converted DETR checkpoint")
 
@@ -105,20 +207,36 @@ def main():
     from scene_graph_commonsense_torch.models.relation_head import (
         make_relation_classifier)
     from scene_graph_commonsense_torch.train import checkpoint as ckpt_lib
+    from scene_graph_commonsense_torch.train import loop
 
     artifacts = (load_vg_artifacts(cfg.data.artifacts_dir)
                  if cfg.data.dataset == "vg" else None)
-    if run_mode in ("train", "train_cs"):
-        from scene_graph_commonsense_torch.train.loop import fit
-        model = make_relation_classifier(cfg, device=args.device)
+    featurize = detr = None
+    if args.synthetic:
         n = args.synthetic
+        steps_per_epoch = n
+
+        def train_fn(epoch):
+            return synthetic_batches(cfg, n, seed=epoch, with_aug=True)
+
+        def test_fn(epoch):
+            return synthetic_batches(cfg, max(n // 4, 1), seed=100 + epoch)
+    else:
+        steps_per_epoch = 1000
+        train_fn = real_batches(cfg, training=True) if training else None
+        test_fn = real_batches(cfg, training=False)
+        # the frozen DETR-101 (reference train_utils.py:9-18); SGCLS and
+        # SGDET build the whole detector once and take the features from
+        # its encode half
+        detr = loop.load_detr(cfg, device=args.device, detection=detect)
+        featurize = loop.make_detr_featurize_fn(cfg, detr)
+
+    if training:
+        model = make_relation_classifier(cfg, device=args.device)
         try:
-            fit(cfg, model,
-                lambda epoch: synthetic_batches(cfg, n, seed=epoch,
-                                                with_aug=True),
-                lambda epoch: synthetic_batches(cfg, max(n // 4, 1),
-                                                seed=100 + epoch),
-                steps_per_epoch=n, artifacts=artifacts, device=args.device)
+            loop.fit(cfg, model, train_fn, test_fn,
+                     steps_per_epoch=steps_per_epoch, artifacts=artifacts,
+                     device=args.device, featurize=featurize)
         except ValueError as e:       # train_cs without triplet tables
             sys.exit(str(e))
         return
@@ -137,9 +255,16 @@ def main():
               f"evaluating randomly initialized weights")
     model = make_relation_classifier(cfg, device=args.device,
                                      state_dict=state_dict)
-    batches = synthetic_batches(cfg, max(args.synthetic // 4, 1), seed=100)
-    res = engines.run_eval_pc(cfg, model, batches, artifacts=artifacts,
-                              use_cs=use_cs, device=args.device)
+    batches = prepped_batches(cfg, test_fn(0), featurize)
+    if detect:
+        runner = (engines.run_eval_sgc if cfg.training.eval_mode == "sgc"
+                  else engines.run_eval_sgd)
+        res = runner(cfg, model, batches,
+                     engines.make_detr_detect_fn(cfg, detr),
+                     artifacts=artifacts, use_cs=use_cs, device=args.device)
+    else:
+        res = engines.run_eval_pc(cfg, model, batches, artifacts=artifacts,
+                                  use_cs=use_cs, device=args.device)
     print(json.dumps(_result_view(res), default=str))
 
 

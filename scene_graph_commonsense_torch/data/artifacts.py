@@ -1,8 +1,10 @@
-"""Dataset artifacts: triplet tables and zero-shot sets (numpy).
+"""Dataset artifacts: triplet tables, zero-shot sets and the super-category
+multi-hot (numpy).
 
-The loader half of scene_graph_commonsense_tpu/data/artifacts.py, copied so
-that the port imports nothing of the JAX package.  One .npz per dataset holds
-the triplet id lists; absent files load as an empty bundle (None tables).
+The loader half of scene_graph_commonsense_tpu/data/artifacts.py and its
+super_multi_hot, copied so that the port imports nothing of the JAX package.
+One .npz per dataset holds the triplet id lists; absent files load as an
+empty bundle (None tables).
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import numpy as np
 
 NUM_OBJ = 150
 NUM_REL = 50
+NUM_SUPER = 17
 
 
 def triplet_table_from_ids(sub, rel, obj, num_obj=NUM_OBJ,
@@ -23,6 +26,31 @@ def triplet_table_from_ids(sub, rel, obj, num_obj=NUM_OBJ,
         * num_obj + np.asarray(obj)
     table[tid] = True
     return table
+
+
+def super_multi_hot(super_lists, num_super: int = NUM_SUPER,
+                    faithful: bool = True) -> np.ndarray:
+    """Per-object super-category multi-hot from lists of super ids.
+
+    `faithful=True` replicates the reference's `process_super_class`
+    (reference utils.py:123-133) exactly, including its quirk: the loop
+    `for i in range(1, 4): idx = [len(s) == i + 1]` only ever adds element
+    s[i] when it is the last element, so an object with k > 2
+    super-categories contributes a two-hot of {s[0], s[-1]}: the middle
+    entries are dropped.  13 of VG's 150 object classes have 3
+    super-categories and are affected; reference checkpoints were trained
+    with this encoding, so parity requires it.  `faithful=False` encodes
+    the full multi-hot instead.
+    """
+    mh = np.zeros((len(super_lists), num_super), dtype=np.float32)
+    for i, ls in enumerate(super_lists):
+        ls = list(ls) if isinstance(ls, (list, tuple, np.ndarray)) else [ls]
+        if not ls:
+            continue
+        if faithful and len(ls) > 1:
+            ls = [ls[0], ls[-1]]
+        mh[i, np.asarray(ls, np.int64)] = 1.0
+    return mh
 
 
 class VGArtifacts:

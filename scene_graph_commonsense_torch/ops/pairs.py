@@ -8,8 +8,9 @@ buffer so the pair trunk runs as one large batch.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Sequence
 
+import numpy as np
 import torch
 
 from scene_graph_commonsense_torch.ops import boxes as box_ops
@@ -92,3 +93,49 @@ def eval_pair_filter(boxes: torch.Tensor, size: int = 32) -> torch.Tensor:
     inter = box_ops.mask_intersection(
         boxes[:, :, None, :], boxes[:, None, :, :], size)
     return inter > 0
+
+
+# ---------------------------------------------------------------------------
+# Data-side (numpy) target construction.
+# ---------------------------------------------------------------------------
+
+def directed_rel_from_lower(relationships: Sequence[np.ndarray],
+                            subj_or_obj: Sequence[np.ndarray],
+                            num_objects: int,
+                            max_objects: int) -> np.ndarray:
+    """Converts the reference's lower-triangular annotation into the directed
+    (N, N) relation matrix.
+
+    The annotation stores, for every object i >= 1, a length-i row where
+    entry j holds the relation between objects i and j, with direction flag
+    1 = "i is the subject", 0 = "j is the subject", -1 = unrelated
+    (reference dataset_utils.py:156-184).  Output: rel[i, j] = relation id of
+    the directed edge subject=i -> object=j, or -1.
+    """
+    rel = np.full((max_objects, max_objects), -1, dtype=np.int32)
+    for i in range(1, num_objects):
+        row_r = np.asarray(relationships[i - 1])
+        row_d = np.asarray(subj_or_obj[i - 1])
+        for j in range(i):
+            if row_d[j] == 1:
+                rel[i, j] = row_r[j]
+            elif row_d[j] == 0:
+                rel[j, i] = row_r[j]
+    return rel
+
+
+def lower_from_directed(rel: np.ndarray, num_objects: int):
+    """Inverse of directed_rel_from_lower (for round-tripping with
+    reference-format annotations)."""
+    relationships, subj_or_obj = [], []
+    for i in range(1, num_objects):
+        row_r = np.full(i, -1, dtype=np.int64)
+        row_d = np.full(i, -1.0, dtype=np.float32)
+        for j in range(i):
+            if rel[i, j] >= 0:
+                row_r[j], row_d[j] = rel[i, j], 1.0
+            elif rel[j, i] >= 0:
+                row_r[j], row_d[j] = rel[j, i], 0.0
+        relationships.append(row_r)
+        subj_or_obj.append(row_d)
+    return relationships, subj_or_obj

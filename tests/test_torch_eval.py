@@ -209,11 +209,16 @@ def test_torch_cli_loads_checkpoint(tmp_path):
 
 
 def test_torch_cli_refuses_unported_modes(tmp_path):
-    # prepare_cs is not ported; sgc without --synthetic needs the VG loader
-    # (with it, main.py's "need detector outputs" exit:
-    # tests/test_torch_engines_detect.py)
-    for args in (["--run_mode", "prepare_cs", "--synthetic", "2"],
-                 ["--run_mode", "eval", "--eval_mode", "sgc"]):
+    # prepare_cs and the OIv6 loader are not ported; sgc on real data that
+    # is not on disk exits as main.py does (on data that is:
+    # tests/test_torch_cli_real.py; with --synthetic, main.py's "need
+    # detector outputs" exit: tests/test_torch_engines_detect.py)
+    for args, msg in (
+            (["--run_mode", "prepare_cs", "--synthetic", "2"],
+             "not yet ported"),
+            (["--run_mode", "eval", "--dataset", "oiv6"], "not yet ported"),
+            (["--run_mode", "eval", "--eval_mode", "sgc"],
+             "instances_vg_test.json not found")):
         res = _cli(tmp_path, *args, "--device", "cpu")
         assert res.returncode != 0
-        assert "not yet ported" in res.stderr
+        assert msg in res.stderr

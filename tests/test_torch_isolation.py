@@ -45,7 +45,10 @@ def test_torch_port_imports_nothing_of_jax():
     scanned = {p.relative_to(ROOT).as_posix() for p in files}
     for module in ("bench.py", "train/engine.py", "train/losses.py",
                    "train/loop.py", "utils/logging.py", "utils/profiling.py",
-                   "data/pipeline.py", "ops/pair_pool.py"):
+                   "data/pipeline.py", "ops/pair_pool.py",
+                   "data/dataset.py", "data/native/__init__.py",
+                   "data/depth.py", "tools/make_mini_vg.py",
+                   "tools/precompute_features.py", "tools/sgrecords.py"):
         assert f"scene_graph_commonsense_torch/{module}" in scanned, module
     for path in files:
         bad = _imported_roots(path) & FORBIDDEN
