@@ -74,11 +74,13 @@ Phases, each printing JSON lines:
               1024x512 canvases, one padded (within 1e-4), and the
               post-process of the same outputs on both (equal integer
               outputs).
-  9. parity:  the same weights and batch through make_eval_step, and one
-              train step, on the card (kernels) and on the CPU (plain
-              versions) at a reduced size in float32 with TF32 off: outputs
-              and parameters after the step within 1e-4, integer outputs
-              and metrics equal, the winner index equal on equal streams;
+  9. parity:  the same weights and batch through make_eval_step, one
+              train step and one faithful train step
+              (training.faithful_dynamics; 2 + 2 training-kernel launches),
+              on the card (kernels) and on the CPU (plain versions) at a
+              reduced size in float32 with TF32 off: outputs and parameters
+              after each step within 1e-4, integer outputs and metrics
+              equal, the winner index equal on equal streams;
               encode_features of a 1024x512 image at reduced depth in
               float32 (kernels on the card, plain versions on the CPU)
               within 1e-4; the fused trunk at depth (1, 1, 1, 1), float32,
@@ -108,6 +110,28 @@ Phases, each printing JSON lines:
               records + the cache) equal to the Python loader key by key;
               the CLI as a user runs it: train on v2 records, then eval
               pc (v1 records + cache) and eval sgd, each exiting 0.
+ 11. commonsense: the commonsense loop and the training leftovers at full
+              VG width (bf16, batch 12, 20 objects, seeded weights): the
+              faithful train step (every valid pair, 4560, the augmented
+              view at 1140; CUDA events over 6 steps after 2 warm-ups,
+              exactly 2 + 2 training-kernel launches a step, lr_scale in
+              (0, 1], finite losses, fc1 changed) beside the ordinary step
+              at the same capacities, with peak memory; the chunked path at
+              chunk_size CHUNK: the eval step (one forward-kernel launch a
+              chunk) and the train step (per view of n > 1 chunks 2n
+              forward-with-index and n backward launches: the recompute)
+              against the unchunked ones from the same weights, each bf16
+              output within 2x the unchunked step's own error against a
+              float32 run, with ms and peak memory both ways; run_prepare_cs
+              from the images of phase real_data's mini-VG with the mock LLM
+              (exactly 1 stem, 30 stride-1, 3 stride-2, 6 of each encoder
+              kernel and 1 forward kernel a batch; wall time a batch), its
+              resume from the per-image files (no launch, the same table),
+              and the CLI train -> prepare_cs --mock-llm -> train_cs ->
+              eval_cs, each exiting 0 with a commonsense loss > 0 in
+              train_cs; a 3-step fit with training.tensorboard and a
+              profiler window [1, 2): the JAX package's scalar tags, and a
+              Chrome trace of step 1 naming 2 + 2 training kernels.
 Phase `kernel` also holds the encoder kernels against their plain versions:
 attention at (B, 1024, 8, 32) for B = 12 and 24, with all keys valid, 80%
 of the keys masked, and one image's keys all masked; FFN + LayerNorm at
@@ -143,9 +167,11 @@ need all phases).
 
 import argparse
 import dataclasses
+import itertools
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -159,6 +185,8 @@ from scene_graph_commonsense_torch import bench
 from scene_graph_commonsense_torch import config as config_lib
 from scene_graph_commonsense_torch import __main__ as cli
 from scene_graph_commonsense_torch.__main__ import synthetic_batches
+from scene_graph_commonsense_torch.commonsense.pipeline import (
+    run_prepare_cs)
 from scene_graph_commonsense_torch.constants import (
     OBJ_ALP2FRE, class_weights)
 from scene_graph_commonsense_torch.data.artifacts import load_vg_artifacts
@@ -276,6 +304,17 @@ PACKER_THREADS = (1, 4, 8)
 
 
 PAIR_POOL_KERNELS = ("pair_pool", "pair_pool_idx", "pair_pool_bwd")
+# phase commonsense: the chunk size of the chunked path (pairs), and the
+# train step's metrics, each a train/<metric> scalar of fit as in the JAX
+# package (perf/<StepTimer key> from the 4th step, test/R@k and test/mR@k
+# after the test pass)
+CHUNK = 1024
+TRAIN_METRICS = ("loss", "loss_relationship", "loss_connectivity",
+                 "loss_commonsense", "loss_contrast", "num_connected",
+                 "num_not_connected", "num_connected_pred",
+                 "connectivity_precision_hits", "connectivity_recall_hits",
+                 "num_pairs", "pair_overflow", "aug_pair_overflow")
+TEST_TAGS = tuple(f"test/{m}@{k}" for m in ("R", "mR") for k in (20, 50, 100))
 
 
 def reset_counts():
@@ -1952,8 +1991,8 @@ def phase_detect_parity():
 
 def phase_parity():
     """Card (kernels) vs CPU (plain versions) on the same weights and batch,
-    float32, reduced size: the eval step, one train step, and the forward
-    with index on the same streams."""
+    float32, reduced size: the eval step, one train step, one faithful
+    train step, and the forward with index on the same streams."""
     cfg = config_lib.derive(
         "vg", hierarchical_pred=True, run_mode="eval",
         model={"feature_size": 16, "hidden_dim": 8, "num_img_feature": 16,
@@ -2011,6 +2050,38 @@ def phase_parity():
             raise AssertionError(f"card vs CPU metric {k}: "
                                  f"{metrics['cuda'][k]} vs {v}")
 
+    # one faithful train step (every valid pair, the grid losses, the
+    # dynamic learning rate): the same kernels, 2 + 2 launches
+    fcfg = cfg.replace(training=dataclasses.replace(
+        cfg.training, faithful_dynamics=True))
+    fparams, fmetrics = {}, {}
+    for dev in ("cuda", "cpu"):
+        model = make_relation_classifier(fcfg, device=dev, state_dict=sd)
+        opt = engine.make_optimizer(fcfg.training.learning_rate,
+                                    grad_clip_norm=5.0)
+        reset_counts()
+        state, met = engine.make_train_step(
+            model, fcfg, opt, class_weights("vg", faithful=True),
+            device=dev)(engine.init_train_state(model, opt), train_batch)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            if read_counts() != expected(pair_pool_idx=2, pair_pool_bwd=2):
+                raise AssertionError(f"card faithful step launched "
+                                     f"{read_counts()}")
+        fparams[dev] = {k: v.detach().cpu() for k, v in state.params.items()}
+        fmetrics[dev] = {k: float(v) for k, v in met.items()}
+    faithful_err = max(float((fparams["cuda"][k] - fparams["cpu"][k])
+                             .abs().max()) for k in fparams["cpu"])
+    if faithful_err > 1e-4:
+        raise AssertionError(f"card vs CPU parameters after a faithful "
+                             f"step: {faithful_err} > 1e-4")
+    for k, v in fmetrics["cpu"].items():
+        tol = 1e-4 * max(1.0, abs(v)) if k.startswith(("loss", "lr_")) \
+            else 0.0
+        if abs(fmetrics["cuda"][k] - v) > tol:
+            raise AssertionError(f"card vs CPU faithful {k}: "
+                                 f"{fmetrics['cuda'][k]} vs {v}")
+
     # the winner index on equal streams (the CPU's), with exact ties
     model = make_relation_classifier(cfg, device="cpu", state_dict=sd)
     with torch.no_grad():
@@ -2036,6 +2107,8 @@ def phase_parity():
           "live_pairs": int(outs["cpu"]["pair_count"][0]),
           "train_param_max_abs_err": param_err,
           "train_loss_abs_err": metric_err,
+          "faithful_param_max_abs_err": faithful_err,
+          "faithful_lr_scale": fmetrics["cuda"]["lr_scale"],
           "train_int_metrics_equal": True, "idx_equal": True})
 
     # encode_features at reduced depth, 1024x512 (L = 512: every encoder
@@ -2176,6 +2249,25 @@ def finish_cli(name, proc, timeout=600):
     return out
 
 
+def mini_vg(tmp, batch_size=12):
+    """The mini-VG of phase real_data under `tmp`: REAL_IMAGES JPEGs in the
+    reference's on-disk format at REAL_SIZES, 3 training and 2 test
+    batches.  Returns (the config's data paths, n_train, n_test)."""
+    vg = os.path.join(tmp, "vg")
+    n_train, n_test = make_mini_vg(
+        vg, images=REAL_IMAGES, feature_size=32, max_objects=20,
+        num_classes=150, seed=0, train_frac=REAL_TRAIN_FRAC,
+        sizes=REAL_SIZES)
+    if (n_train, n_test) != (3 * batch_size, 2 * batch_size):
+        raise AssertionError(f"mini-VG split {n_train}/{n_test}")
+    data = {"image_dir": os.path.join(vg, "images"),
+            "annot_dir": os.path.join(vg, "annot"),
+            **{f"annotation_{split}": os.path.join(
+                vg, f"instances_vg_{split}.json")
+               for split in ("train", "test")}}
+    return data, n_train, n_test
+
+
 def phase_real_data():
     """Real Visual Genome data through the port's loaders, records and
     CLI at full width: a mini-VG fabricated in a temporary directory, its
@@ -2193,22 +2285,11 @@ def phase_real_data():
     native_build_s = time.perf_counter() - t0
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        vg = os.path.join(tmp, "vg")
-        n_train, n_test = make_mini_vg(
-            vg, images=REAL_IMAGES, feature_size=32, max_objects=20,
-            num_classes=150, seed=0, train_frac=REAL_TRAIN_FRAC,
-            sizes=REAL_SIZES)
-        data = {"image_dir": os.path.join(vg, "images"),
-                "annot_dir": os.path.join(vg, "annot"),
-                **{f"annotation_{split}": os.path.join(
-                    vg, f"instances_vg_{split}.json")
-                   for split in ("train", "test")}}
+        data, n_train, n_test = mini_vg(tmp)
         cfg = config_lib.derive("vg", hierarchical_pred=True,
                                 run_mode="eval", data=data,
                                 training={"batch_size": 12})
         b = cfg.training.batch_size
-        if (n_train, n_test) != (3 * b, 2 * b):
-            raise AssertionError(f"mini-VG split {n_train}/{n_test}")
         quiet = dict(log_fn=lambda *a: None)
         sgrc_train = os.path.join(tmp, "sgrc_train")
         sgrc_test = os.path.join(tmp, "sgrc_test")
@@ -2505,12 +2586,429 @@ def phase_real_data():
                           for m, v in cli_out.items()}})
 
 
+def chunked_train_launches(capacities, chunk):
+    """K2 launches of one train step whose views pack `capacities` pairs,
+    at chunk_size `chunk` (engine._chunked_pair_trunk): a view split into
+    n > 1 chunks runs the forward with index 2n times (each chunk's forward
+    and its recompute in the backward) and the backward n times; a view in
+    one piece runs each once."""
+    idx = bwd = 0
+    for cap in capacities:
+        n = -(-cap // chunk) if 0 < chunk < cap else 1
+        idx += 2 * n if n > 1 else 1
+        bwd += n
+    return {"pair_pool_idx": idx, "pair_pool_bwd": bwd}
+
+
+def train_model(cfg, faithful=False, state_dict=None):
+    """(model, optimizer, state) for a train step on the card: seeded
+    weights (or `state_dict`) and the config's optimizer."""
+    tc = cfg.training
+    model = make_relation_classifier(
+        cfg, device="cuda", state_dict=state_dict,
+        generator=torch.Generator().manual_seed(0))
+    opt = engine.make_optimizer(tc.learning_rate, momentum=tc.momentum,
+                                weight_decay=tc.weight_decay,
+                                grad_clip_norm=tc.grad_clip_norm,
+                                momentum_dtype=tc.momentum_dtype)
+    return model, opt, engine.init_train_state(model, opt)
+
+
+def timed_train(step, state, batch, warmup, steps):
+    """`warmup` steps, then `steps` timed by CUDA events with the launch
+    counts set to 0 just before and peak memory reset.  Returns (state,
+    the timed steps' float metrics, ms per step, peak GB, launches)."""
+    for _ in range(warmup):
+        state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    seen = []
+    start.record()
+    for _ in range(steps):
+        state, metrics = step(state, batch)
+        seen.append(metrics)
+    end.record()
+    torch.cuda.synchronize()
+    launches = read_counts()
+    metrics = [{k: float(v) for k, v in m.items()} for m in seen]
+    for m in metrics:
+        bad = [k for k, v in m.items() if not np.isfinite(v)]
+        if bad:
+            raise AssertionError(f"non-finite train metrics {bad}")
+    return (state, metrics, start.elapsed_time(end) / steps,
+            torch.cuda.max_memory_allocated() / 1e9, launches)
+
+
+def max_err(got, want):
+    return float((got.float() - want.float()).abs().max())
+
+
+def phase_commonsense():
+    """The commonsense loop and the training leftovers at full VG width
+    (derive("vg", hierarchical_pred=True), bf16, batch 12, 20 objects,
+    seeded weights): (a) the faithful train step against the ordinary one
+    at the same capacity; (b) the chunked eval and train steps at
+    chunk_size CHUNK against the unchunked ones; (c) prepare_cs from the
+    images of phase real_data's mini-VG, its resume, and the CLI chain
+    train -> prepare_cs -> train_cs -> eval_cs; (d) a fit with TensorBoard
+    scalars and a profiler window."""
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    base = {"batch_size": 12, "grad_clip_norm": bench.GRAD_CLIP_NORM}
+    batch = to_device(synthetic_batch(np.random.default_rng(7)), dev)
+    warmup, steps = 2, 6
+    result = {"phase": "commonsense", "card": bench.card_name()}
+
+    # (a) the faithful step (every valid pair, B N (N - 1) = 4560; the
+    # augmented view at 4560 // 4) and the ordinary step at 4560 / 1140
+    steps_out = {}
+    for name, faithful in (("faithful", True), ("ordinary", False)):
+        cfg = config_lib.derive("vg", hierarchical_pred=True, training={
+            **base, "faithful_dynamics": faithful})
+        model, opt, state = train_model(cfg)
+        step = engine.make_train_step(
+            model, cfg, opt, class_weights("vg", faithful=faithful),
+            device="cuda")
+        before = model.fc1.weight[:8].detach().clone()
+        state, metrics, ms, peak, launches = timed_train(
+            step, state, batch, warmup, steps)
+        caps = (engine.train_pair_capacity(cfg),
+                engine.aug_pair_capacity(cfg))
+        if caps != (4560, 1140):
+            raise AssertionError(f"{name} capacities {caps}")
+        want = expected(pair_pool_idx=2 * steps, pair_pool_bwd=2 * steps)
+        if launches != want:
+            raise AssertionError(f"{name} step launches {launches}, "
+                                 f"expected {want}")
+        moved = max_err(model.fc1.weight[:8].detach(), before)
+        if not moved > 0:
+            raise AssertionError(f"{name} step left fc1 unchanged")
+        steps_out[name] = {"step_ms": ms, "peak_mem_gb": peak,
+                           "launches_per_step": {
+                               k: v // steps for k, v in launches.items()
+                               if v},
+                           "capacities": caps, "fc1_max_change": moved,
+                           "losses_last": {k: v for k, v in
+                                           metrics[-1].items()
+                                           if k.startswith("loss")}}
+        if faithful:
+            scales = [m["lr_scale"] for m in metrics]
+            if not all(0 < x <= 1 for x in scales):
+                raise AssertionError(f"lr_scale {scales}")
+            steps_out[name]["lr_scale"] = scales[-1]
+        del model, opt, state, step
+        torch.cuda.empty_cache()
+    result["faithful_vs_ordinary"] = {"steps": steps, "warmup": warmup,
+                                      **steps_out}
+
+    # (b) the chunked path: the eval step at worst-case capacity, then the
+    # train step (dropout off, so that the steps can be compared) from
+    # one set of weights; the tolerance of each bf16 output is 2x the
+    # unchunked step's own error against a float32 run of it
+    ecfg = config_lib.derive("vg", hierarchical_pred=True, run_mode="eval",
+                             training={"batch_size": 12})
+    cap = ecfg.pair_capacity
+    eval_batch = next(synthetic_batches(ecfg, 1, seed=8))
+    model = make_relation_classifier(
+        ecfg, device="cuda", generator=torch.Generator().manual_seed(0))
+    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    model32 = make_relation_classifier(
+        config_lib.derive("vg", hierarchical_pred=True, run_mode="eval",
+                          model={"compute_dtype": "float32"},
+                          training={"batch_size": 12}),
+        device="cuda", state_dict=sd)
+    esteps = {"unchunked": engine.make_eval_step(model, ecfg, device="cuda"),
+              "chunked": engine.make_eval_step(model, ecfg, device="cuda",
+                                               chunk_size=CHUNK),
+              "float32": engine.make_eval_step(model32, ecfg,
+                                               device="cuda")}
+    outs, eval_ms, eval_peak, eval_launches = {}, {}, {}, {}
+    for name, fn in esteps.items():
+        fn(eval_batch)                                     # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        outs[name] = fn(eval_batch)
+        torch.cuda.synchronize()
+        eval_launches[name] = read_counts()
+        eval_peak[name] = torch.cuda.max_memory_allocated() / 1e9
+        if name != "float32":                 # the reference, not timed
+            eval_ms[name] = cuda_ms(lambda f=fn: f(eval_batch), 3)
+    n_chunks = -(-cap // CHUNK)
+    for name, want in (("chunked", expected(pair_pool=n_chunks)),
+                       ("unchunked", expected(pair_pool=1))):
+        if eval_launches[name] != want:
+            raise AssertionError(f"{name} eval step launched "
+                                 f"{eval_launches[name]}, expected {want}")
+    eval_err = {}
+    for k, v in outs["unchunked"].items():
+        if k in ("relation", "super_relation", "connectivity"):
+            ref = outs["float32"][k]
+            eval_err[k] = {"unchunked": max_err(v, ref),
+                           "chunked": max_err(outs["chunked"][k], ref)}
+            if eval_err[k]["chunked"] > 2 * eval_err[k]["unchunked"]:
+                raise AssertionError(f"chunked eval {k}: {eval_err[k]}")
+        elif not torch.equal(outs["chunked"][k], v):
+            raise AssertionError(f"chunked eval {k} differs")
+    del model, model32, esteps, outs
+    torch.cuda.empty_cache()
+
+    tcfg = config_lib.derive("vg", hierarchical_pred=True,
+                             model={"dropout_rate": 0.0}, training=base)
+    caps = (engine.train_pair_capacity(tcfg), engine.aug_pair_capacity(tcfg))
+    sd = ref = None
+    train_err, train_ms, train_peak, train_launches = {}, {}, {}, {}
+    for name, chunk, dtype in (("float32", 0, "float32"),
+                               ("unchunked", 0, "bfloat16"),
+                               ("chunked", CHUNK, "bfloat16")):
+        cfg = tcfg.replace(model=dataclasses.replace(tcfg.model,
+                                                     compute_dtype=dtype))
+        model, opt, state = train_model(cfg, state_dict=sd)
+        if sd is None:
+            sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+        step = engine.make_train_step(model, cfg, opt, class_weights("vg"),
+                                      device="cuda", chunk_size=chunk)
+        state, met = step(state, batch)               # from the same weights
+        # the first update and losses, on the host (kept on the card they
+        # would weigh on the next configuration's peak memory)
+        upd = {k: (v.detach() - sd[k].to(dev)).cpu()
+               for k, v in state.params.items()}
+        loss = {k: float(v) for k, v in met.items() if k.startswith("loss")}
+        if ref is None:
+            ref = (upd, loss)
+        else:
+            train_err[name] = {
+                "update": max(max_err(upd[k], ref[0][k]) for k in upd),
+                **{k: abs(loss[k] - ref[1][k]) for k in loss}}
+            state, _, train_ms[name], train_peak[name], \
+                train_launches[name] = timed_train(step, state, batch, 1, 3)
+        del model, opt, state, step, upd
+        torch.cuda.empty_cache()
+    for name, chunk in (("chunked", CHUNK), ("unchunked", 0)):
+        want = expected(**{k: 3 * v for k, v in
+                           chunked_train_launches(caps, chunk).items()})
+        if train_launches[name] != want:
+            raise AssertionError(f"{name} train step launched "
+                                 f"{train_launches[name]}, expected {want}")
+    for k, v in train_err["chunked"].items():
+        if v > 2 * train_err["unchunked"][k]:
+            raise AssertionError(f"chunked train step {k}: {v} against "
+                                 f"the unchunked {train_err['unchunked'][k]}")
+    del ref, sd
+    result["chunked"] = {
+        "chunk_size": CHUNK, "eval_capacity": cap,
+        "eval_launches_per_step": {k: {n: c for n, c in v.items() if c}
+                                   for k, v in eval_launches.items()},
+        "eval_ms": eval_ms, "eval_peak_mem_gb": eval_peak,
+        "eval_err_vs_float32": eval_err, "train_capacities": caps,
+        "train_launches_per_step": {k: {n: c // 3 for n, c in v.items()
+                                        if c}
+                                    for k, v in train_launches.items()},
+        "train_ms": train_ms, "train_peak_mem_gb": train_peak,
+        "train_err_vs_float32": train_err, "tolerance": "2x unchunked"}
+    emit(result)
+    phase_commonsense_loop()
+
+
+def phase_commonsense_loop():
+    """(c) and (d) of phase commonsense: prepare_cs from images, its resume,
+    the CLI chain, and a fit with scalars and a profiler window."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    gen = lambda: torch.Generator().manual_seed(0)  # noqa: E731
+    quiet = dict(log_fn=lambda *a: None)
+    result = {"phase": "commonsense_loop"}
+    with tempfile.TemporaryDirectory() as tmp:
+        data, n_train, _ = mini_vg(tmp)
+        art_dir = os.path.join(tmp, "art")
+        os.makedirs(art_dir)
+        shutil.copy(os.path.join("datasets", "artifacts",
+                                 "vg_artifacts.npz"), art_dir)
+        data["artifacts_dir"] = art_dir
+        cfg = config_lib.derive("vg", hierarchical_pred=True,
+                                run_mode="prepare_cs", data=data,
+                                training={"batch_size": 12})
+        art = load_vg_artifacts(art_dir)
+        featurize, detr = loop.load_detr_featurizer(
+            cfg, device="cuda", generator=gen(), **quiet)
+        model = make_relation_classifier(cfg, device="cuda",
+                                         generator=gen())
+        train_fn = cli.real_batches(cfg, training=True)
+        transport = cli.mock_llm_transport()
+        # warm-up on one batch, without the prefetch thread (an abandoned
+        # producer would go on encoding into the counted run)
+        run_prepare_cs(cfg, model, map(featurize,
+                                       itertools.islice(train_fn(0), 1)),
+                       art, transport=transport, device="cuda",
+                       out_dir=os.path.join(tmp, "warm"))
+        torch.cuda.synchronize()
+        out_dir = os.path.join(tmp, "cs")
+        encoded = []
+
+        def featurize_kept(batch):
+            encoded.append(featurize(batch))
+            return encoded[-1]
+
+        reset_counts()
+        t0 = time.perf_counter()
+        path = run_prepare_cs(cfg, model,
+                              cli.prepped_batches(cfg, train_fn(0),
+                                                  featurize_kept),
+                              art, transport=transport, device="cuda",
+                              out_dir=out_dir)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = read_counts()
+        n_batches = n_train // cfg.training.batch_size
+        want = expected(**{k: v * n_batches for k, v in PER_ENCODE.items()},
+                        pair_pool=n_batches)
+        if counts != want:
+            raise AssertionError(f"prepare_cs from images launched {counts}"
+                                 f", expected {want}")
+        table = dict(np.load(path))
+        files = [f for f in os.listdir(out_dir)
+                 if f.endswith("_pseudo_annotations.npz")]
+        if not (len(table["cs_aligned_sub"]) and files):
+            raise AssertionError(f"prepare_cs wrote {len(files)} files and "
+                                 f"{len(table['cs_aligned_sub'])} aligned")
+
+        # resume over the same encoded batches: no image is queried again;
+        # a batch whose every image has its file never reaches the card,
+        # and an image with nothing to validate has no file (as in JAX),
+        # so its batch runs the eval step again
+        def refuse(prompts):
+            raise AssertionError("prepare_cs resumed images were queried")
+
+        rerun = sum(not all(os.path.exists(os.path.join(
+            out_dir, os.path.splitext(os.path.basename(p))[0]
+            + "_pseudo_annotations.npz")) for p in bt["annot_path"])
+            for bt in encoded)
+        reset_counts()
+        t0 = time.perf_counter()
+        again = dict(np.load(run_prepare_cs(
+            cfg, model, encoded, art, transport=refuse, device="cuda",
+            out_dir=out_dir)))
+        resume_s = time.perf_counter() - t0
+        if read_counts() != expected(pair_pool=rerun):
+            raise AssertionError(f"the resume launched {read_counts()}, "
+                                 f"expected {rerun} eval steps")
+        cols = ("sub", "rel", "obj", "count")
+        for prefix in ("cs_aligned", "cs_violated"):
+            rows = [sorted(zip(*(t[f"{prefix}_{c}"].tolist()
+                                 for c in cols))) for t in (table, again)]
+            if rows[0] != rows[1]:
+                raise AssertionError(f"the resume changed {prefix}")
+        result["prepare_cs"] = {
+            "batches": n_batches, "wall_s_per_batch": secs / n_batches,
+            "launches_per_batch": {k: v // n_batches
+                                   for k, v in counts.items() if v},
+            "per_image_files": len(files),
+            "aligned": len(table["cs_aligned_sub"]),
+            "violated": len(table["cs_violated_sub"]),
+            "resume_s": resume_s, "resume_batches_rerun": rerun,
+            "resume_launches": {k: v for k, v in read_counts().items()
+                                if v}}
+        del encoded
+        del featurize, detr, model
+        torch.cuda.empty_cache()
+
+        # the CLI as a user runs it, on a third of the training images and
+        # half the test images: train, prepare_cs (mock LLM), train_cs,
+        # eval_cs, each exiting 0
+        yaml_path = os.path.join(tmp, "cs.yaml")
+        with open(yaml_path, "w") as f:
+            json.dump({"data": {**data, "percent_train": 0.34,
+                                "percent_test": 0.5},
+                       "training": {
+                           "batch_size": 12, "num_epoch": 1,
+                           "print_freq": 1, "eval_freq": 0, "test_epoch": 0,
+                           "checkpoint_path": os.path.join(tmp, "ck"),
+                           "result_path": os.path.join(tmp, "res")}}, f)
+        cli_s, cli_out = {}, {}
+        for mode in ("train", "prepare_cs", "train_cs", "eval_cs"):
+            t0 = time.perf_counter()
+            cli_out[mode] = finish_cli(mode, run_cli(
+                root, yaml_path, "--run_mode", mode, "--eval_mode", "pc",
+                "--mock-llm"))
+            cli_s[mode] = time.perf_counter() - t0
+        cs_losses = [float(ln.split("commonsense=")[1].split(",")[0])
+                     for ln in cli_out["train_cs"].splitlines()
+                     if ln.startswith("TRAIN")]
+        if not cs_losses or not all(x > 0 for x in cs_losses):
+            raise AssertionError(f"train_cs commonsense losses {cs_losses}")
+        if "Wrote commonsense triplet tables" not in cli_out["prepare_cs"] \
+                or "Loaded relation checkpoint" not in cli_out["prepare_cs"]:
+            raise AssertionError(f"CLI prepare_cs printed "
+                                 f"{cli_out['prepare_cs'][-2000:]}")
+        eval_cs = json.loads(cli_out["eval_cs"].strip().splitlines()[-1])
+        if not all(0 <= r <= 1 for r in eval_cs["recall"]):
+            raise AssertionError(f"CLI eval_cs: {eval_cs}")
+        result["cli"] = {"seconds": cli_s,
+                         "train_cs_loss_commonsense": cs_losses,
+                         "eval_cs_recall": eval_cs["recall"]}
+
+        # (d) fit for 3 steps with TensorBoard scalars and a profiler
+        # window [1, 2): the JAX package's tag set; a Chrome trace of step
+        # 1 naming the training kernels
+        tb, prof = os.path.join(tmp, "tb"), os.path.join(tmp, "prof")
+        fcfg = bench.bench_config(
+            num_epoch=1, print_freq=1, eval_freq=0, tensorboard=True,
+            tensorboard_dir=tb, profile_dir=prof, profile_start_step=1,
+            profile_num_steps=1, checkpoint_path=os.path.join(tmp, "ck2"),
+            result_path=os.path.join(tmp, "res2"))
+        fmodel = make_relation_classifier(fcfg, device="cuda",
+                                          generator=gen())
+        reset_counts()
+        loop.fit(fcfg, fmodel,
+                 lambda e: synthetic_batches(fcfg, 3, seed=e, with_aug=True),
+                 lambda e: synthetic_batches(fcfg, 1, seed=100 + e),
+                 steps_per_epoch=3, artifacts=art, device="cuda", **quiet)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want = expected(pair_pool=1, pair_pool_idx=6, pair_pool_bwd=6)
+        if counts != want:
+            raise AssertionError(f"fit launched {counts}, expected {want}")
+        if os.path.exists(os.path.join(tb, "scalars.jsonl")):
+            writer = "jsonl"
+            with open(os.path.join(tb, "scalars.jsonl")) as f:
+                tags = {json.loads(line)["tag"] for line in f}
+        else:
+            from tensorboard.backend.event_processing.event_accumulator \
+                import EventAccumulator
+            writer = "tensorboard"
+            acc = EventAccumulator(tb)
+            acc.Reload()
+            tags = set(acc.Tags()["scalars"])
+        want_tags = {f"train/{k}" for k in TRAIN_METRICS} \
+            | {"train/lr"} | set(TEST_TAGS)
+        if tags != want_tags:
+            raise AssertionError(f"fit scalars {sorted(tags)}, expected "
+                                 f"{sorted(want_tags)}")
+        traces = os.listdir(prof)
+        if traces != ["trace_1_2.json"]:
+            raise AssertionError(f"profile_dir holds {traces}")
+        with open(os.path.join(prof, traces[0])) as f:
+            names = [e.get("name", "") for e in json.load(f)["traceEvents"]
+                     if e.get("cat") == "kernel"]
+        traced = {k: sum(f"{k}_kernel" in n for n in names)
+                  for k in ("pair_pool_idx", "pair_pool_bwd")}
+        if traced != {"pair_pool_idx": 2, "pair_pool_bwd": 2}:
+            raise AssertionError(f"the trace of step 1 holds the training "
+                                 f"kernels {traced} times")
+        result["observability"] = {
+            "writer": writer, "tags": len(tags),
+            "trace_kernels": len(names), "trace_training_kernels": traced}
+    emit(result)
+
+
 def main():
     ap = argparse.ArgumentParser(description="chip smoke of the port")
     ap.add_argument(
         "--phases",
         default="kernel,slice,profile,train,featurize,detect,parity,"
-                "real_data")
+                "real_data,commonsense")
     phases = set(ap.parse_args().phases.split(","))
     info = phase_device()
     phase_build()
@@ -2540,6 +3038,8 @@ def main():
         launches["stem_pool"] = phase_parity()
     if "real_data" in phases:
         phase_real_data()
+    if "commonsense" in phases:
+        phase_commonsense()
     if len(kernel) != len(KERNELS) or len(launches) != len(KERNELS):
         return 0                                # a partial run: no summary
     rows = [{"name": name, "route": "cuda", "source": source,

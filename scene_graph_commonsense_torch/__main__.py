@@ -1,8 +1,10 @@
 """Command line of the port, mirroring main.py:
 
-  python -m scene_graph_commonsense_torch --run_mode train|train_cs|eval|eval_cs
+  python -m scene_graph_commonsense_torch
+      --run_mode train|eval|prepare_cs|train_cs|eval_cs
       --eval_mode pc|sgc|sgd [--hierar] [--cluster C] [--dataset vg]
       [--synthetic N] [--config YAML] [--batch_size B] [--device cpu|cuda]
+      [--mock-llm]
 
 Without --synthetic the run reads Visual Genome from disk as main.py does:
 the YAML's data.annotation_train / annotation_test (instances JSON),
@@ -25,7 +27,13 @@ exists (else warn and evaluate the seeded initialisation), run PredCLS,
 SGCLS or SGDET evaluation and print the result as one JSON line; SGCLS and
 SGDET run the frozen DETR-101 detector on the detection canvas (one model
 gives the features and the detections) and with --synthetic exit as
-main.py does.  prepare_cs and OIv6 exit with a message.
+main.py does.  prepare_cs loads the train checkpoint of
+training.test_epoch (else warns), runs the baseline over the training
+batches of epoch 0, asks the LLM (OpenAI; --mock-llm: a deterministic
+offline stand-in) about each image's top predictions, and writes
+<data.artifacts_dir>/commonsense_triplets.npz (per-image files under
+<data.annot_dir>/cs_top10, which a rerun resumes from), the table train_cs
+and eval_cs read.  OIv6 exits with a message.
 """
 
 import argparse
@@ -53,7 +61,35 @@ def parse_args():
                     help="run on synthetic batches instead of real data")
     ap.add_argument("--batch_size", type=int, default=None)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--mock-llm", action="store_true",
+                    help="prepare_cs with a deterministic offline stand-in "
+                         "for the OpenAI transport")
     return ap.parse_args()
+
+
+def mock_llm_transport():
+    """Deterministic offline LLM (a copy of main.py's): an edge's verdict is
+    a hash of its text, answered coherently across the 4 paraphrases
+    (prompts 2/3 are negated, commonsense/client.PROMPT_VARIATIONS), so
+    majority votes are clean +1/-1 and prepare_cs produces a meaningful
+    aligned/violated split."""
+    import hashlib
+    import re
+
+    def transport(prompts):
+        out = []
+        for p in prompts:
+            m = re.search(r"'(.+?)'", p) \
+                or re.search(r"either a (.+?) or a", p) \
+                or re.search(r"relation (.+?) impossible", p)
+            edge = m.group(1) if m else p
+            positive = int(hashlib.md5(edge.lower().encode()).hexdigest(),
+                           16) % 4 != 0       # ~75% of edges pass
+            negated = p.startswith("Regardless") or "impossible" in p
+            out.append("Yes" if positive != negated else "No")
+        return out
+
+    return transport
 
 
 def build_cfg(args):
@@ -188,15 +224,12 @@ def main():
           f"hierar={cfg.model.hierarchical_pred} "
           f"cluster={cfg.data.supcat_clustering}")
     run_mode = cfg.training.run_mode
-    if run_mode == "prepare_cs":
-        sys.exit(f"run_mode={run_mode} is not yet ported to PyTorch; the "
-                 f"port runs --run_mode train|train_cs|eval|eval_cs (use "
-                 f"main.py for the rest)")
     if not args.synthetic and cfg.data.dataset != "vg":
         sys.exit(f"the {cfg.data.dataset} loader is not yet ported to "
                  f"PyTorch; the port reads Visual Genome (use main.py)")
     training = run_mode in ("train", "train_cs")
-    detect = not training and cfg.training.eval_mode != "pc"
+    detect = run_mode in ("eval", "eval_cs") \
+        and cfg.training.eval_mode != "pc"
     if args.synthetic and detect:
         sys.exit("sgc/sgd need detector outputs; run on real data with a "
                  "converted DETR checkpoint")
@@ -223,7 +256,8 @@ def main():
             return synthetic_batches(cfg, max(n // 4, 1), seed=100 + epoch)
     else:
         steps_per_epoch = 1000
-        train_fn = real_batches(cfg, training=True) if training else None
+        train_fn = (real_batches(cfg, training=True)
+                    if training or run_mode == "prepare_cs" else None)
         test_fn = real_batches(cfg, training=False)
         # the frozen DETR-101 (reference train_utils.py:9-18); SGCLS and
         # SGDET build the whole detector once and take the features from
@@ -242,6 +276,8 @@ def main():
         return
 
     use_cs = run_mode == "eval_cs"
+    # eval_cs evaluates the CS-trained weights; prepare_cs queries the LLM
+    # about the trained baseline's predictions (reference main.py:106-114)
     name = ckpt_lib.checkpoint_name(
         cfg.model.hierarchical_pred, "train_cs" if use_cs else "train",
         cfg.data.supcat_clustering, cfg.training.test_epoch)
@@ -251,10 +287,21 @@ def main():
         state_dict = ckpt_lib.load(ckpt)
         print(f"Loaded relation checkpoint {ckpt}")
     else:
-        print(f"WARNING: relation checkpoint {ckpt} not found — "
-              f"evaluating randomly initialized weights")
+        what = ("prepare_cs will query predictions of"
+                if run_mode == "prepare_cs" else "evaluating")
+        print(f"WARNING: relation checkpoint {ckpt} not found — {what} "
+              f"randomly initialized weights")
     model = make_relation_classifier(cfg, device=args.device,
                                      state_dict=state_dict)
+    if run_mode == "prepare_cs":
+        from scene_graph_commonsense_torch.commonsense.pipeline import (
+            run_prepare_cs)
+        path = run_prepare_cs(
+            cfg, model, prepped_batches(cfg, train_fn(0), featurize),
+            artifacts, transport=mock_llm_transport() if args.mock_llm
+            else None, device=args.device)
+        print(f"Wrote commonsense triplet tables {path}")
+        return
     batches = prepped_batches(cfg, test_fn(0), featurize)
     if detect:
         runner = (engines.run_eval_sgc if cfg.training.eval_mode == "sgc"

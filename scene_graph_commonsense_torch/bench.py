@@ -75,7 +75,7 @@ def view_forward_flops(cfg, pairs: int) -> float:
 def train_step_flops(cfg) -> float:
     """Forward of both views, x 3 for the backward (input and weight
     gradients)."""
-    return 3 * (view_forward_flops(cfg, cfg.pair_capacity)
+    return 3 * (view_forward_flops(cfg, engine.train_pair_capacity(cfg))
                 + view_forward_flops(cfg, engine.aug_pair_capacity(cfg)))
 
 

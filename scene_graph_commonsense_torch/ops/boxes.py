@@ -45,6 +45,15 @@ def mask_intersection(boxes_a: torch.Tensor, boxes_b: torch.Tensor,
     return iw * ih
 
 
+def union_box(box_a: torch.Tensor, box_b: torch.Tensor) -> torch.Tensor:
+    """Smallest (x_min, x_max, y_min, y_max) box containing both inputs
+    (reference utils.py:77-85)."""
+    return torch.stack([torch.minimum(box_a[..., 0], box_b[..., 0]),
+                        torch.maximum(box_a[..., 1], box_b[..., 1]),
+                        torch.minimum(box_a[..., 2], box_b[..., 2]),
+                        torch.maximum(box_a[..., 3], box_b[..., 3])], dim=-1)
+
+
 def boxes_to_masks(boxes: torch.Tensor, size: int = 32,
                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """(..., 4) boxes -> (..., S, S) occupancy masks by broadcast compare."""

@@ -1,6 +1,6 @@
 """Training and evaluation steps over the packed pair grid (torch port of
-scene_graph_commonsense_tpu/train/engine.py, one device; the mesh branch
-and the faithful-dynamics losses are not yet ported).
+scene_graph_commonsense_tpu/train/engine.py, one device; the mesh branch is
+not yet ported).
 
 Batch dict (fixed shapes; B images, N = max_objects, S = feature_size):
   features:     (B, S, S, C)   frozen detector features
@@ -20,6 +20,7 @@ from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple, \
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from scene_graph_commonsense_torch.device import disable_tf32, resolve_device
 from scene_graph_commonsense_torch.models.relation_head import (
@@ -36,10 +37,62 @@ MODEL_KEYS = ("features", "depth", "cats", "super_mh", "boxes", "rel",
 TRAIN_KEYS = MODEL_KEYS + ("features_aug",)
 
 
+def _chunk_generator(seed: int, chunk: int, device) -> torch.Generator:
+    """The dropout stream of one chunk of the pair trunk, seeded from the
+    trunk stream's seed and the chunk index (the JAX package splits the
+    trunk key once per chunk).  Made inside the checkpointed chunk, so the
+    recompute in the backward draws the same mask."""
+    s = np.random.SeedSequence([seed, chunk]).generate_state(1, np.uint64)
+    return torch.Generator(device=device).manual_seed(int(s[0]) >> 1)
+
+
+def _chunked_pair_trunk(model: RelationClassifier, a: torch.Tensor,
+                        b: torch.Tensor, packed: pair_ops.PackedPairs,
+                        chunk_size: int,
+                        generator: Optional[torch.Generator] = None
+                        ) -> torch.Tensor:
+    """The pair trunk (pair_pool, then pair_trunk_from_pooled) over the
+    packed pairs, in chunks of `chunk_size` pairs, so that the (P, S/2,
+    S/2, 4h) pooled maps and the trunk's activations never exist at the
+    full pair capacity: the memory guard of the JAX package's
+    `_chunked_pair_trunk`.  The index buffers are padded to whole chunks
+    with index 0 and the padded rows are sliced off.  With gradients on,
+    each chunk runs under torch.utils.checkpoint (its activations are
+    recomputed in the backward: the pair pool's forward with index runs
+    twice a chunk, its backward once).  chunk_size <= 0 or >= the capacity
+    runs the whole buffer at once."""
+    p_cap = packed.flat_sub.shape[0]
+    if chunk_size <= 0 or chunk_size >= p_cap:
+        pooled = pair_pool(a, b, packed.flat_sub, packed.flat_obj)
+        return model.pair_trunk_from_pooled(pooled, generator)
+    n_chunks = -(-p_cap // chunk_size)
+    pad = packed.flat_sub.new_zeros(n_chunks * chunk_size - p_cap)
+    flat_sub = torch.cat([packed.flat_sub, pad])
+    flat_obj = torch.cat([packed.flat_obj, pad])
+    seed = None if generator is None else generator.initial_seed()
+
+    def one_chunk(a_, b_, sub, obj, k):
+        gen = None if seed is None else _chunk_generator(seed, k, a_.device)
+        return model.pair_trunk_from_pooled(pair_pool(a_, b_, sub, obj), gen)
+
+    hs = []
+    for k in range(n_chunks):
+        sub = flat_sub[k * chunk_size:(k + 1) * chunk_size]
+        obj = flat_obj[k * chunk_size:(k + 1) * chunk_size]
+        if torch.is_grad_enabled():
+            hs.append(torch.utils.checkpoint.checkpoint(
+                one_chunk, a, b, sub, obj, k, use_reentrant=False,
+                preserve_rng_state=False))
+        else:
+            hs.append(one_chunk(a, b, sub, obj, k))
+    return torch.cat(hs)[:p_cap]
+
+
 def forward_pairs(model: RelationClassifier, batch: Dict[str, torch.Tensor],
                   capacity: int, *, view: str = "features",
                   generators: Optional[Sequence[torch.Generator]] = None,
-                  packed: Optional[pair_ops.PackedPairs] = None
+                  packed: Optional[pair_ops.PackedPairs] = None,
+                  chunk_size: int = 0
                   ) -> Tuple[Dict[str, torch.Tensor], pair_ops.PackedPairs]:
     """Full pair-grid forward for one batch view: masks -> object streams of
     batch[view] -> pairs packed at `capacity` (all valid pairs, unless a
@@ -48,7 +101,8 @@ def forward_pairs(model: RelationClassifier, batch: Dict[str, torch.Tensor],
     kernels on CUDA tensors, the plain versions on CPU tensors; with
     gradient when the weights require it) -> trunk -> label-conditioned
     head.  `generators` = (trunk, head) turns dropout on at the two sites
-    with independent streams; None runs deterministically."""
+    with independent streams; None runs deterministically.  chunk_size > 0
+    runs the pair assembly and trunk in chunks (_chunked_pair_trunk)."""
     b, n = batch["cats"].shape
     s = batch["features"].shape[1]
     masks = box_ops.boxes_to_masks(batch["boxes"], s,
@@ -60,8 +114,7 @@ def forward_pairs(model: RelationClassifier, batch: Dict[str, torch.Tensor],
                                      capacity)
     a, bb = model.object_streams_from_image(batch[view], batch["depth"],
                                             masks)
-    pooled = pair_pool(a, bb, packed.flat_sub, packed.flat_obj)
-    h = model.pair_trunk_from_pooled(pooled, gen_t)
+    h = _chunked_pair_trunk(model, a, bb, packed, chunk_size, gen_t)
     flat_cats = batch["cats"].reshape(b * n)
     c1 = flat_cats.index_select(0, packed.flat_sub)
     c2 = flat_cats.index_select(0, packed.flat_obj)
@@ -83,6 +136,22 @@ def _grid_at(grid: torch.Tensor, packed: pair_ops.PackedPairs,
     return flat[packed.img.long(), (packed.sub * n + packed.obj).long()]
 
 
+def _scatter_grid(vals: torch.Tensor, packed: pair_ops.PackedPairs, b: int,
+                  n: int) -> torch.Tensor:
+    """Per-packed-pair values (P, ...) back onto the (B, N, N, ...) grid
+    (the faithful-dynamics losses are per grid cell).  Padding slots add
+    zeros at flat position 0: grid cell (0, 0, 0) is a self-pair, never
+    live, so nothing real is touched.  Differentiable (index_add_)."""
+    zero = torch.zeros((), dtype=vals.dtype, device=vals.device)
+    idx = torch.where(packed.mask, packed.flat_id,
+                      torch.zeros_like(packed.flat_id)).long()
+    mb = packed.mask.reshape(packed.mask.shape + (1,) * (vals.dim() - 1))
+    flat = torch.zeros((b * n * n,) + tuple(vals.shape[1:]),
+                       dtype=vals.dtype, device=vals.device)
+    flat.index_add_(0, idx, torch.where(mb, vals, zero))
+    return flat.reshape((b, n, n) + tuple(vals.shape[1:]))
+
+
 def pair_targets(batch: Dict[str, torch.Tensor],
                  packed: pair_ops.PackedPairs) -> torch.Tensor:
     """(P,) GT relation per packed directed pair; -1 where unrelated."""
@@ -91,7 +160,7 @@ def pair_targets(batch: Dict[str, torch.Tensor],
 
 
 def make_eval_step(model: RelationClassifier, cfg, capacity: int = 0,
-                   device=None):
+                   device=None, chunk_size: int = 0):
     """Deterministic forward returning everything the evaluator needs
     (relations, connectivity, packed indexing, overlap filter), under
     torch.inference_mode.  Deterministic whatever the module's mode: the
@@ -101,7 +170,8 @@ def make_eval_step(model: RelationClassifier, cfg, capacity: int = 0,
     CUDA is absent unless device="cpu").  TF32 is turned off
     (device.disable_tf32) so float32 runs in full float32.  The step takes
     a batch dict of numpy arrays or tensors and returns tensors on the
-    device."""
+    device.  chunk_size > 0 runs the pair trunk in chunks of that many
+    pairs (forward_pairs): one pair-pool launch per chunk."""
     dev = resolve_device(device)
     disable_tf32()
     model.to(dev).eval()
@@ -111,7 +181,8 @@ def make_eval_step(model: RelationClassifier, cfg, capacity: int = 0,
     def step(batch: Dict) -> Dict[str, torch.Tensor]:
         batch = {k: torch.as_tensor(batch[k], device=dev)
                  for k in MODEL_KEYS if batch.get(k) is not None}
-        out, packed = forward_pairs(model, batch, cap)
+        out, packed = forward_pairs(model, batch, cap,
+                                    chunk_size=chunk_size)
         s = batch["features"].shape[1]
         n = batch["cats"].shape[1]
         iou_ok = _grid_at(pair_ops.eval_pair_filter(batch["boxes"], s),
@@ -225,8 +296,11 @@ class SGD:
 
     @torch.no_grad()
     def update(self, grads: Dict[str, torch.Tensor], state: SGDState,
-               params: Dict[str, torch.Tensor]) -> SGDState:
-        """One update; consumes (overwrites) `grads`."""
+               params: Dict[str, torch.Tensor],
+               scale: Optional[torch.Tensor] = None) -> SGDState:
+        """One update; consumes (overwrites) `grads`.  `scale`, a 0-dim
+        tensor, multiplies the update -lr * t after the momentum (the
+        faithful dynamic learning rate; the trace stays unscaled)."""
         names = list(params)
         g = [grads[k] if grads.get(k) is not None
              else torch.zeros_like(params[k]) for k in names]
@@ -252,7 +326,10 @@ class SGD:
             t = x.add_(torch.tensor(self.momentum, dtype=old.dtype,
                                     device=old.device) * old)
             trace[k] = t.to(self.momentum_dtype)
-            p.add_(step * t)
+            u = step * t
+            if scale is not None:
+                u = u * scale.to(u.dtype)
+            p.add_(u)
         return SGDState(trace, state.count + 1)
 
 
@@ -295,20 +372,33 @@ def dropout_generators(seed: int, step: int, device) -> list:
             for s in seeds]
 
 
+def train_pair_capacity(cfg) -> int:
+    """Capacity of the train step's main-view pair buffer: cfg.pair_capacity,
+    or with training.faithful_dynamics every valid pair, batch_size *
+    max_objects * (max_objects - 1) (the per-column losses need each valid
+    pair on the grid)."""
+    if cfg.training.faithful_dynamics:
+        n = cfg.data.max_objects
+        return max(cfg.training.batch_size, 1) * n * (n - 1)
+    return cfg.pair_capacity
+
+
 def aug_pair_capacity(cfg) -> int:
     """Capacity of the augmented view's connected-pairs buffer: connected
     pairs (GT relations) are an order of magnitude sparser than valid pairs
-    (TrainConfig.aug_pair_capacity; 0 = pair capacity // 4)."""
-    cap = cfg.pair_capacity
+    (TrainConfig.aug_pair_capacity; 0 = the main view's capacity // 4, the
+    faithful one in faithful mode)."""
+    cap = train_pair_capacity(cfg)
     aug = cfg.training.aug_pair_capacity or cap // 4
     return min(max(aug, 1), cap)
 
 
 def make_train_step(model: RelationClassifier, cfg, optimizer: SGD,
-                    class_weights, cs_tables=None, mesh=None, device=None):
+                    class_weights, cs_tables=None, mesh=None, device=None,
+                    chunk_size: int = 0):
     """The train step for one device: forward of the main view over all
     valid pairs and, when the batch has features_aug, of the augmented view
-    over the connected pairs only (packed at aug_capacity) feeding the
+    over the connected pairs only (packed at aug_pair_capacity) feeding the
     hierarchical SupCon term; the losses; backward (the pair pool's
     backward kernel included); the optimizer update.
 
@@ -319,18 +409,20 @@ def make_train_step(model: RelationClassifier, cfg, optimizer: SGD,
     synchronises).  The model's float32 parameters are the master weights;
     the forward casts them to cfg.model.compute_dtype layer by layer.
     Dropout draws from dropout_generators(cfg.training.seed, state.step).
-    The faithful-dynamics losses and the mesh (data-parallel) branch are
-    not yet ported and raise."""
-    if cfg.training.faithful_dynamics:
-        raise NotImplementedError(
-            "training.faithful_dynamics is not yet ported to PyTorch")
+    With training.faithful_dynamics the main view packs every valid pair
+    (train_pair_capacity), the losses are faithful_losses over the
+    scattered grid, and the update is multiplied by its lr_scale.
+    chunk_size > 0 runs both views' pair trunks in chunks with
+    recomputation (forward_pairs).  The mesh (data-parallel) branch is not
+    yet ported and raises."""
     if mesh is not None:
         raise NotImplementedError(
             "the multi-device train step is not yet ported to PyTorch")
     dev = resolve_device(device)
     disable_tf32()
     model.to(dev)
-    capacity = cfg.pair_capacity
+    faithful = cfg.training.faithful_dynamics
+    capacity = train_pair_capacity(cfg)
     aug_capacity = aug_pair_capacity(cfg)
     weights = torch.as_tensor(np.asarray(class_weights), device=dev)
     if cs_tables is not None:
@@ -346,7 +438,8 @@ def make_train_step(model: RelationClassifier, cfg, optimizer: SGD,
         for p in state.params.values():
             p.grad = None
         out, packed = forward_pairs(model, batch, capacity,
-                                    view="features", generators=gens[:2])
+                                    view="features", generators=gens[:2],
+                                    chunk_size=chunk_size)
         targets = pair_targets(batch, packed)
         loss_contrast = None
         aug_overflow = torch.zeros((), dtype=torch.int32, device=dev)
@@ -359,7 +452,7 @@ def make_train_step(model: RelationClassifier, cfg, optimizer: SGD,
             aug_overflow = torch.clamp(packed_c.count - aug_capacity, min=0)
             out_aug, _ = forward_pairs(
                 model, batch, aug_capacity, view="features_aug",
-                generators=gens[2:], packed=packed_c)
+                generators=gens[2:], packed=packed_c, chunk_size=chunk_size)
             pos, found = pair_ops.align_packings(packed, packed_c)
             feats = torch.stack([out["hidden"][pos.long()],
                                  out_aug["hidden"]], dim=1)
@@ -367,9 +460,21 @@ def make_train_step(model: RelationClassifier, cfg, optimizer: SGD,
             loss_contrast = L.supcon_hierar_loss(
                 feats.to(torch.promote_types(feats.dtype, torch.float32)),
                 labels, found, m.num_geometric, m.num_possessive)
-        total, metrics = compute_losses(m, cfg.training, out, packed,
-                                        targets, weights, cs_tables,
-                                        loss_contrast)
+        if faithful:
+            b, n = batch["cats"].shape
+            sup_grid = None
+            if m.hierarchical_pred:
+                sup_grid = _scatter_grid(out["super_relation"], packed, b, n)
+            total, metrics = L.faithful_losses(
+                m, cfg.training, _scatter_grid(out["relation"], packed, b, n),
+                sup_grid, _scatter_grid(out["connectivity"], packed, b, n),
+                batch["rel"], batch["valid"], weights,
+                sub_cats=batch["cats"], obj_cats=batch["cats"],
+                cs_tables=cs_tables, loss_contrast=loss_contrast)
+        else:
+            total, metrics = compute_losses(m, cfg.training, out, packed,
+                                            targets, weights, cs_tables,
+                                            loss_contrast)
         # silent pair-dropping is where the static capacity can change
         # results: reported, and warned about by the loop
         metrics["pair_overflow"] = torch.clamp(
@@ -377,7 +482,11 @@ def make_train_step(model: RelationClassifier, cfg, optimizer: SGD,
         metrics["aug_pair_overflow"] = aug_overflow.to(torch.float32)
         total.backward()
         grads = {k: p.grad for k, p in state.params.items()}
-        opt_state = optimizer.update(grads, state.opt_state, state.params)
+        # faithful: the dynamic learning rate of the reference's last
+        # column (train_test.py:192) scales this step's update
+        opt_state = optimizer.update(
+            grads, state.opt_state, state.params,
+            scale=metrics["lr_scale"].detach() if faithful else None)
         for p in state.params.values():
             p.grad = None
         metrics = {k: v.detach() for k, v in metrics.items()}

@@ -34,7 +34,7 @@ from scene_graph_commonsense_torch.train import engine
 from scene_graph_commonsense_torch.utils.logging import (
     ResultRecorder, format_test_line, format_train_line)
 from scene_graph_commonsense_torch.utils.profiling import (
-    StepTimer, check_observability)
+    ScalarWriter, StepProfiler, StepTimer)
 
 
 def lr_schedule(cfg, steps_per_epoch: int) -> Callable[[int], float]:
@@ -170,15 +170,19 @@ def fit(cfg, model, train_batches_fn: Callable[[int], Iterable],
         test_batches_fn: Optional[Callable[[int], Iterable]] = None,
         steps_per_epoch: int = 1000, artifacts=None, device=None,
         featurize: Optional[Callable[[Dict], Dict]] = None,
+        chunk_size: int = 0,
         log_fn: Callable[[str], None] = print) -> engine.TrainState:
     """Full training run on one device (default cuda); returns the final
     TrainState.  `model` is a RelationClassifier whose parameters are
     trained in place; the batch functions map an epoch to an iterable of
     numpy batch dicts.  `featurize` (make_detr_featurize_fn) turns image
     batches into feature batches on the prefetcher's thread, overlapping
-    the train step."""
+    the train step.  `chunk_size` > 0 runs the train step's pair trunk in
+    chunks (engine.make_train_step).  training.tensorboard writes the
+    scalars of the JAX fit (ScalarWriter, training.tensorboard_dir), and
+    training.profile_dir with profile_start_step >= 0 traces
+    profile_num_steps steps (StepProfiler)."""
     tc = cfg.training
-    check_observability(tc)
     dev = resolve_device(device)
     schedule = lr_schedule(cfg, steps_per_epoch)
     opt = engine.make_optimizer(schedule, momentum=tc.momentum,
@@ -208,7 +212,7 @@ def fit(cfg, model, train_batches_fn: Callable[[int], Iterable],
         model, cfg, opt, class_weights(cfg.data.dataset,
                                        cfg.data.supcat_clustering,
                                        faithful=tc.faithful_dynamics),
-        cs_tables=cs_tables, device=dev)
+        cs_tables=cs_tables, device=dev, chunk_size=chunk_size)
     # the schedule count starts at the resume point, so a resumed run past
     # a scheduler epoch does not train at the undecayed rate
     state = engine.init_train_state(model, opt,
@@ -218,6 +222,9 @@ def fit(cfg, model, train_batches_fn: Callable[[int], Iterable],
                               fresh=not tc.continue_train)
     test_recorder = ResultRecorder(tc.result_path, "test_results",
                                    fresh=not tc.continue_train)
+    writer = ScalarWriter(tc.tensorboard_dir, enabled=tc.tensorboard)
+    profiler = StepProfiler(tc.profile_dir, tc.profile_start_step,
+                            tc.profile_num_steps, device=dev)
     timer = StepTimer()
     train_eval, _ = engines._make_evaluators(cfg, artifacts, predcls=True)
     train_estep = engine.make_eval_step(model, cfg, device=dev)
@@ -245,6 +252,7 @@ def fit(cfg, model, train_batches_fn: Callable[[int], Iterable],
         t0 = time.time()
         for batch_count, batch in enumerate(_prepped(train_batches_fn(epoch),
                                                      on_device=True)):
+            profiler.step(host_step)
             state, metrics = step(state, batch)
             host_step += 1
             timer.tick()
@@ -285,6 +293,12 @@ def fit(cfg, model, train_batches_fn: Callable[[int], Iterable],
                 log_fn(f"{line}, {imgs / (time.time() - t0):.1f} img/s")
                 recorder.add({"epoch": epoch, "batch": batch_count,
                               "lr": lr, **metrics})
+                # the reference's tag set (train_test.py:279-285: the loss
+                # terms, lr) and the step timing
+                writer.scalars(metrics, host_step, prefix="train/")
+                writer.scalar("train/lr", lr, host_step)
+                writer.scalars(timer.summary(tc.batch_size), host_step,
+                               prefix="perf/")
 
         # per-epoch checkpoint (reference train_test.py:311-322)
         path = checkpoint_file(cfg, epoch)
@@ -305,6 +319,13 @@ def fit(cfg, model, train_batches_fn: Callable[[int], Iterable],
                                "recall": list(map(float, res["recall"])),
                                "mean_recall": list(map(float,
                                                        res["mean_recall"]))})
+            # test R@k scalars (reference train_test.py:446-450)
+            for k, r in zip((20, 50, 100), res["recall"]):
+                writer.scalar(f"test/R@{k}", r, epoch)
+            for k, r in zip((20, 50, 100), res["mean_recall"]):
+                writer.scalar(f"test/mR@{k}", r, epoch)
+    profiler.close()
+    writer.close()
     summary = timer.summary(tc.batch_size)
     if summary:
         log_fn("train steps (host clock): " + ", ".join(

@@ -1,12 +1,12 @@
 """Loss functions over the packed pair buffer (torch port of
-scene_graph_commonsense_tpu/train/losses.py, without `faithful_losses`).
+scene_graph_commonsense_tpu/train/losses.py).
 
 All losses are fully masked, with no data-dependent shapes, and consume the
 whole batch's pairs at once: the reference's per-pair-column estimators
-(reference train_utils.py:21-157) as masked means.  The clean estimator of
-the JAX package: one masked mean per term, without the reference's
-connectivity rebinding and column re-accumulation (those live only in the
-JAX package's faithful mode, not yet ported).
+(reference train_utils.py:21-157) as masked means.  The default is the clean
+estimator of the JAX package: one masked mean per term, without the
+reference's connectivity rebinding and column re-accumulation;
+`faithful_losses` keeps those loop artifacts (training.faithful_dynamics).
 """
 
 from __future__ import annotations
@@ -162,6 +162,152 @@ def commonsense_loss(relation: torch.Tensor, sub_cats: torch.Tensor,
     in_no = violated_table[tid]
     return lambda_weak * _masked_mean(rel_prob, mask & ~in_yes) \
         + lambda_strong * _masked_mean(rel_prob, mask & in_no)
+
+
+def faithful_losses(model_cfg, train_cfg, relation: torch.Tensor,
+                    super_relation: Optional[torch.Tensor],
+                    conn_logits: torch.Tensor, rel_targets: torch.Tensor,
+                    valid: torch.Tensor, class_weights: torch.Tensor,
+                    sub_cats: Optional[torch.Tensor] = None,
+                    obj_cats: Optional[torch.Tensor] = None,
+                    cs_tables=None,
+                    loss_contrast: Optional[torch.Tensor] = None):
+    """Reference-faithful training dynamics, as masked grid math.
+
+    The reference's triangular Python loop computes every loss term as a
+    per-COLUMN mean (a column = one (subject_slot, object_slot) grid cell
+    over the batch) and accumulates the columns with three loop artifacts
+    that the clean estimator (engine.compute_losses) drops:
+
+      * connectivity rebinding: a column with any connected row REPLACES
+        its not-connected BCE term with the connected-row BCE (reference
+        train_utils.py:70-92);
+      * triangular re-accumulation: column-direction s (0-based, E in all)
+        weighs (E - s) in the backward loss (reference
+        train_test.py:219-258);
+      * lambda_contrast applied twice (train_test.py:268-272).
+
+    Inputs are grids: relation (B, N, N, R) branch log-probs (or flat
+    logits), super_relation (B, N, N, 3) or None, conn_logits (B, N, N),
+    rel_targets (B, N, N) int (-1 = none), valid (B, N), sub/obj_cats
+    (B, N) (train_cs only).  Sums run in relation.dtype, as in the JAX
+    package.  Returns (total, metrics): the plain per-term column sums and
+    `lr_scale`, the dynamic-LR factor sqrt(#images at the batch-max object
+    count / B) in effect at the reference's optimizer.step()
+    (train_test.py:192)."""
+    m = model_cfg
+    b, n = valid.shape
+    dt = relation.dtype
+    dev = relation.device
+    zero = torch.zeros((), dtype=dt, device=dev)
+    if loss_contrast is None:
+        loss_contrast = torch.zeros((), dtype=torch.float32, device=dev)
+
+    eye = torch.eye(n, dtype=torch.bool, device=dev)
+    rv = valid[:, :, None] & valid[:, None, :] & ~eye[None]
+    connected = rv & (rel_targets >= 0)
+
+    def cell_mean(v, mask):
+        mk = mask.to(dt)
+        cnt = mk.sum(0)
+        return torch.where(cnt > 0, (v * mk).sum(0) / torch.clamp(cnt, min=1),
+                           zero)
+
+    def cell_weighted_nll(logp, tgt, w, mask):
+        safe = torch.clamp(tgt, 0, logp.shape[-1] - 1).long()
+        nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+        ww = w[safe] * mask.to(dt)
+        wsum = ww.sum(0)
+        return torch.where(wsum > 0, (nll * ww).sum(0)
+                           / torch.clamp(wsum, min=1e-12), zero)
+
+    # connectivity with the rebinding quirk
+    pos_cell = cell_mean(_softplus(-conn_logits), connected)
+    neg_cell = cell_mean(_softplus(conn_logits), rv & ~connected)
+    conn_cell = torch.where(connected.any(0), pos_cell,
+                            train_cfg.lambda_not_connected * neg_cell)
+
+    # relationship per column
+    ng, npos = m.num_geometric, m.num_possessive
+    if m.hierarchical_pred:
+        sup_t = torch.where(rel_targets < ng, 0,
+                            torch.where(rel_targets < ng + npos, 1, 2))
+        rel_cell = cell_weighted_nll(super_relation, sup_t,
+                                     torch.ones(3, dtype=dt, device=dev),
+                                     connected)
+        for off, width in ((0, ng), (ng, npos),
+                           (ng + npos, relation.shape[-1] - ng - npos)):
+            in_b = connected & (rel_targets >= off) \
+                & (rel_targets < off + width)
+            rel_cell = rel_cell + cell_weighted_nll(
+                relation[..., off:off + width], rel_targets - off,
+                class_weights[off:off + width], in_b)
+    else:
+        rel_cell = cell_weighted_nll(F.log_softmax(relation, dim=-1),
+                                     rel_targets, class_weights, connected)
+
+    # commonsense per column (train_cs): entry means over (branch, batch)
+    cs_cell = torch.zeros((n, n), dtype=dt, device=dev)
+    if cs_tables is not None:
+        aligned, violated = cs_tables
+        if m.hierarchical_pred:
+            bounds = ((0, ng), (ng, ng + npos),
+                      (ng + npos, relation.shape[-1]))
+        else:
+            bounds = ((0, relation.shape[-1]),)
+        probs = torch.stack([F.softmax(relation[..., lo:hi], dim=-1)
+                             .max(dim=-1).values for lo, hi in bounds])
+        preds = torch.stack([relation[..., lo:hi].argmax(dim=-1) + lo
+                             for lo, hi in bounds])       # (K, B, N, N)
+        sub = sub_cats.long()[None, :, :, None]
+        obj = obj_cats.long()[None, :, None, :]
+        tid = (sub * relation.shape[-1] + preds) * m.num_classes + obj
+        k = probs.shape[0]
+        rvk = rv[None].expand(k, b, n, n)
+        probs2 = probs.reshape(k * b, n, n)
+        weak = (rvk & ~aligned[tid]).reshape(k * b, n, n)
+        strong = (rvk & violated[tid]).reshape(k * b, n, n)
+        cs_cell = train_cfg.lambda_cs_weak * cell_mean(probs2, weak) \
+            + train_cfg.lambda_cs_strong * cell_mean(probs2, strong)
+
+    # triangular re-accumulation weights
+    n_per = valid.sum(1)
+    n_max = n_per.max()
+    e_total = (n_max * (n_max - 1)).to(dt)
+    i = torch.arange(n, device=dev)[:, None]
+    j = torch.arange(n, device=dev)[None, :]
+    s_lower = 2 * (i * (i - 1) // 2 + j)              # direction 1 (i > j)
+    s_upper = 2 * (j * (j - 1) // 2 + i) + 1          # direction 2 (i < j)
+    s_idx = torch.where(i > j, s_lower, s_upper).to(dt)
+    tri_w = torch.clamp(e_total - s_idx, min=0.0)
+
+    lam_c = train_cfg.lambda_connectivity
+    lam_cs = train_cfg.lambda_commonsense
+    tri_total = (tri_w * (rel_cell + lam_c * conn_cell
+                          + lam_cs * cs_cell)).sum()
+    total = tri_total \
+        + train_cfg.lambda_contrast ** 2 * loss_contrast  # applied twice
+
+    prob = torch.sigmoid(conn_logits)
+    pred_pos = (prob >= 0.5) & rv
+
+    def count(mask):
+        return mask.sum().to(torch.int32)
+
+    metrics = {
+        "loss": total,
+        "loss_relationship": rel_cell.sum(),
+        "loss_connectivity": conn_cell.sum(),
+        "loss_commonsense": cs_cell.sum(),
+        "loss_contrast": loss_contrast,
+        "num_connected": count(connected),
+        "num_not_connected": count(rv & ~connected),
+        "num_connected_pred": count(pred_pos),
+        "connectivity_precision_hits": count(pred_pos & connected),
+        "connectivity_recall_hits": count((prob >= 0.5) & connected),
+        "lr_scale": torch.sqrt((n_per == n_max).to(dt).mean()),
+    }
+    return total, metrics
 
 
 def supcon_hierar_loss(features: torch.Tensor, labels: torch.Tensor,

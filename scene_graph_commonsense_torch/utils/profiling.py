@@ -1,17 +1,67 @@
-"""Step timing (a copy of StepTimer from
-scene_graph_commonsense_tpu/utils/profiling.py).
+"""Observability of the training loop (torch port of
+scene_graph_commonsense_tpu/utils/profiling.py):
 
-ScalarWriter (TensorBoard scalars) and StepProfiler (a profiler trace
-window) are not yet ported: both are off by default, and turning either on
-in the config raises here rather than being ignored.
+  * ScalarWriter: TensorBoard scalars (the reference's tag set,
+    train_test.py:279-285, 446-450), with a JSONL fallback when TensorBoard
+    cannot be imported;
+  * StepTimer: per-step wall-clock ring buffer -> latency percentiles and
+    img/s;
+  * StepProfiler: a torch.profiler window over a configurable step range,
+    written as a Chrome trace.
+
+All three cost nothing when disabled.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import time
 from typing import Dict, Optional
 
 import numpy as np
+
+
+class ScalarWriter:
+    """TensorBoard scalar writer with a JSONL fallback.
+
+    Mirrors the reference's SummaryWriter usage (train_test.py:279-285):
+    one add_scalar per loss term per print_freq step and test R@k per
+    epoch.  When the tensorboard package is unavailable the same scalars
+    land in ``<logdir>/scalars.jsonl`` (one JSON object per line).
+    """
+
+    def __init__(self, logdir: Optional[str], enabled: bool = True):
+        self._tb = None
+        self._jsonl = None
+        if not enabled or not logdir:
+            return
+        os.makedirs(logdir, exist_ok=True)
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+            self._tb = SummaryWriter(log_dir=logdir)
+        except Exception:
+            self._jsonl = open(os.path.join(logdir, "scalars.jsonl"), "a")
+
+    def scalar(self, tag: str, value, step: int):
+        if self._tb is not None:
+            self._tb.add_scalar(tag, float(value), step)
+        elif self._jsonl is not None:
+            self._jsonl.write(json.dumps(
+                {"tag": tag, "value": float(value), "step": int(step)})
+                + "\n")
+            self._jsonl.flush()
+
+    def scalars(self, values: Dict[str, float], step: int,
+                prefix: str = ""):
+        for k, v in values.items():
+            self.scalar(prefix + k, v, step)
+
+    def close(self):
+        if self._tb is not None:
+            self._tb.close()
+        if self._jsonl is not None:
+            self._jsonl.close()
 
 
 class StepTimer:
@@ -54,14 +104,47 @@ class StepTimer:
         }
 
 
-def check_observability(train_cfg) -> None:
-    """Raises when the config turns on TensorBoard scalars or a profiler
-    window, which the port does not have yet."""
-    if train_cfg.tensorboard:
-        raise NotImplementedError(
-            "training.tensorboard (ScalarWriter) is not yet ported to "
-            "PyTorch")
-    if train_cfg.profile_dir and train_cfg.profile_start_step >= 0:
-        raise NotImplementedError(
-            "training.profile_dir / profile_start_step (StepProfiler) is "
-            "not yet ported to PyTorch")
+class StepProfiler:
+    """torch.profiler over steps [start, start + num): CPU activity, and
+    the card's kernels when `device` is CUDA.  The window is exported as a
+    Chrome trace, ``<logdir>/trace_<start>_<stop>.json`` (chrome://tracing,
+    Perfetto).  Disabled when logdir is empty or start < 0."""
+
+    def __init__(self, logdir: str = "", start: int = -1, num: int = 5,
+                 device=None):
+        self.logdir = logdir
+        self.start = start if logdir else -1
+        self.stop = start + num
+        self.device = device
+        self.trace_path = None
+        self._prof = None
+
+    def step(self, step_idx: int):
+        """Call once per train step, before it, with the global step
+        index."""
+        if self.start < 0:
+            return
+        if step_idx == self.start and self._prof is None:
+            import torch
+            from torch.profiler import ProfilerActivity, profile
+            activities = [ProfilerActivity.CPU]
+            if torch.device(self.device or "cpu").type == "cuda":
+                activities.append(ProfilerActivity.CUDA)
+            os.makedirs(self.logdir, exist_ok=True)
+            self._prof = profile(activities=activities)
+            self._prof.start()
+        elif step_idx >= self.stop and self._prof is not None:
+            self.close()
+
+    def close(self):
+        """Stops an open window and writes its trace."""
+        if self._prof is None:
+            return
+        import torch
+        if torch.device(self.device or "cpu").type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._prof.stop()
+        self.trace_path = os.path.join(
+            self.logdir, f"trace_{self.start}_{self.stop}.json")
+        self._prof.export_chrome_trace(self.trace_path)
+        self._prof = None

@@ -49,8 +49,6 @@ from scene_graph_commonsense_torch.models.relation_head import (  # noqa
 from scene_graph_commonsense_torch.ops import pairs  # noqa: E402
 from scene_graph_commonsense_torch.train import engine  # noqa: E402
 from scene_graph_commonsense_torch.train import loop  # noqa: E402
-from scene_graph_commonsense_torch.utils.profiling import (  # noqa: E402
-    check_observability)
 
 ARTIFACTS_DIR = "datasets/artifacts"
 INT_METRICS = ("num_connected", "num_not_connected", "num_connected_pred",
@@ -354,21 +352,41 @@ def test_torch_fit_train_cs_needs_tables(tmp_path):
 @pytest.mark.parametrize("knob", [{"tensorboard": True},
                                   {"profile_dir": "p",
                                    "profile_start_step": 2}])
-def test_torch_unported_observability_raises(knob):
-    check_observability(torch_config.TrainConfig())     # off: silent
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        check_observability(torch_config.TrainConfig(**knob))
+def test_torch_unported_observability_raises(tmp_path, knob):
+    """Both knobs are ported: fit no longer raises on either, and each
+    writes its output (training.tensorboard the scalars under
+    tensorboard_dir; profile_dir with profile_start_step a Chrome trace of
+    steps [2, 2 + profile_num_steps) under profile_dir); with the knobs
+    off neither directory appears."""
+    knob = dict(knob)
+    if "profile_dir" in knob:
+        knob["profile_dir"] = str(tmp_path / knob["profile_dir"])
+        out = knob["profile_dir"]
+    else:
+        out = str(tmp_path / "tb")
+    for on in (False, True):
+        cfg = _tiny_fit_cfg(tmp_path, tensorboard_dir=str(tmp_path / "tb"),
+                            **(knob if on else {}))
+        loop.fit(cfg, make_torch_classifier(cfg, device="cpu"),
+                 lambda e: synthetic_batches(cfg, 3, seed=e, with_aug=True),
+                 None, steps_per_epoch=3, device="cpu",
+                 log_fn=lambda *a: None)
+        assert os.path.isdir(out) == on
+    written = os.listdir(out)
+    if "profile_dir" in knob:
+        assert written == ["trace_2_7.json"]       # closed at the end
+        with open(os.path.join(out, written[0])) as f:
+            assert json.load(f)["traceEvents"]
+    else:
+        assert written and os.path.getsize(os.path.join(out, written[0]))
 
 
 def test_torch_train_step_unported_branches_raise():
+    # the mesh branch is not ported (the faithful branch is:
+    # tests/test_torch_faithful.py)
     _, tc = _cfgs()
     model = make_torch_classifier(tc, device="cpu")
     opt = engine.make_optimizer(1e-3)
-    faithful = tc.replace(training=_replace(tc.training,
-                                            faithful_dynamics=True))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        engine.make_train_step(model, faithful, opt, class_weights("vg"),
-                               device="cpu")
     with pytest.raises(NotImplementedError, match="not yet ported"):
         engine.make_train_step(model, tc, opt, class_weights("vg"),
                                mesh=object(), device="cpu")
