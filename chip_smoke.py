@@ -132,6 +132,38 @@ Phases, each printing JSON lines:
               train_cs; a 3-step fit with training.tensorboard and a
               profiler window [1, 2): the JAX package's scalar tags, and a
               Chrome trace of step 1 naming 2 + 2 training kernels.
+ 12. oiv6:    OpenImages V6 at full width (601 classes, 30 relations in
+              branches of 4, 2 and 24, the flagship head, bf16, batch 12,
+              20 objects, seeded weights) from a mini-OIv6 of 60 seeded
+              JPEGs at OIv6-like sizes in the SGTR format
+              (tools/make_mini_oiv6.py; 36 train, 24 test, depth maps):
+              PredCLS eval from images through the CLI's data path
+              (cli.real_batches, prepped_batches, the live featurizer) over
+              2 batches with recall, mR and the weighted mAP (wmap_rel,
+              wmap_phrase), exactly 1 stem, 30 stride-1, 3 stride-2, 6 of
+              each encoder kernel and 1 pair-pool kernel a batch; fit for 3
+              steps from the training images, exactly one encode, 1
+              pair-pool-with-index and 1 backward launch a step (OIv6
+              batches carry no augmented view); the eval step by CUDA
+              events, in turns with the VG head's on the same features.
+ 13. pnp:     the plug-and-play families (Motifs, Transformer, VCTree,
+              VTransE) at the JAX package's widths (hidden 256, pair 512,
+              float32, VG's 150 classes and 50 relations, 20 objects, 400
+              pairs an image, batch 12) from seeded 1024^2 images through
+              the live featurizer: fit_predictor for 3 steps (the augmented
+              view dropped before the encode) and run_eval_pc_predictor over
+              2 batches without and with TDE, exactly one encode a batch
+              and no pair-pool launch; the train step and the eval step
+              (without and with TDE) from features by CUDA events beside
+              the host's time to issue them, peak memory, and one call of
+              each under torch.profiler (its device ms over the CUDA-event
+              ms is the device share: near 1, the card sets the pace);
+              each family's train and eval step on the card and on the CPU
+              at reduced widths in float32 within PNP_TOL (VCTree's card
+              run on the CPU's Prim trees, its flipped parents counted);
+              the CLI on the
+              mini-OIv6: --dataset oiv6 eval beside --predictor vctree
+              train, then --predictor vctree eval --tde, each exiting 0.
 Phase `kernel` also holds the encoder kernels against their plain versions:
 attention at (B, 1024, 8, 32) for B = 12 and 24, with all keys valid, 80%
 of the keys masked, and one image's keys all masked; FFN + LayerNorm at
@@ -203,6 +235,8 @@ from scene_graph_commonsense_torch.inference import SceneGraphPredictor
 from scene_graph_commonsense_torch.models import detr as detr_lib
 from scene_graph_commonsense_torch.models import resnet_fused
 from scene_graph_commonsense_torch.models import weights
+from scene_graph_commonsense_torch.models.predictors import (
+    HierarchicalPredictor)
 from scene_graph_commonsense_torch.models.relation_head import (
     make_relation_classifier)
 from scene_graph_commonsense_torch.ops import _build, pair_pool, pairs
@@ -212,12 +246,14 @@ from scene_graph_commonsense_torch.ops import boxes as box_ops
 from scene_graph_commonsense_torch.ops.detection import (
     postprocess_detections)
 from scene_graph_commonsense_torch.ops.nms import class_aware_nms
+from scene_graph_commonsense_torch.tools.make_mini_oiv6 import (
+    data_config, make_mini_oiv6)
 from scene_graph_commonsense_torch.tools.make_mini_vg import make_mini_vg
 from scene_graph_commonsense_torch.tools.precompute_features import (
     precompute_features)
 from scene_graph_commonsense_torch.tools.sgrecords import write_sgrecords
 from scene_graph_commonsense_torch.train import engine
-from scene_graph_commonsense_torch.train import loop
+from scene_graph_commonsense_torch.train import loop, pnp_engine
 
 # published H100 SXM peaks (NVIDIA data sheet, dense, at a 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -337,19 +373,27 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def cuda_ms(fn, iters):
-    """Mean device time of fn() over `iters` calls, by CUDA events, after
-    two warm-up calls."""
+def cuda_ms(fn, iters, issue=False):
+    """Mean time of fn() over `iters` calls, by CUDA events, after two
+    warm-up calls; with `issue`, (that time, the host's mean time to issue
+    a call).  Their ratio alone cannot tell a host-bound call from a
+    device-bound one whose launch queue fills: device_profile's busy share
+    does."""
     for _ in range(2):
         fn()
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    issue_s = 0.0
     start.record()
     for _ in range(iters):
+        t = time.perf_counter()
         fn()
+        issue_s += time.perf_counter() - t
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    ms = start.elapsed_time(end) / iters
+    return (ms, issue_s * 1e3 / iters) if issue else ms
 
 
 def phase_device():
@@ -1289,6 +1333,7 @@ def device_profile(fn, n, top_ops=16, groups=None):
             kernels[e.name] = kernels.get(e.name, 0.0) \
                 + e.time_range.elapsed_us()
     busy_us = sum(kernels.values())
+    n_device = sum(e.device_type == DeviceType.CUDA for e in events)
     if busy_us <= 0:
         raise AssertionError("the profiler recorded no device time")
     top_kernels = sorted(kernels.items(), key=lambda kv: -kv[1])[:14]
@@ -1307,6 +1352,7 @@ def device_profile(fn, n, top_ops=16, groups=None):
             "wall_ms_per_call": wall_us / 1e3 / n,
             "device_ms_per_call": busy_us / 1e3 / n,
             "device_busy_share": busy_us / wall_us,
+            "device_events_per_call": n_device / n,
             "group_ms_per_call": grouped,
             "top_kernels": [{"name": k[:90], "ms_per_call": v / 1e3 / n,
                              "share": v / busy_us}
@@ -3003,12 +3049,380 @@ def phase_commonsense_loop():
     emit(result)
 
 
+# phases oiv6 and pnp: the mini-OIv6 (OIV6_IMAGES JPEGs at OIv6-like sizes,
+# 36 train and 24 test: 3 training and 2 test batches of 12), the predictor
+# families, and the reduced widths of the card-vs-CPU check
+OIV6_IMAGES = 60
+OIV6_TRAIN_FRAC = 0.6
+PNP_FAMILIES = ("motifs", "transformer", "vctree", "vtranse")
+PNP_TOL = 1e-4
+
+
+def mini_oiv6(tmp):
+    """The mini-OIv6 under `tmp` (tools/make_mini_oiv6.py); returns the
+    config's data paths."""
+    root = os.path.join(tmp, "oiv6")
+    n_train, n_test = make_mini_oiv6(root, images=OIV6_IMAGES,
+                                     max_objects=20, seed=0,
+                                     train_frac=OIV6_TRAIN_FRAC)
+    if (n_train, n_test) != (36, 24):
+        raise AssertionError(f"mini-OIv6 split {n_train}/{n_test}")
+    return data_config(root)
+
+
+def phase_oiv6(data):
+    """OIv6 at full width (derive("oiv6"): 601 classes, 30 relations in
+    (4, 2, 24), the flagship head, bf16, batch 12, 20 objects, seeded
+    weights) from the mini-OIv6's JPEGs through the CLI's data path
+    (cli.real_batches, prepped_batches, the live featurizer): PredCLS eval
+    over the 2 test batches with the weighted mAP, exact launches (one
+    encode and one pair-pool launch a batch); fit for 3 steps from the
+    training images (one encode, one pair-pool-with-index and one backward
+    launch a step: OIv6 batches carry no augmented view); the eval step
+    from features by CUDA events, in turns with the VG head's."""
+    torch.cuda.empty_cache()
+    gen = lambda: torch.Generator().manual_seed(0)  # noqa: E731
+    result = {"phase": "oiv6", "card": bench.card_name()}
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = config_lib.derive("oiv6", hierarchical_pred=True,
+                                run_mode="eval", data=data,
+                                training={"batch_size": 12})
+        m = cfg.model
+        if (m.num_classes, m.num_relations, m.num_geometric,
+                m.num_possessive, m.num_semantic) != (601, 30, 4, 2, 24):
+            raise AssertionError(f"OIv6 head {m}")
+        featurize, _ = loop.load_detr_featurizer(
+            cfg, device="cuda", generator=gen(), log_fn=lambda *a: None)
+        model = make_relation_classifier(cfg, device="cuda",
+                                         generator=gen())
+        estep = engine.make_eval_step(model, cfg, device="cuda")
+        test_fn = cli.real_batches(cfg, training=False)
+        engines.run_eval_pc(cfg, model, cli.prepped_batches(
+            cfg, test_fn(0), featurize), estep=estep, max_batches=1)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = engines.run_eval_pc(
+            cfg, model, cli.prepped_batches(cfg, test_fn(0), featurize),
+            estep=estep, device="cuda")
+        torch.cuda.synchronize()
+        pc_s = time.perf_counter() - t0
+        counts = read_counts()
+        want = expected(**{k: v * 2 for k, v in PER_ENCODE.items()},
+                        pair_pool=2)
+        if counts != want:
+            raise AssertionError(f"OIv6 PredCLS from images launched "
+                                 f"{counts}, expected {want}")
+        if not res["num_targets"] or not all(
+                0 <= r <= 1 for r in res["recall"] + [res["wmap_rel"],
+                                                      res["wmap_phrase"]]):
+            raise AssertionError(f"OIv6 PredCLS from images: {res}")
+        host = next(iter(test_fn(0)))
+        if host["image"].shape != (12, 1024, 1024, 3) or \
+                host["image_nonsq"].shape != (12, 1000, 1000, 3) or \
+                "super_mh" in host:
+            raise AssertionError("OIv6 batch shapes")
+        fbatch = featurize(host)
+        eval_ms, eval_issue = cuda_ms(lambda: estep(fbatch), 10,
+                                       issue=True)
+        # the VG head (150 classes, 50 relations) on the same features and
+        # boxes (the classes folded into VG's range), in turns with the OIv6
+        # head
+        vcfg = config_lib.derive("vg", hierarchical_pred=True,
+                                 training={"batch_size": 12})
+        vg_step = engine.make_eval_step(
+            make_relation_classifier(vcfg, device="cuda", generator=gen()),
+            vcfg, device="cuda")
+        vbatch = {**fbatch, "cats": fbatch["cats"] % 150}
+        vg_ms = cuda_ms(lambda: vg_step(vbatch), 10)
+        eval_ms_2 = cuda_ms(lambda: estep(fbatch), 10)
+        del vg_step, vbatch
+        result["predcls"] = {
+            "wall_s_per_batch": pc_s / 2,
+            "launches_per_batch": {k: v // 2 for k, v in counts.items()
+                                   if v},
+            "recall": res["recall"], "mean_recall": res["mean_recall"],
+            "wmap_rel": res["wmap_rel"], "wmap_phrase": res["wmap_phrase"],
+            "num_targets": res["num_targets"],
+            "eval_step_ms": [eval_ms, eval_ms_2],
+            "eval_step_issue_ms": eval_issue,
+            "vg_head_eval_step_ms": vg_ms}
+        del fbatch
+
+        tcfg = config_lib.derive(
+            "oiv6", hierarchical_pred=True, run_mode="train", data=data,
+            training={"batch_size": 12, "num_epoch": 1, "print_freq": 1,
+                      "eval_freq": 0, "grad_clip_norm": bench.GRAD_CLIP_NORM,
+                      "checkpoint_path": os.path.join(tmp, "ck"),
+                      "result_path": os.path.join(tmp, "res")})
+        tmodel = make_relation_classifier(tcfg, device="cuda",
+                                          generator=gen())
+        lines = []
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        loop.fit(tcfg, tmodel, cli.real_batches(tcfg, training=True), None,
+                 steps_per_epoch=1000, device="cuda", featurize=featurize,
+                 log_fn=lines.append)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        counts = read_counts()
+        want = expected(**{k: v * 3 for k, v in PER_ENCODE.items()},
+                        pair_pool_idx=3, pair_pool_bwd=3)
+        if counts != want:
+            raise AssertionError(f"OIv6 fit launched {counts}, expected "
+                                 f"{want}")
+        train_lines = [ln for ln in lines if ln.startswith("TRAIN")]
+        if len(train_lines) != 3 or "nan" in " ".join(train_lines):
+            raise AssertionError(f"OIv6 fit printed {lines}")
+        if not os.path.exists(loop.checkpoint_file(tcfg, 0)):
+            raise AssertionError("OIv6 fit wrote no checkpoint")
+        result["fit"] = {"s_per_step": fit_s / 3,
+                         "peak_mem_gb": torch.cuda.max_memory_allocated()
+                         / 1e9,
+                         "launches_per_step": {k: v // 3 for k, v in
+                                               counts.items() if v},
+                         "last_line": train_lines[-1]}
+    emit(result)
+
+
+def pnp_train_parts(predictor, cfg):
+    """(optimizer, state) of a predictor's train step: fit_predictor's
+    optimizer (clip 5.0) at a constant learning rate."""
+    opt = engine.make_optimizer(cfg.training.learning_rate,
+                                momentum=cfg.training.momentum,
+                                weight_decay=cfg.training.weight_decay,
+                                grad_clip_norm=bench.GRAD_CLIP_NORM)
+    return opt, engine.init_train_state(predictor, opt)
+
+
+def pnp_card_vs_cpu(family, gen):
+    """One train step and the eval step (with TDE) of `family` at reduced
+    widths (hidden 32, pair 64, 8 objects, a 16^2 grid of 32 channels,
+    batch 2) in float32 with TF32 off, on the card and on the CPU from the
+    same weights and batch: outputs, losses and parameters after the step
+    within PNP_TOL.  VCTree's trees come from Prim's argmax, where rounding
+    may flip a near-tie: the CPU records the parent and depth of each of
+    its structure calls, the card counts the entries where its own differ
+    (`parent_flips`, reported) and then goes on with the CPU's, so that
+    everything else is compared whatever the trees."""
+    cfg = config_lib.derive(
+        "vg", hierarchical_pred=True,
+        model={"feature_size": 16, "num_img_feature": 32},
+        data={"max_objects": 8},
+        training={"batch_size": 2, "learning_rate": 1e-2})
+    batch = synthetic_batch(np.random.default_rng(61), batch_size=2,
+                            max_objects=8, feature_size=16,
+                            num_channels=32, with_aug=False)
+    kw = dict(family=family, feature_dim=32, union_dim=32, hidden_dim=32,
+              pair_dim=64, box_scale=16.0)
+    cpu = HierarchicalPredictor(**kw)
+    cpu.load_state_dict(weights.init_predictor_state(cpu, gen))
+    card = HierarchicalPredictor(**kw).cuda()
+    card.load_state_dict(cpu.state_dict())
+    trees, flips = [], []
+    if family == "vctree":
+        def recorded(x, boxes, valid, own=cpu.context.structure):
+            scores, parent, depth = own(x, boxes, valid)
+            trees.append((parent, depth))
+            return scores, parent, depth
+
+        def replayed(x, boxes, valid, own=card.context.structure):
+            scores, parent, depth = own(x, boxes, valid)
+            want, want_depth = (t.to(parent.device)
+                                for t in trees[len(flips)])
+            flips.append(int((parent != want).sum()))
+            return scores, want, want_depth
+
+        cpu.context.structure = recorded
+        card.context.structure = replayed
+    outs = []
+    for p, dev in ((cpu, "cpu"), (card, "cuda")):
+        opt, state = pnp_train_parts(p, cfg)
+        estep = pnp_engine.make_pnp_eval_step(p, cfg, tde=True, device=dev)
+        before = {k: v.cpu() for k, v in estep(batch).items()}
+        step = pnp_engine.make_pnp_train_step(p, cfg, opt, device=dev)
+        _, metrics = step(state, batch)
+        outs.append((before, {k: float(v) for k, v in metrics.items()},
+                     {k: v.detach().cpu() for k, v in
+                      p.state_dict().items()}))
+    if family == "vctree" and (not trees or len(flips) != len(trees)):
+        raise AssertionError(f"vctree built {len(trees)} trees on the CPU, "
+                             f"{len(flips)} on the card")
+    (b0, m0, s0), (b1, m1, s1) = outs
+    errs = {"eval": max(max_err(b1[k], b0[k]) for k in b0
+                        if b0[k].dtype.is_floating_point),
+            "metrics": max(abs(m1[k] - m0[k]) for k in m0),
+            "params": max(max_err(s1[k], s0[k]) for k in s0)}
+    ints = [k for k in b0 if not b0[k].dtype.is_floating_point]
+    if any(not torch.equal(b0[k], b1[k]) for k in ints) \
+            or max(errs.values()) > PNP_TOL:
+        raise AssertionError(f"{family} card vs CPU: {errs}")
+    rec = {"trees": len(trees), "parent_flips": sum(flips)} \
+        if family == "vctree" else {}
+    return {**rec, "max_abs_err": errs, "tolerance": PNP_TOL}
+
+
+def pnp_profile(fn):
+    """device_profile of one call of a pnp step, cut to its totals (device
+    ms, its busy share of the wall time under the tracer, device events)
+    and its three longest kernels."""
+    prof = device_profile(fn, 1, top_ops=0)
+    return {**{k: prof[k] for k in (
+        "wall_ms_per_call", "device_ms_per_call", "device_busy_share",
+        "device_events_per_call")},
+        "top_kernels": prof["top_kernels"][:3]}
+
+
+def phase_pnp(data):
+    """The plug-and-play families at full width (the JAX package's widths:
+    hidden 256, pair 512, embeddings 100, float32; VG's 150 classes and 50
+    relations in (15, 11, 24); 20 objects, 400 directed pairs an image,
+    pooling over the 32x32x256 DETR map; batch 12; seeded weights) from
+    seeded 1024^2 images through the live featurizer: per family
+    fit_predictor for 3 steps (the augmented view dropped before the
+    encode) and run_eval_pc_predictor over 2 batches without and with TDE,
+    exactly one encode a batch and no pair-pool launch; the train step and
+    the eval step (without and with TDE) from features by CUDA events,
+    the host's issue time, peak memory and the device time of one call by
+    torch.profiler; the card-vs-CPU check at reduced widths.  Then the CLI as a user runs it on the mini-OIv6:
+    --dataset oiv6 eval beside --predictor vctree train, then --predictor
+    vctree eval --tde."""
+    torch.cuda.empty_cache()
+    root = os.path.dirname(os.path.abspath(__file__))
+    gen = lambda: torch.Generator().manual_seed(0)  # noqa: E731
+    result = {"phase": "pnp", "card": bench.card_name(), "families": {}}
+    rng = np.random.default_rng(71)
+    train_b = list(image_batches(rng, 3, 12, 1024, with_aug=True))
+    test_b = list(image_batches(rng, 2, 12, 1024, with_aug=False))
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = config_lib.derive(
+            "vg", hierarchical_pred=True, run_mode="train",
+            training={"batch_size": 12, "num_epoch": 1, "print_freq": 1,
+                      "checkpoint_path": os.path.join(tmp, "ck")})
+        featurize, _ = loop.load_detr_featurizer(
+            cfg, device="cuda", generator=gen(), log_fn=lambda *a: None)
+        fbatch = to_device(featurize(test_b[0]), torch.device("cuda"))
+        for family in PNP_FAMILIES:
+            lines = []
+            reset_counts()
+            t0 = time.perf_counter()
+            predictor, state = pnp_engine.fit_predictor(
+                cfg, family, lambda e: iter(train_b), None,
+                featurize=featurize, device="cuda", log_fn=lines.append)
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+            counts = read_counts()
+            want = expected(**{k: v * 3 for k, v in PER_ENCODE.items()})
+            if counts != want:
+                raise AssertionError(f"{family} fit launched {counts}, "
+                                     f"expected {want}")
+            steps = [ln for ln in lines if " batch " in ln]
+            if len(steps) != 3 or "nan" in " ".join(steps):
+                raise AssertionError(f"{family} fit printed {lines}")
+            if not os.path.exists(pnp_engine.checkpoint_file(cfg, family,
+                                                             0)):
+                raise AssertionError(f"{family} fit wrote no checkpoint")
+            evals = {}
+            for tde in (False, True):
+                reset_counts()
+                t0 = time.perf_counter()
+                res = pnp_engine.run_eval_pc_predictor(
+                    cfg, predictor, iter(test_b), featurize=featurize,
+                    tde=tde, device="cuda")
+                secs = time.perf_counter() - t0
+                counts = read_counts()
+                want = expected(**{k: v * 2 for k, v in PER_ENCODE.items()})
+                if counts != want:
+                    raise AssertionError(f"{family} eval (tde={tde}) "
+                                         f"launched {counts}, expected "
+                                         f"{want}")
+                if not res["num_targets"] or not all(
+                        0 <= r <= 1 for r in res["recall"]):
+                    raise AssertionError(f"{family} eval: {res}")
+                evals["tde" if tde else "plain"] = {
+                    "wall_s_per_batch": secs / 2, "recall": res["recall"],
+                    "mean_recall": res["mean_recall"]}
+            # the steps alone, from features on the card
+            opt, tstate = pnp_train_parts(predictor, cfg)
+            tstep = pnp_engine.make_pnp_train_step(predictor, cfg, opt,
+                                                   device="cuda")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            train_ms, train_issue = cuda_ms(lambda: tstep(tstate, fbatch), 5,
+                                            issue=True)
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            step_ms = {"train_step_ms": train_ms,
+                       "train_step_issue_ms": train_issue,
+                       "train_host_issue_share": train_issue / train_ms,
+                       "train_peak_mem_gb": peak,
+                       "train_profile": pnp_profile(
+                           lambda: tstep(tstate, fbatch))}
+            step_ms["train_device_share"] = step_ms["train_profile"][
+                "device_ms_per_call"] / train_ms
+            for tde in (False, True):
+                estep = pnp_engine.make_pnp_eval_step(predictor, cfg,
+                                                      tde=tde, device="cuda")
+                ms, issue = cuda_ms(lambda: estep(fbatch), 5, issue=True)
+                tag = "eval_tde" if tde else "eval"
+                step_ms.update({f"{tag}_step_ms": ms,
+                                f"{tag}_step_issue_ms": issue,
+                                f"{tag}_host_issue_share": issue / ms,
+                                f"{tag}_profile": pnp_profile(
+                                    lambda: estep(fbatch))})
+                step_ms[f"{tag}_device_share"] = step_ms[f"{tag}_profile"][
+                    "device_ms_per_call"] / ms
+            result["families"][family] = {
+                "fit_s_per_step": fit_s / 3, "eval": evals, **step_ms,
+                "last_step_line": steps[-1],
+                "card_vs_cpu": pnp_card_vs_cpu(family, gen())}
+            del predictor, state, tstep, tstate, opt
+        del fbatch
+
+        # the CLI on the mini-OIv6: the flagship's eval beside a VCTree
+        # predictor's training, then the predictor's eval with TDE
+        yaml_path = os.path.join(tmp, "cli.yaml")
+        with open(yaml_path, "w") as f:
+            json.dump({"data": data, "training": {
+                "batch_size": 12, "num_epoch": 1, "print_freq": 1,
+                "test_epoch": 0, "checkpoint_path": os.path.join(tmp, "cli"),
+                "result_path": os.path.join(tmp, "cli_res")}}, f)
+        t0 = time.perf_counter()
+        procs = {name: run_cli(root, yaml_path, "--dataset", "oiv6",
+                               "--eval_mode", "pc", *args)
+                 for name, args in (
+                     ("oiv6_eval", ("--run_mode", "eval")),
+                     ("vctree_train", ("--run_mode", "train",
+                                       "--predictor", "vctree")))}
+        outs = {name: finish_cli(name, p) for name, p in procs.items()}
+        pair_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        outs["vctree_eval_tde"] = finish_cli("vctree_eval_tde", run_cli(
+            root, yaml_path, "--dataset", "oiv6", "--eval_mode", "pc",
+            "--run_mode", "eval", "--predictor", "vctree", "--tde"))
+        tde_s = time.perf_counter() - t0
+        oiv6_res = json.loads(outs["oiv6_eval"].strip().splitlines()[-1])
+        tde_res = json.loads(
+            outs["vctree_eval_tde"].strip().splitlines()[-1])
+        if "wmap_rel" not in oiv6_res or not tde_res["num_targets"]:
+            raise AssertionError(f"CLI results {oiv6_res} {tde_res}")
+        if "[pnp:vctree] TEST epoch 0" not in outs["vctree_train"] or \
+                "Loaded predictor checkpoint" not in outs["vctree_eval_tde"]:
+            raise AssertionError("the CLI chain lost its checkpoint")
+        result["cli"] = {"oiv6_eval_and_vctree_train_s": pair_s,
+                         "vctree_eval_tde_s": tde_s,
+                         "oiv6_eval": {k: oiv6_res[k] for k in (
+                             "recall", "wmap_rel", "wmap_phrase")},
+                         "vctree_tde_recall": tde_res["recall"]}
+    emit(result)
+
+
 def main():
     ap = argparse.ArgumentParser(description="chip smoke of the port")
     ap.add_argument(
         "--phases",
         default="kernel,slice,profile,train,featurize,detect,parity,"
-                "real_data,commonsense")
+                "real_data,commonsense,oiv6,pnp")
     phases = set(ap.parse_args().phases.split(","))
     info = phase_device()
     phase_build()
@@ -3040,6 +3454,13 @@ def main():
         phase_real_data()
     if "commonsense" in phases:
         phase_commonsense()
+    if {"oiv6", "pnp"} & phases:
+        with tempfile.TemporaryDirectory() as tmp:
+            data = mini_oiv6(tmp)
+            if "oiv6" in phases:
+                phase_oiv6(data)
+            if "pnp" in phases:
+                phase_pnp(data)
     if len(kernel) != len(KERNELS) or len(launches) != len(KERNELS):
         return 0                                # a partial run: no summary
     rows = [{"name": name, "route": "cuda", "source": source,

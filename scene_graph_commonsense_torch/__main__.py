@@ -2,9 +2,9 @@
 
   python -m scene_graph_commonsense_torch
       --run_mode train|eval|prepare_cs|train_cs|eval_cs
-      --eval_mode pc|sgc|sgd [--hierar] [--cluster C] [--dataset vg]
+      --eval_mode pc|sgc|sgd [--hierar] [--cluster C] [--dataset vg|oiv6]
       [--synthetic N] [--config YAML] [--batch_size B] [--device cpu|cuda]
-      [--mock-llm]
+      [--mock-llm] [--predictor motifs|transformer|vctree|vtranse [--tde]]
 
 Without --synthetic the run reads Visual Genome from disk as main.py does:
 the YAML's data.annotation_train / annotation_test (instances JSON),
@@ -33,7 +33,20 @@ batches of epoch 0, asks the LLM (OpenAI; --mock-llm: a deterministic
 offline stand-in) about each image's top predictions, and writes
 <data.artifacts_dir>/commonsense_triplets.npz (per-image files under
 <data.annot_dir>/cs_top10, which a rerun resumes from), the table train_cs
-and eval_cs read.  OIv6 exits with a message.
+and eval_cs read.
+
+--dataset oiv6 reads OpenImages V6 as main.py does: SGTR-style
+vrd-{train,test}-anno.json records (data.annotation_train / _test), JPEGs
+<img_fn>.jpg under data.image_dir, optionally depth maps under
+data.depth_dir and a feature cache; OIv6 has no commonsense tables, and
+PredCLS results carry the weighted mAP (wmap_rel, wmap_phrase).
+
+--predictor trains (train / train_cs) or evaluates (eval / eval_cs, PredCLS
+scoring, --tde for Total Direct Effect) a plug-and-play predictor family
+(train/pnp_engine.py) in place of the flagship relation head; its
+checkpoints are <training.checkpoint_path>/Pnp<Family>Model[_CS]_<cluster>
+<epoch>.pt.  --tde without --predictor and --predictor with prepare_cs exit
+with a message.
 """
 
 import argparse
@@ -59,6 +72,14 @@ def parse_args():
     ap.add_argument("--config", default=None, help="optional YAML config")
     ap.add_argument("--synthetic", type=int, default=0,
                     help="run on synthetic batches instead of real data")
+    ap.add_argument("--predictor", default=None,
+                    choices=["motifs", "transformer", "vctree", "vtranse"],
+                    help="train/eval a plug-and-play predictor family "
+                         "(context model + hierarchical head) instead of "
+                         "the flagship relation classifier")
+    ap.add_argument("--tde", action="store_true",
+                    help="score predictor eval by Total Direct Effect "
+                         "(counterfactual debiasing; with --predictor)")
     ap.add_argument("--batch_size", type=int, default=None)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--mock-llm", action="store_true",
@@ -182,6 +203,19 @@ def real_batches(cfg, training: bool):
     if not os.path.exists(annot):
         sys.exit(f"annotation file {annot} not found; run the preprocessing "
                  f"pipeline (tools/preprocess_vg.py) or use --synthetic N")
+    if cfg.data.dataset == "oiv6":
+        from scene_graph_commonsense_torch.data.oiv6 import (
+            OIV6Dataset, oiv6_batches)
+        ds = OIV6Dataset(cfg, annot, training=training,
+                         image_dir=cfg.data.image_dir,
+                         depth_dir=cfg.data.depth_dir or None,
+                         load_images=True)
+
+        def gen_oiv6(epoch=0):
+            return oiv6_batches(ds, cfg.training.batch_size, seed=epoch,
+                                shuffle=training)
+
+        return gen_oiv6
     from scene_graph_commonsense_torch.data.dataset import (
         VGDataset, batches_from_dataset)
     with open(annot) as f:
@@ -216,6 +250,46 @@ def _result_view(res):
             and k != "recall_per_class"}
 
 
+def run_predictor(args, cfg, train_fn, test_fn, steps_per_epoch, artifacts,
+                  featurize):
+    """--predictor: fit_predictor for train / train_cs; for eval / eval_cs
+    the checkpoint of training.test_epoch (else a warning and the seeded
+    initialisation) through run_eval_pc_predictor, printed as one JSON
+    line."""
+    from scene_graph_commonsense_torch.train import checkpoint as ckpt_lib
+    from scene_graph_commonsense_torch.train import pnp_engine
+    run_mode = cfg.training.run_mode
+    if run_mode in ("train", "train_cs"):
+        try:
+            pnp_engine.fit_predictor(
+                cfg, args.predictor, train_fn, test_fn, artifacts=artifacts,
+                featurize=featurize, steps_per_epoch=steps_per_epoch,
+                device=args.device)
+        except ValueError as e:       # train_cs without triplet tables
+            sys.exit(str(e))
+        return
+    ckpt = pnp_engine.checkpoint_file(cfg, args.predictor,
+                                      cfg.training.test_epoch, run_mode)
+    state_dict = None
+    if os.path.exists(ckpt):
+        state_dict = ckpt_lib.load(ckpt)
+        print(f"Loaded predictor checkpoint {ckpt}")
+    else:
+        print(f"WARNING: predictor checkpoint {ckpt} not found — "
+              f"evaluating randomly initialized weights")
+    predictor = pnp_engine.make_predictor(cfg, args.predictor,
+                                          device=args.device,
+                                          state_dict=state_dict)
+    try:
+        res = pnp_engine.run_eval_pc_predictor(
+            cfg, predictor, test_fn(0), artifacts=artifacts,
+            featurize=featurize, use_cs=run_mode == "eval_cs",
+            tde=args.tde, device=args.device)
+    except ValueError as e:           # eval_cs without triplet tables
+        sys.exit(str(e))
+    print(json.dumps(_result_view(res), default=str))
+
+
 def main():
     args = parse_args()
     cfg = build_cfg(args)
@@ -224,12 +298,18 @@ def main():
           f"hierar={cfg.model.hierarchical_pred} "
           f"cluster={cfg.data.supcat_clustering}")
     run_mode = cfg.training.run_mode
-    if not args.synthetic and cfg.data.dataset != "vg":
-        sys.exit(f"the {cfg.data.dataset} loader is not yet ported to "
-                 f"PyTorch; the port reads Visual Genome (use main.py)")
+    if args.tde and not args.predictor:
+        # refuse instead of running plain (biased) scoring that would be
+        # reported as +TDE numbers
+        sys.exit("--tde requires --predictor (TDE scoring is implemented "
+                 "for the plug-and-play predictor eval path)")
+    if args.predictor and run_mode == "prepare_cs":
+        # prepare_cs collects triplets from the flagship PredCLS path
+        sys.exit(f"--predictor does not support run_mode {run_mode}")
     training = run_mode in ("train", "train_cs")
+    # the predictor families score PredCLS only: no detector
     detect = run_mode in ("eval", "eval_cs") \
-        and cfg.training.eval_mode != "pc"
+        and cfg.training.eval_mode != "pc" and not args.predictor
     if args.synthetic and detect:
         sys.exit("sgc/sgd need detector outputs; run on real data with a "
                  "converted DETR checkpoint")
@@ -265,6 +345,10 @@ def main():
         detr = loop.load_detr(cfg, device=args.device, detection=detect)
         featurize = loop.make_detr_featurize_fn(cfg, detr)
 
+    if args.predictor:
+        run_predictor(args, cfg, train_fn, test_fn, steps_per_epoch,
+                      artifacts, featurize)
+        return
     if training:
         model = make_relation_classifier(cfg, device=args.device)
         try:

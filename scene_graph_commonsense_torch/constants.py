@@ -3,7 +3,7 @@ post-process need.
 
 A subset of scene_graph_commonsense_tpu/constants.py, copied so that the port
 imports nothing of the JAX package (reference dataset_utils.py:586-650,
-606-614, 764-787, utils.py:250-274, 355-373, train_test.py:105-106).
+606-614, 749-757, 764-787, utils.py:250-274, 355-373, train_test.py:105-106).
 """
 
 from __future__ import annotations
@@ -96,6 +96,20 @@ VG_REL_COUNTS_SCAT = np.array(
      5213, 2312, 3806, 4688, 1973, 1853, 9894, 42722, 3739,
      3083, 1869, 2253, 3095, 2721, 3810, 8856, 2241, 18643,
      14185, 1925, 1740, 4613, 3490], dtype=np.int64)
+
+# OpenImages V6 (30 relations) and the permutation that orders them by
+# super-category (data/oiv6.py applies it to the raw triplets).
+# reference dataset_utils.py:749-757
+OIV6_RELATIONS = (
+    "at", "holds", "wears", "surf", "hang", "drink", "holding_hands", "on",
+    "ride", "dance", "skateboard", "catch", "highfive", "inside_of", "eat",
+    "cut", "contain", "handshake", "kiss", "talk_on_phone", "interacts_with",
+    "under", "hug", "throw", "hits", "snowboard", "kick", "ski", "plays",
+    "read",
+)
+OIV6_REORDER_BY_SUPER = np.array(
+    [0, 6, 5, 7, 8, 9, 10, 1, 11, 12, 13, 14, 15, 2, 16, 17, 4, 18, 19, 20,
+     21, 3, 22, 23, 24, 25, 26, 27, 28, 29], dtype=np.int32)
 
 OIV6_REL_COUNTS = np.array(
     [150983, 7665, 841, 455, 9402, 52561, 145480, 157, 175, 77, 27, 4827,

@@ -74,6 +74,53 @@ def _embed(table: nn.Embedding, idx: torch.Tensor,
     return F.embedding(idx.long(), table.weight.to(dtype))
 
 
+class BayesianHead(nn.Module):
+    """Standalone hierarchical prediction head (the plug-and-play variant,
+    reference model.py:9-34): three per-super-category predicate branches
+    composed with the super-category log-probability by Bayes' rule,
+    log p(rel, super) = log p(rel | super) + log p(super).  The layers
+    compute in `dtype` and the logits in at least float32, as in the JAX
+    package's BayesianHead."""
+
+    def __init__(self, in_features: int, num_geometric: int = 15,
+                 num_possessive: int = 11, num_semantic: int = 24,
+                 T1: float = 1.0, T2: float = 1.0, T3: float = 1.0,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.sizes = (num_geometric, num_possessive, num_semantic)
+        self.temperatures = (T1, T2, T3)
+        self.dtype = dtype
+        self.fc5 = nn.Linear(in_features, 3)
+        self.fc3_1 = nn.Linear(in_features, num_geometric)
+        self.fc3_2 = nn.Linear(in_features, num_possessive)
+        self.fc3_3 = nn.Linear(in_features, num_semantic)
+
+    def forward(self, h: torch.Tensor, bias: Optional[torch.Tensor] = None):
+        """h: (P, in_features).  Optional `bias` (P, num_relations): an
+        additive per-predicate logit row (e.g. Motifs' frequency prior),
+        split across the three branch segments; each segment's logsumexp
+        shifts the super-category logits, so the composed joint equals
+        softmax(logits + bias) marginalized the hierarchical way.  Returns
+        (rel1, rel2, rel3, super) log-probabilities."""
+        dt = self.dtype
+        ng, npos, _ = self.sizes
+        sup_logits = _at_least_f32(_dense(self.fc5, h, dt))
+        segs = (None, None, None) if bias is None else (
+            bias[:, :ng], bias[:, ng:ng + npos], bias[:, ng + npos:])
+        if bias is not None:
+            sup_logits = sup_logits + torch.stack(
+                [torch.logsumexp(s, dim=1) for s in segs], dim=1)
+        sup = F.log_softmax(sup_logits, 1)
+        branches = []
+        for i, (layer, t) in enumerate(zip(
+                (self.fc3_1, self.fc3_2, self.fc3_3), self.temperatures)):
+            logits = _at_least_f32(_dense(layer, h, dt))
+            if segs[i] is not None:
+                logits = logits + segs[i]
+            branches.append(F.log_softmax(logits / t, 1) + sup[:, i:i + 1])
+        return branches[0], branches[1], branches[2], sup
+
+
 class RelationClassifier(nn.Module):
     """Pair-grid relation classifier with flat or hierarchical output."""
 

@@ -373,3 +373,148 @@ def init_detr_params(cfg, generator: Optional[torch.Generator] = None,
                 shape, math.sqrt(1.0 / fan_in) / .87962566103423978,
                 generator)
     return sd
+
+
+# ---------------------------------------------------------------------------
+# Plug-and-play predictors (models/predictors.py)
+# ---------------------------------------------------------------------------
+
+# flax OptimizedLSTMCell's gate kernels, in the order the port stacks them
+_LSTM_GATES = ("i", "f", "g", "o")
+
+
+def predictor_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX package's HierarchicalPredictor param tree ({"params": ...}
+    or the inner dict, numpy arrays) -> the port's state dict:
+
+      * dense kernels (in, out) -> Linear weights (out, in);
+      * an LSTM cell's ii/if/ig/io kernels -> `cell.i.weight` and its
+        hi/hf/hg/ho kernels and biases -> `cell.h.weight` / `cell.h.bias`,
+        the four gates stacked in that order;
+      * attention query/key/value kernels (D, heads, head_dim) and biases
+        (heads, head_dim) -> Linear layers on the flattened heads; `out`
+        (heads, head_dim, D) likewise;
+      * LayerNorm scale -> weight; embedding tables as they are."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def put(key, a):
+        sd[key] = torch.from_numpy(np.array(a))
+
+    def walk(tree, prefix):
+        if "embedding" in tree:
+            put(prefix + "weight", tree["embedding"])
+        elif "scale" in tree:
+            put(prefix + "weight", tree["scale"])
+            put(prefix + "bias", tree["bias"])
+        elif "ii" in tree:
+            put(prefix + "i.weight", np.concatenate(
+                [np.asarray(tree["i" + g]["kernel"]) for g in _LSTM_GATES],
+                axis=1).T)
+            put(prefix + "h.weight", np.concatenate(
+                [np.asarray(tree["h" + g]["kernel"]) for g in _LSTM_GATES],
+                axis=1).T)
+            put(prefix + "h.bias", np.concatenate(
+                [np.asarray(tree["h" + g]["bias"]) for g in _LSTM_GATES]))
+        elif "kernel" in tree:
+            k = np.asarray(tree["kernel"])
+            if k.ndim == 3:
+                k = k.reshape(-1, k.shape[2]) if prefix.endswith("out.") \
+                    else k.reshape(k.shape[0], -1)
+            put(prefix + "weight", k.T)
+            if "bias" in tree:
+                put(prefix + "bias", np.asarray(tree["bias"]).reshape(-1))
+        else:
+            for name, sub in tree.items():
+                walk(sub, f"{prefix}{name}.")
+
+    walk(params.get("params", params), "")
+    return sd
+
+
+def predictor_to_flax(state_dict: Mapping[str, torch.Tensor],
+                      num_heads: int = 4) -> Dict:
+    """The inverse of predictor_from_flax: the port's state dict -> the
+    JAX package's param tree {"params": {...}} of numpy arrays.
+    `num_heads` is the Transformer context's (its attention kernels are
+    (D, heads, head_dim) in flax)."""
+    tree: Dict = {}
+
+    def leaf(path):
+        node = tree
+        for name in path:
+            node = node.setdefault(name, {})
+        return node
+
+    for key, v in state_dict.items():
+        a = _np(v)
+        path, kind = key.split(".")[:-1], key.rsplit(".", 1)[1]
+        name = path[-1]
+        if path[-2:-1] == ["cell"]:
+            # i.weight / h.weight / h.bias: four gates stacked
+            for g, part in zip(_LSTM_GATES, np.split(a, 4, axis=0)):
+                node = leaf(path[:-2] + ["cell", name + g])
+                node["kernel" if kind == "weight" else "bias"] = \
+                    np.ascontiguousarray(part.T if part.ndim == 2 else part)
+            continue
+        node = leaf(path)
+        if name in ("label_embed", "table"):
+            node["embedding"] = a
+        elif name.startswith(("ln_", "pair_norm")):
+            node["scale" if kind == "weight" else "bias"] = a
+        elif len(path) > 1 and path[-2].startswith("attn"):
+            d = a.shape[0] if name == "out" else a.shape[-1]
+            if kind == "bias":
+                node["bias"] = a if name == "out" else a.reshape(
+                    num_heads, -1)
+            elif name == "out":
+                node["kernel"] = np.ascontiguousarray(
+                    a.T.reshape(num_heads, -1, d))
+            else:
+                node["kernel"] = np.ascontiguousarray(
+                    a.T.reshape(d, num_heads, -1))
+        elif kind == "weight":
+            node["kernel"] = np.ascontiguousarray(a.T)
+        else:
+            node["bias"] = a
+    return {"params": tree}
+
+
+def init_predictor_state(module: torch.nn.Module,
+                         generator: torch.Generator
+                         ) -> Dict[str, torch.Tensor]:
+    """Fresh float32 weights of a HierarchicalPredictor with flax's default
+    distributions: lecun-normal dense kernels (attention kernels by their
+    flax fan-in), orthogonal recurrent LSTM kernels, zero biases, LayerNorm
+    scale 1, embeddings normal with variance 1/features, the frequency
+    table 0.  The distributions of the JAX package's init, not its
+    numbers."""
+    sd: Dict[str, torch.Tensor] = {}
+    for key, v in module.state_dict().items():
+        shape = tuple(v.shape)
+        parts = key.split(".")
+        if parts[-1] == "bias":
+            sd[key] = torch.zeros(shape)
+        elif parts[-2].startswith(("ln_", "pair_norm")):
+            sd[key] = torch.ones(shape)
+        elif parts[-2] == "table":
+            sd[key] = torch.zeros(shape)
+        elif parts[-2] == "label_embed":
+            sd[key] = torch.empty(shape).normal_(
+                0.0, 1.0 / math.sqrt(shape[1]), generator=generator)
+        elif parts[-3:-1] == ["cell", "h"]:
+            # one orthogonal (H, H) kernel per gate
+            h = shape[1]
+            sd[key] = torch.cat([torch.nn.init.orthogonal_(
+                torch.empty(h, h), generator=generator)
+                for _ in _LSTM_GATES])
+        else:
+            # fan-in = the input width (for attention's `out`, heads *
+            # head_dim, as flax's DenseGeneral over two axes counts it)
+            fan_in = shape[1]
+            rows = shape[0] // 4 if parts[-3:-1] == ["cell", "i"] else \
+                shape[0]
+            std = math.sqrt(1.0 / fan_in) / .87962566103423978
+            sd[key] = torch.cat([_trunc_normal((rows, shape[1]), std,
+                                               generator)
+                                 for _ in range(shape[0] // rows)])
+    return sd

@@ -12,6 +12,17 @@ from __future__ import annotations
 import torch
 
 
+def resize_box(box, original_size, new_size):
+    """Rescales one (x_min, y_min, x_max, y_max) box between image sizes
+    ((height, width) each) and truncates to int (reference utils.py:38-55).
+    Plain Python on the host: the loaders call it per annotation."""
+    ratio_h = new_size[0] / original_size[0]
+    ratio_w = new_size[1] / original_size[1]
+    xmin, ymin, xmax, ymax = box
+    return [int(xmin * ratio_w), int(ymin * ratio_h),
+            int(xmax * ratio_w), int(ymax * ratio_h)]
+
+
 def _int_rect(boxes: torch.Tensor, size: int):
     """Integer-truncated, grid-clipped (x0, x1, y0, y1) rectangle, replicating
     the reference's `mask[int(b2):int(b3), int(b0):int(b1)] = 1` on an SxS
@@ -43,6 +54,41 @@ def mask_intersection(boxes_a: torch.Tensor, boxes_b: torch.Tensor,
     iw = (torch.minimum(ax1, bx1) - torch.maximum(ax0, bx0)).clamp_min(0)
     ih = (torch.minimum(ay1, by1) - torch.maximum(ay0, by0)).clamp_min(0)
     return iw * ih
+
+
+def union_mask_iou(pred_a: torch.Tensor, pred_b: torch.Tensor,
+                   tgt_a: torch.Tensor, tgt_b: torch.Tensor,
+                   size: int = 32) -> torch.Tensor:
+    """IoU between the union masks of two box pairs (reference
+    evaluator.py:97-115; the OIv6 phrase wmAP).  The union of two
+    rectangles is not a rectangle, so the intersection of the unions comes
+    from inclusion-exclusion over rectangle intersections on the integer
+    grid:
+      |(A|B) & (C|D)| = |AC| + |AD| + |BC| + |BD| - |ABC| - |ABD| - |ACD|
+                        - |BCD| + |ABCD|."""
+
+    def rect(b):
+        return torch.stack(_int_rect(b, size), dim=-1)
+
+    def inter_n(*rects):
+        x0, x1 = rects[0][..., 0], rects[0][..., 1]
+        y0, y1 = rects[0][..., 2], rects[0][..., 3]
+        for r in rects[1:]:
+            x0 = torch.maximum(x0, r[..., 0])
+            x1 = torch.minimum(x1, r[..., 1])
+            y0 = torch.maximum(y0, r[..., 2])
+            y1 = torch.minimum(y1, r[..., 3])
+        return (x1 - x0).clamp_min(0) * (y1 - y0).clamp_min(0)
+
+    a, b, c, d = rect(pred_a), rect(pred_b), rect(tgt_a), rect(tgt_b)
+    union_p = inter_n(a) + inter_n(b) - inter_n(a, b)
+    union_t = inter_n(c) + inter_n(d) - inter_n(c, d)
+    inter = (inter_n(a, c) + inter_n(a, d) + inter_n(b, c) + inter_n(b, d)
+             - inter_n(a, b, c) - inter_n(a, b, d) - inter_n(a, c, d)
+             - inter_n(b, c, d) + inter_n(a, b, c, d))
+    union = union_p + union_t - inter
+    iou = inter / union.clamp_min(1)
+    return torch.where(union > 0, iou, torch.zeros_like(iou))
 
 
 def union_box(box_a: torch.Tensor, box_b: torch.Tensor) -> torch.Tensor:

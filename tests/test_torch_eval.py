@@ -209,13 +209,14 @@ def test_torch_cli_loads_checkpoint(tmp_path):
 
 
 def test_torch_cli_refuses_unported_modes(tmp_path):
-    # the OIv6 loader is not ported; sgc on real data that is not on disk
-    # exits as main.py does (on data that is: tests/test_torch_cli_real.py;
-    # with --synthetic, main.py's "need detector outputs" exit:
-    # tests/test_torch_engines_detect.py).  prepare_cs runs:
-    # tests/test_torch_commonsense.py
+    # OIv6 and sgc on real data that is not on disk exit as main.py does
+    # (on data that is: tests/test_torch_oiv6.py and
+    # tests/test_torch_cli_real.py; sgc with --synthetic, main.py's "need
+    # detector outputs" exit: tests/test_torch_engines_detect.py).
+    # prepare_cs runs: tests/test_torch_commonsense.py
     for args, msg in (
-            (["--run_mode", "eval", "--dataset", "oiv6"], "not yet ported"),
+            (["--run_mode", "eval", "--dataset", "oiv6"],
+             "vrd-test-anno.json not found"),
             (["--run_mode", "eval", "--eval_mode", "sgc"],
              "instances_vg_test.json not found")):
         res = _cli(tmp_path, *args, "--device", "cpu")

@@ -50,7 +50,11 @@ def test_torch_port_imports_nothing_of_jax():
                    "data/depth.py", "tools/make_mini_vg.py",
                    "tools/precompute_features.py", "tools/sgrecords.py",
                    "commonsense/cache.py", "commonsense/client.py",
-                   "commonsense/pipeline.py", "ops/boxes.py"):
+                   "commonsense/pipeline.py", "ops/boxes.py",
+                   "data/oiv6.py", "data/label_transfer.py",
+                   "models/context.py", "models/predictors.py",
+                   "train/pnp_engine.py", "plugandplay.py",
+                   "tools/make_mini_oiv6.py"):
         assert f"scene_graph_commonsense_torch/{module}" in scanned, module
     for path in files:
         bad = _imported_roots(path) & FORBIDDEN
