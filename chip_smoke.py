@@ -164,6 +164,29 @@ Phases, each printing JSON lines:
               the CLI on the
               mini-OIv6: --dataset oiv6 eval beside --predictor vctree
               train, then --predictor vctree eval --tde, each exiting 0.
+ 14. mesh:    data parallelism (parallel/mesh.py) at bench.py's
+              configuration: world size 1 over NCCL in this process, the
+              mesh train step held bit for bit against the single-device
+              step over 3 steps (parameters and metrics; deterministic
+              cuDNN and index kernels for both) and the mesh eval step
+              against the unsharded one, both step times by CUDA events
+              in turns, exactly 2 + 2 training-kernel launches a step and
+              1 forward launch an eval step; fit(mesh=, featurize=) from
+              seeded 1024^2 images for 2 steps with fused_backbone auto
+              (one encode a step: the trunk and encoder kernels); then
+              world size 2 over gloo's CUDA path, two processes of this
+              script on the one card (6 images a rank): a first update
+              without the clip (which would scale away an error in the
+              mean's scale) within MESH_UPDATE_TOL of one process's
+              two-shard update (engine.train_losses on each half with that
+              rank's dropout streams, the mean gradient, the optimizer);
+              3 clipped steps with both ranks' parameters bit-identical
+              after each, the step and the all-reduce alone by the host
+              clock, the launches per rank, the sharded eval step through
+              gloo's all-gather, fused_backbone auto resolved off, and a
+              step with the bfloat16 all-reduce (finite, the ranks
+              bit-identical after it); last, two processes that put NCCL
+              on the one card (what NCCL says).
 Phase `kernel` also holds the encoder kernels against their plain versions:
 attention at (B, 1024, 8, 32) for B = 12 and 24, with all keys valid, 80%
 of the keys masked, and one image's keys all masked; FFN + LayerNorm at
@@ -198,6 +221,7 @@ need all phases).
 """
 
 import argparse
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -211,6 +235,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from scene_graph_commonsense_torch import bench
@@ -246,6 +271,8 @@ from scene_graph_commonsense_torch.ops import boxes as box_ops
 from scene_graph_commonsense_torch.ops.detection import (
     postprocess_detections)
 from scene_graph_commonsense_torch.ops.nms import class_aware_nms
+from scene_graph_commonsense_torch.parallel import mesh as mesh_lib
+from scene_graph_commonsense_torch.parallel.launch import run_processes
 from scene_graph_commonsense_torch.tools.make_mini_oiv6 import (
     data_config, make_mini_oiv6)
 from scene_graph_commonsense_torch.tools.make_mini_vg import make_mini_vg
@@ -3417,13 +3444,405 @@ def phase_pnp(data):
     emit(result)
 
 
+# phase mesh: train steps per path, the world-size-2 run's processes and its
+# limit, and the rule of the world-2 run's first update against one
+# process's two-shard update: |got - want| <= MESH_UPDATE_TOL * max |want|
+# over the update (new weights - old); under deterministic algorithms both
+# sum the same bf16 gradients in the same order, and the rule leaves room
+# for one bf16 rounding (2^-8 relative) of a gradient element
+MESH_STEPS = 3
+MESH_WORLD = 2
+MESH_TIMEOUT_S = 600
+MESH_UPDATE_TOL = 2 ** -7
+
+
+@contextlib.contextmanager
+def deterministic():
+    """cuDNN's and PyTorch's deterministic algorithms (index_put and
+    index_add_ without atomics), so that two runs of one step can be held
+    bit for bit; restored on exit."""
+    was = (torch.backends.cudnn.deterministic,
+           torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = was[0]
+        torch.use_deterministic_algorithms(was[1], warn_only=was[2])
+
+
+def eval_batch(cfg):
+    """A batch like bench.py's, from another seed, without the augmented
+    view."""
+    return {k: v for k, v in bench.bench_batch(cfg, 1, "cuda").items()
+            if k != "features_aug"}
+
+
+def mesh_world1(mesh, tmp):
+    """World size 1 over NCCL at bench.py's configuration: the mesh train
+    step against the single-device step, bit for bit over MESH_STEPS steps
+    (the all-reduce of one rank is the identity, rank 0 draws the
+    single-device dropout streams), the mesh eval step against the
+    unsharded one, both step times by CUDA events, the launches; then
+    fit(mesh=, featurize=) from seeded 1024^2 images with fused_backbone
+    auto (the trunk and encoder kernels)."""
+    cfg, model_a, step_a, state_a, batch = bench.setup(seed=0, device="cuda")
+    _, model_b, step_b, state_b, _ = bench.setup(seed=0, mesh=mesh)
+    launches = expected()
+    with deterministic():
+        for i in range(MESH_STEPS):
+            state_a, met_a = step_a(state_a, batch)
+            reset_counts()
+            state_b, met_b = step_b(state_b, mesh_lib.shard_batch(mesh, batch))
+            torch.cuda.synchronize()
+            launches = {k: launches[k] + v for k, v in read_counts().items()}
+            met_a = {k: float(v) for k, v in met_a.items()}
+            met_b = {k: float(v) for k, v in met_b.items()}
+            if met_a != met_b or not all(np.isfinite(list(met_a.values()))):
+                raise AssertionError(f"mesh step {i}: metrics {met_b} vs the "
+                                     f"single-device step's {met_a}")
+            differ = [k for k, p in model_a.named_parameters()
+                      if not torch.equal(p, model_b.get_parameter(k))]
+            if differ:
+                raise AssertionError(f"mesh step {i}: parameters {differ} "
+                                     f"differ from the single-device step's")
+        want = expected(pair_pool_idx=2 * MESH_STEPS,
+                        pair_pool_bwd=2 * MESH_STEPS)
+        if launches != want:
+            raise AssertionError(f"mesh train steps launched {launches}, "
+                                 f"expected {want}")
+        ebatch = eval_batch(cfg)
+        estep_a = engine.make_eval_step(model_a, cfg, device="cuda")
+        estep_b = engine.make_eval_step(model_b, cfg, mesh=mesh)
+        out_a = estep_a(ebatch)
+        reset_counts()
+        out_b = estep_b(mesh_lib.shard_batch(mesh, ebatch))
+        torch.cuda.synchronize()
+        eval_launches = read_counts()
+        differ = [k for k, v in out_a.items() if not torch.equal(v, out_b[k])]
+        if differ or eval_launches != expected(pair_pool=1):
+            raise AssertionError(f"mesh eval step: {differ} differ, "
+                                 f"launches {eval_launches}")
+
+    # step times, the default (non-deterministic) algorithms, in turns
+    def timed_steps(step, state, b):
+        def one():
+            nonlocal state
+            state, _ = step(state, b)
+        return cuda_ms(one, 5)
+
+    local = mesh_lib.shard_batch(mesh, batch)
+    times = {"single": [], "mesh": []}
+    for _ in range(2):
+        times["single"].append(timed_steps(step_a, state_a, batch))
+        times["mesh"].append(timed_steps(step_b, state_b, local))
+    eval_ms = {"single": cuda_ms(lambda: estep_a(ebatch), 5),
+               "mesh": cuda_ms(lambda: estep_b(
+                   mesh_lib.shard_batch(mesh, ebatch)), 5)}
+    del model_a, model_b, state_a, state_b, step_a, step_b, estep_a, estep_b
+    del batch, local, ebatch, out_a, out_b
+    torch.cuda.empty_cache()
+
+    # fit(mesh=, featurize=): the fused trunk under auto at world size 1
+    fcfg = bench.bench_config(num_epoch=1, print_freq=1, eval_freq=0,
+                              checkpoint_path=os.path.join(tmp, "ck"),
+                              result_path=os.path.join(tmp, "res"))
+    featurize, detr = loop.load_detr_featurizer(
+        fcfg, device="cuda", generator=torch.Generator().manual_seed(0),
+        log_fn=lambda *a: None)
+    if not (detr.fused_backbone and detr.flash_encoder):
+        raise AssertionError("fused_backbone auto is off at world size 1")
+    fmodel = make_relation_classifier(
+        fcfg, device="cuda", generator=torch.Generator().manual_seed(1))
+    steps, lines = 2, []
+    reset_counts()
+    t0 = time.perf_counter()
+    loop.fit(fcfg, fmodel,
+             lambda e: image_batches(np.random.default_rng(30 + e), steps,
+                                     12, fcfg.model.image_size,
+                                     with_aug=True),
+             None, steps_per_epoch=steps,
+             artifacts=load_vg_artifacts("datasets/artifacts"),
+             featurize=featurize, log_fn=lines.append, mesh=mesh)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_launches = read_counts()
+    want = expected(**{k: v * steps for k, v in PER_ENCODE.items()},
+                    pair_pool_idx=2 * steps, pair_pool_bwd=2 * steps)
+    train_lines = [ln for ln in lines if ln.startswith("TRAIN")]
+    if fit_launches != want or len(train_lines) != steps \
+            or any("nan" in ln.lower() for ln in train_lines):
+        raise AssertionError(f"fit(mesh=, featurize=) launched "
+                             f"{fit_launches}, expected {want}; {lines}")
+    del detr, fmodel, featurize
+    torch.cuda.empty_cache()
+    return {"backend": dist.get_backend(), "steps": MESH_STEPS,
+            "bitwise_equal_steps": MESH_STEPS, "train_launches": launches,
+            "eval_launches": eval_launches,
+            "step_ms_single": times["single"], "step_ms_mesh": times["mesh"],
+            "eval_ms": eval_ms, "fit_featurize_steps": steps,
+            "fit_featurize_s": fit_s, "fit_featurize_launches": fit_launches}
+
+
+def ranks_identical(mesh, params):
+    """Whether every rank holds rank 0's bits of every tensor (broadcast
+    and compared on each rank, then agreed over the group)."""
+    same = True
+    for p in params.values():
+        buf = p.detach().clone()
+        dist.broadcast(buf, src=0)
+        same = same and torch.equal(buf, p.detach())
+    flag = torch.tensor([int(same)], device=mesh.device)
+    dist.all_reduce(flag, op=dist.ReduceOp.MIN)
+    return bool(flag.item())
+
+
+def mesh_reference_update(cfg, batch):
+    """One process's data-parallel update on the card: the port's
+    forward_pairs and losses (engine.train_losses) on each half of the
+    batch at the shards' capacities with that rank's dropout streams, the
+    mean of the two gradients, the optimizer.  Returns (weights before,
+    after) by name."""
+    _, model, _, state, _ = bench.setup(cfg, seed=0, device="cuda")
+    before = {k: p.detach().clone() for k, p in state.params.items()}
+    cap = engine.train_pair_capacity(cfg, MESH_WORLD)
+    aug = engine.aug_pair_capacity(cfg, MESH_WORLD)
+    weights_ = torch.as_tensor(class_weights("vg"), device="cuda")
+    model.train()
+    for rank in range(MESH_WORLD):
+        half = mesh_lib.shard_batch(
+            mesh_lib.Mesh(MESH_WORLD, 1, rank, torch.device("cuda")), batch)
+        gens = engine.dropout_generators(cfg.training.seed, 0, "cuda", rank)
+        total, _ = engine.train_losses(model, cfg, half, cap, aug, gens,
+                                       weights_)
+        total.backward()            # the second half's adds to the first's
+    grads = {k: p.grad.div_(MESH_WORLD) for k, p in state.params.items()}
+    bench.optimizer(cfg).update(grads, state.opt_state, state.params)
+    after = {k: p.detach().clone() for k, p in state.params.items()}
+    del model, state, grads
+    torch.cuda.empty_cache()
+    return before, after
+
+
+def mesh_first_update(mesh, cfg, batch):
+    """The first world-size-2 update without the clip against one
+    process's two-shard update (rank 0 computes the reference): the clip
+    by global norm would scale away an error in the averaged gradient's
+    scale (a sum without the division, a double division).  Returns
+    (max |error|, max |update|) on rank 0, else None."""
+    cfg = dataclasses.replace(cfg, training=dataclasses.replace(
+        cfg.training, grad_clip_norm=0.0))
+    if mesh.rank == 0:
+        before, want = mesh_reference_update(cfg, batch)
+    _, model, step, state, _ = bench.setup(cfg, seed=0, mesh=mesh)
+    state, met = step(state, mesh_lib.shard_batch(mesh, batch))
+    if not all(np.isfinite(float(v)) for v in met.values()):
+        raise AssertionError(f"non-finite metrics of the unclipped step "
+                             f"{met}")
+    got = None
+    if mesh.rank == 0:
+        got = (max(float((p - want[k]).abs().max())
+                   for k, p in state.params.items()),
+               max(float((want[k] - before[k]).abs().max()) for k in want))
+    del model, step, state
+    torch.cuda.empty_cache()
+    return got
+
+
+def mesh_rank_main(rank, work):
+    """One rank of phase mesh's world-size-2 run: gloo's CUDA path, both
+    ranks on the one card, at bench.py's configuration (6 images a rank).
+    Writes its result to <work>/rank<rank>.json."""
+    result = {"rank": rank}
+    mesh_lib.init_multihost(f"file://{work}/gloo.store", MESH_WORLD, rank,
+                            device="cuda", backend="gloo")
+    try:
+        mesh = mesh_lib.make_mesh(device="cuda")
+        cfg = bench.bench_config()
+        result["fused_backbone_auto"] = detr_lib.resolve_detr_modes(
+            cfg, mesh.device)[0]
+        with deterministic():
+            first = mesh_first_update(mesh, cfg,
+                                      bench.bench_batch(cfg, 0, "cuda"))
+            if first is not None:
+                (result["first_update_max_abs_err"],
+                 result["first_update_max_abs"]) = first
+            _, model, step, state, batch = bench.setup(cfg, seed=0,
+                                                       mesh=mesh)
+            local = mesh_lib.shard_batch(mesh, batch)
+            reset_counts()
+            step_s, same = [], []
+            for i in range(MESH_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, met = step(state, local)
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+                if not all(np.isfinite(float(v)) for v in met.values()):
+                    raise AssertionError(f"non-finite metrics {met}")
+                same.append(ranks_identical(mesh, state.params))
+            result["train_launches"] = read_counts()
+        result.update(step_s=step_s, ranks_bitwise_identical=same,
+                      loss_last=float(met["loss"]))
+        # the gradient all-reduce alone: the master weights' bytes through
+        # gloo (device to host, the exchange, host to device)
+        flat = torch.zeros(sum(p.numel() for p in state.params.values()),
+                           device=mesh.device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mesh_lib.all_mean_(mesh, flat)
+        torch.cuda.synchronize()
+        result["allreduce_s"] = time.perf_counter() - t0
+        result["allreduce_bytes"] = flat.numel() * flat.element_size()
+        del flat
+        reset_counts()
+        out = engine.make_eval_step(model, cfg, mesh=mesh)(
+            mesh_lib.shard_batch(mesh, eval_batch(cfg)))
+        torch.cuda.synchronize()
+        result["eval_launches"] = read_counts()
+        result["eval_pair_count"] = out["pair_count"].tolist()
+        result["eval_finite"] = bool(torch.isfinite(
+            out["relation"][out["pair_mask"]]).all())
+        # the bfloat16 all-reduce through gloo's CUDA path
+        bf_cfg = bench.bench_config(grad_allreduce_dtype="bfloat16")
+        bf_step = engine.make_train_step(model, bf_cfg,
+                                         bench.optimizer(bf_cfg),
+                                         class_weights("vg"), mesh=mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, met = bf_step(state, local)
+        torch.cuda.synchronize()
+        result["bf16_allreduce"] = {
+            "step_s": time.perf_counter() - t0,
+            "loss": float(met["loss"]),
+            "ranks_bitwise_identical": ranks_identical(mesh, state.params)}
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+
+
+def nccl_duplicate_rank_main(rank, work):
+    """One of two ranks that put NCCL on the same card: records whether
+    the first collective raises (NCCL: "Duplicate GPU detected")."""
+    mesh_lib.init_multihost(f"file://{work}/nccl_dup.store", MESH_WORLD,
+                            rank, device="cuda")
+    result = {"rank": rank, "raised": None}
+    try:
+        x = torch.ones(1, device="cuda")
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+    except RuntimeError as e:             # dist.DistBackendError included
+        result["raised"] = str(e)[:300]
+    # written before the group is torn down, which may not return after
+    # a failed NCCL communicator (the parent kills what is left)
+    with open(os.path.join(work, f"nccl_dup{rank}.json"), "w") as f:
+        json.dump(result, f)
+    dist.destroy_process_group()
+
+
+def run_ranks(work, flag, timeout):
+    """MESH_WORLD processes of this script with --<flag> (the rank's
+    entry), their output in files under `work`; their exit codes and
+    output, killing any left at `timeout`."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+    logs = [os.path.join(work, f"{flag}{r}.log") for r in range(MESH_WORLD)]
+    codes, timed_out = run_processes(
+        [[sys.executable, os.path.abspath(__file__), f"--{flag}", str(r),
+          "--work", work] for r in range(MESH_WORLD)], here, env, logs,
+        timeout)
+    outs = []
+    for log in logs:
+        with open(log) as f:
+            outs.append(f.read())
+    return codes, outs, timed_out
+
+
+def phase_mesh():
+    """Data parallelism on the card: world size 1 over NCCL (mesh_world1),
+    world size 2 over gloo's CUDA path with both ranks on the one card
+    (mesh_rank_main), and whether NCCL takes two ranks on one card."""
+    torch.cuda.empty_cache()
+    result = {"phase": "mesh"}
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh_lib.init_multihost(f"file://{tmp}/nccl1.store", 1, 0,
+                                device="cuda")
+        try:
+            if dist.get_backend() != "nccl":
+                raise AssertionError(f"world size 1 on {dist.get_backend()}")
+            result["world1_nccl"] = mesh_world1(
+                mesh_lib.make_mesh(device="cuda"), tmp)
+        finally:
+            dist.destroy_process_group()
+
+        t0 = time.perf_counter()
+        codes, outs, timed_out = run_ranks(tmp, "mesh_rank", MESH_TIMEOUT_S)
+        if any(codes) or timed_out:
+            raise AssertionError(f"world-2 gloo run: exit codes {codes}, "
+                                 f"timed out {timed_out}:\n"
+                                 + "\n".join(o[-4000:] for o in outs))
+        ranks = []
+        for r in range(MESH_WORLD):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        per_step = {k: v * MESH_STEPS for k, v in
+                    (("pair_pool_idx", 2), ("pair_pool_bwd", 2))}
+        for rk in ranks:
+            bf16 = rk["bf16_allreduce"]
+            if not all(rk["ranks_bitwise_identical"]) \
+                    or not bf16["ranks_bitwise_identical"] \
+                    or not np.isfinite(bf16["loss"]) \
+                    or rk["train_launches"] != expected(**per_step) \
+                    or rk["eval_launches"] != expected(pair_pool=1) \
+                    or not rk["eval_finite"] \
+                    or len(rk["eval_pair_count"]) != MESH_WORLD \
+                    or rk["fused_backbone_auto"]:
+                raise AssertionError(f"world-2 gloo rank: {rk}")
+        err, scale = (ranks[0]["first_update_max_abs_err"],
+                      ranks[0]["first_update_max_abs"])
+        if not (scale > 0 and err <= MESH_UPDATE_TOL * scale):
+            raise AssertionError(f"world-2 first update off the one-process "
+                                 f"two-shard update by {err} (max {scale})")
+        result["world2_gloo"] = {"wall_s": time.perf_counter() - t0,
+                                 "update_tol": MESH_UPDATE_TOL,
+                                 "ranks": ranks}
+
+        codes, outs, timed_out = run_ranks(tmp, "nccl_duplicate", 120)
+        dup = []
+        for r in range(MESH_WORLD):
+            path = os.path.join(tmp, f"nccl_dup{r}.json")
+            if os.path.exists(path):
+                with open(path) as f:
+                    dup.append(json.load(f))
+        result["nccl_two_ranks_one_card"] = {
+            "exit_codes": codes, "timed_out": timed_out, "ranks": dup,
+            "output_tail": [o[-600:] for o in outs]}
+    emit(result)
+
+
 def main():
     ap = argparse.ArgumentParser(description="chip smoke of the port")
     ap.add_argument(
         "--phases",
         default="kernel,slice,profile,train,featurize,detect,parity,"
-                "real_data,commonsense,oiv6,pnp")
-    phases = set(ap.parse_args().phases.split(","))
+                "real_data,commonsense,oiv6,pnp,mesh")
+    # the entries of phase mesh's rank processes
+    ap.add_argument("--mesh_rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--nccl_duplicate", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--work", default=None, help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.mesh_rank is not None:
+        mesh_rank_main(args.mesh_rank, args.work)
+        return 0
+    if args.nccl_duplicate is not None:
+        nccl_duplicate_rank_main(args.nccl_duplicate, args.work)
+        return 0
+    phases = set(args.phases.split(","))
     info = phase_device()
     phase_build()
     kernel = {}
@@ -3461,6 +3880,8 @@ def main():
                 phase_oiv6(data)
             if "pnp" in phases:
                 phase_pnp(data)
+    if "mesh" in phases:
+        phase_mesh()
     if len(kernel) != len(KERNELS) or len(launches) != len(KERNELS):
         return 0                                # a partial run: no summary
     rows = [{"name": name, "route": "cuda", "source": source,

@@ -3,8 +3,9 @@
   python -m scene_graph_commonsense_torch
       --run_mode train|eval|prepare_cs|train_cs|eval_cs
       --eval_mode pc|sgc|sgd [--hierar] [--cluster C] [--dataset vg|oiv6]
-      [--synthetic N] [--config YAML] [--batch_size B] [--device cpu|cuda]
-      [--mock-llm] [--predictor motifs|transformer|vctree|vtranse [--tde]]
+      [--synthetic N] [--config YAML] [--batch_size B] [--epochs E]
+      [--device cpu|cuda] [--mesh_data D] [--mock-llm]
+      [--predictor motifs|transformer|vctree|vtranse [--tde]]
 
 Without --synthetic the run reads Visual Genome from disk as main.py does:
 the YAML's data.annotation_train / annotation_test (instances JSON),
@@ -47,6 +48,19 @@ scoring, --tde for Total Direct Effect) a plug-and-play predictor family
 checkpoints are <training.checkpoint_path>/Pnp<Family>Model[_CS]_<cluster>
 <epoch>.pt.  --tde without --predictor and --predictor with prepare_cs exit
 with a message.
+
+Data parallel: launched as N processes (torchrun --nproc_per_node N -m
+scene_graph_commonsense_torch ...), the run joins torchrun's process group
+(NCCL on cuda, gloo with --device cpu) and trains or PredCLS-evaluates over
+a data axis of --mesh_data D processes (-1: parallel.data_axis, whose -1
+picks the largest divisor of the batch size that fits the world, as
+main.py does).  The axis must fill the world and divide the batch size:
+unlike a spare TPU device, a launched process cannot sit idle.  Rank 0
+alone prints and writes.  SGCLS / SGDET, --predictor and prepare_cs over a
+mesh are not yet ported and exit with a message.  With
+training.save_vis_results, PredCLS evaluation writes each batch's top
+predictions beside its targets to
+<training.result_path>/visualization/<i>_vis_results.json.
 """
 
 import argparse
@@ -81,7 +95,11 @@ def parse_args():
                     help="score predictor eval by Total Direct Effect "
                          "(counterfactual debiasing; with --predictor)")
     ap.add_argument("--batch_size", type=int, default=None)
+    ap.add_argument("--epochs", type=int, default=None)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--mesh_data", type=int, default=-1,
+                    help="data-parallel mesh axis size (-1 = all "
+                         "processes)")
     ap.add_argument("--mock-llm", action="store_true",
                     help="prepare_cs with a deterministic offline stand-in "
                          "for the OpenAI transport")
@@ -120,10 +138,43 @@ def build_cfg(args):
                       supcat_clustering=args.cluster,
                       hierarchical_pred=args.hierar,
                       run_mode=args.run_mode, eval_mode=args.eval_mode)
+    training = {}
     if args.batch_size:
-        cfg = cfg.replace(training=dataclasses.replace(
-            cfg.training, batch_size=args.batch_size))
+        training["batch_size"] = args.batch_size
+    if args.epochs:
+        training["num_epoch"] = args.epochs
+    if training:
+        cfg = cfg.replace(training=dataclasses.replace(cfg.training,
+                                                       **training))
     return cfg
+
+
+def make_cli_mesh(args, cfg):
+    """The data-parallel mesh of a launch of several processes, or None in
+    a single process (main.py's rule, with the port's one difference: the
+    data axis must fill the world).  Exits with a message where it cannot."""
+    from scene_graph_commonsense_torch.parallel.mesh import (
+        make_mesh, world_size)
+    world = world_size()
+    if world == 1:
+        return None
+    model_axis = cfg.parallel.model_axis
+    data_axis = (args.mesh_data if args.mesh_data != -1
+                 else cfg.parallel.data_axis)
+    b = cfg.training.batch_size
+    if data_axis <= 0:
+        # the largest divisor of the global batch that fits the world
+        avail = world // model_axis
+        data_axis = max(d for d in range(1, avail + 1) if b % d == 0)
+    if data_axis * model_axis != world or b % data_axis:
+        sys.exit(f"batch size {b} cannot be sharded over the {world} "
+                 f"launched processes (data axis {data_axis}): a process "
+                 f"cannot sit idle, so launch a number of processes that "
+                 f"divides the batch size")
+    try:
+        return make_mesh(data=data_axis, model=model_axis, device=args.device)
+    except NotImplementedError as e:      # model_axis > 1: no TP yet
+        sys.exit(str(e))
 
 
 def synthetic_batches(cfg, n_batches, seed, with_aug=False):
@@ -291,12 +342,29 @@ def run_predictor(args, cfg, train_fn, test_fn, steps_per_epoch, artifacts,
 
 
 def main():
+    import torch.distributed as dist
+    from scene_graph_commonsense_torch.parallel.mesh import init_multihost
     args = parse_args()
     cfg = build_cfg(args)
-    print(f"run_mode={cfg.training.run_mode} eval_mode="
-          f"{cfg.training.eval_mode} dataset={cfg.data.dataset} "
-          f"hierar={cfg.model.hierarchical_pred} "
-          f"cluster={cfg.data.supcat_clustering}")
+    # torchrun's environment, if launched so: the process group first (a
+    # caller's group is used as it is, and left up)
+    owned = not dist.is_initialized()
+    init_multihost(device=args.device)
+    try:
+        run(args, cfg, make_cli_mesh(args, cfg))
+    finally:
+        if owned and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def run(args, cfg, mesh):
+    """The run of main(), over `mesh` (None: one process)."""
+    lead = mesh is None or mesh.rank == 0
+    say = print if lead else (lambda *a: None)
+    say(f"run_mode={cfg.training.run_mode} eval_mode="
+        f"{cfg.training.eval_mode} dataset={cfg.data.dataset} "
+        f"hierar={cfg.model.hierarchical_pred} "
+        f"cluster={cfg.data.supcat_clustering}")
     run_mode = cfg.training.run_mode
     if args.tde and not args.predictor:
         # refuse instead of running plain (biased) scoring that would be
@@ -310,6 +378,17 @@ def main():
     # the predictor families score PredCLS only: no detector
     detect = run_mode in ("eval", "eval_cs") \
         and cfg.training.eval_mode != "pc" and not args.predictor
+    if mesh is not None:
+        what = None
+        if args.predictor:
+            what = "--predictor"
+        elif run_mode == "prepare_cs":
+            what = "prepare_cs"
+        elif detect:
+            what = f"--eval_mode {cfg.training.eval_mode}"
+        if what:
+            sys.exit(f"{what} over a data-parallel mesh is not yet ported "
+                     f"to PyTorch; run it in one process")
     if args.synthetic and detect:
         sys.exit("sgc/sgd need detector outputs; run on real data with a "
                  "converted DETR checkpoint")
@@ -342,7 +421,8 @@ def main():
         # the frozen DETR-101 (reference train_utils.py:9-18); SGCLS and
         # SGDET build the whole detector once and take the features from
         # its encode half
-        detr = loop.load_detr(cfg, device=args.device, detection=detect)
+        detr = loop.load_detr(cfg, device=args.device, log_fn=say,
+                              detection=detect)
         featurize = loop.make_detr_featurize_fn(cfg, detr)
 
     if args.predictor:
@@ -354,7 +434,7 @@ def main():
         try:
             loop.fit(cfg, model, train_fn, test_fn,
                      steps_per_epoch=steps_per_epoch, artifacts=artifacts,
-                     device=args.device, featurize=featurize)
+                     device=args.device, featurize=featurize, mesh=mesh)
         except ValueError as e:       # train_cs without triplet tables
             sys.exit(str(e))
         return
@@ -369,12 +449,12 @@ def main():
     state_dict = None
     if os.path.exists(ckpt):
         state_dict = ckpt_lib.load(ckpt)
-        print(f"Loaded relation checkpoint {ckpt}")
+        say(f"Loaded relation checkpoint {ckpt}")
     else:
         what = ("prepare_cs will query predictions of"
                 if run_mode == "prepare_cs" else "evaluating")
-        print(f"WARNING: relation checkpoint {ckpt} not found — {what} "
-              f"randomly initialized weights")
+        say(f"WARNING: relation checkpoint {ckpt} not found — {what} "
+            f"randomly initialized weights")
     model = make_relation_classifier(cfg, device=args.device,
                                      state_dict=state_dict)
     if run_mode == "prepare_cs":
@@ -386,17 +466,44 @@ def main():
             else None, device=args.device)
         print(f"Wrote commonsense triplet tables {path}")
         return
-    batches = prepped_batches(cfg, test_fn(0), featurize)
     if detect:
         runner = (engines.run_eval_sgc if cfg.training.eval_mode == "sgc"
                   else engines.run_eval_sgd)
-        res = runner(cfg, model, batches,
+        res = runner(cfg, model, prepped_batches(cfg, test_fn(0), featurize),
                      engines.make_detr_detect_fn(cfg, detr),
                      artifacts=artifacts, use_cs=use_cs, device=args.device)
     else:
-        res = engines.run_eval_pc(cfg, model, batches, artifacts=artifacts,
-                                  use_cs=use_cs, device=args.device)
-    print(json.dumps(_result_view(res), default=str))
+        emesh = loop.eval_mesh(cfg, mesh)
+        prep = featurize
+        if emesh is not None:
+            # each rank encodes only its rows of a test batch
+            def prep(batch):
+                return engines.shard_eval_batch(emesh, batch, featurize)
+        res = engines.run_eval_pc(
+            cfg, model, prepped_batches(cfg, test_fn(0), prep),
+            artifacts=artifacts, use_cs=use_cs, device=args.device,
+            on_batch=vis_hook(cfg), mesh=emesh)
+    say(json.dumps(_result_view(res), default=str))
+
+
+def vis_hook(cfg):
+    """run_eval_pc's on_batch writing each batch's visualization records
+    under <result_path>/visualization (training.save_vis_results; None when
+    off), with main.py's square image-space size."""
+    if not cfg.training.save_vis_results:
+        return None
+    from scene_graph_commonsense_torch.eval.visualization import (
+        save_visualization_results)
+    s = cfg.model.image_size
+
+    def on_batch(i, out, cand, tgt):
+        save_visualization_results(
+            os.path.join(cfg.training.result_path, "visualization"), i,
+            cand, tgt, heights=[s] * cfg.training.batch_size,
+            widths=[s] * cfg.training.batch_size,
+            feature_size=cfg.model.feature_size)
+
+    return on_batch
 
 
 if __name__ == "__main__":

@@ -35,6 +35,7 @@ from scene_graph_commonsense_torch.data.synthetic import synthetic_batch
 from scene_graph_commonsense_torch.device import resolve_device
 from scene_graph_commonsense_torch.models.relation_head import (
     make_relation_classifier)
+from scene_graph_commonsense_torch.parallel.mesh import replicate_tree
 from scene_graph_commonsense_torch.train import engine
 
 BATCH_SIZE = 12
@@ -79,30 +80,46 @@ def train_step_flops(cfg) -> float:
                 + view_forward_flops(cfg, engine.aug_pair_capacity(cfg)))
 
 
-def setup(cfg=None, seed: int = 0, device=None):
+def optimizer(cfg) -> engine.SGD:
+    """The train step's optimizer at a constant learning rate (as
+    bench.py)."""
+    tc = cfg.training
+    return engine.make_optimizer(tc.learning_rate, momentum=tc.momentum,
+                                 weight_decay=tc.weight_decay,
+                                 grad_clip_norm=tc.grad_clip_norm,
+                                 momentum_dtype=tc.momentum_dtype)
+
+
+def setup(cfg=None, seed: int = 0, device=None, mesh=None):
     """(cfg, model, step, state, batch): seeded random weights, the train
-    step with a constant learning rate (as bench.py), one synthetic batch
-    with the augmented view, on the device (default cuda)."""
+    step with optimizer(cfg), one synthetic batch with the augmented view,
+    on the device (default cuda).  With a mesh (parallel/mesh.py) the step
+    is the data-parallel one on the mesh's device, the weights broadcast
+    from rank 0, and the batch stays global."""
     cfg = cfg or bench_config()
-    dev = resolve_device(device)
+    dev = resolve_device(device if mesh is None else mesh.device)
     model = make_relation_classifier(
         cfg, device=dev, generator=torch.Generator().manual_seed(seed))
-    tc = cfg.training
-    opt = engine.make_optimizer(tc.learning_rate, momentum=tc.momentum,
-                                weight_decay=tc.weight_decay,
-                                grad_clip_norm=tc.grad_clip_norm,
-                                momentum_dtype=tc.momentum_dtype)
+    opt = optimizer(cfg)
     step = engine.make_train_step(model, cfg, opt, class_weights("vg"),
-                                  device=dev)
+                                  device=dev, mesh=mesh)
     state = engine.init_train_state(model, opt)
+    if mesh is not None:
+        replicate_tree(mesh, state.params)
+    return cfg, model, step, state, bench_batch(cfg, seed, dev)
+
+
+def bench_batch(cfg, seed: int = 0, device=None):
+    """setup's synthetic batch (the augmented view, MEAN_OBJECTS objects an
+    image) from `seed`, on the device (default cuda)."""
     batch = synthetic_batch(
-        np.random.default_rng(seed), batch_size=tc.batch_size,
+        np.random.default_rng(seed), batch_size=cfg.training.batch_size,
         max_objects=cfg.data.max_objects,
         feature_size=cfg.model.feature_size,
         num_channels=cfg.model.num_img_feature,
         num_classes=cfg.model.num_classes,
         num_relations=cfg.model.num_relations, mean_objects=MEAN_OBJECTS)
-    return cfg, model, step, state, to_device(batch, dev)
+    return to_device(batch, resolve_device(device))
 
 
 def card_name() -> str:

@@ -1,6 +1,7 @@
 """Evaluation engines: PredCLS / SGCLS / SGDET (torch port of
-scene_graph_commonsense_tpu/eval/engines.py, one device; the mesh branches
-come with multi-GPU).
+scene_graph_commonsense_tpu/eval/engines.py).  PredCLS takes a
+data-parallel mesh (parallel/mesh.py); the SGCLS / SGDET engines and the
+detector do not yet, and refuse one.
 
 Mirrors reference evaluate.py's three modes:
   * run_eval_pc  (reference evaluate.py:29-227): GT boxes + GT labels;
@@ -39,6 +40,8 @@ from scene_graph_commonsense_torch.eval.recall import (
     Evaluator, EvaluatorTop3, np_mask_iou)
 from scene_graph_commonsense_torch.ops.detection import (
     postprocess_detections)
+from scene_graph_commonsense_torch.parallel.mesh import (
+    broadcast_object, not_yet_ported, shard_batch)
 from scene_graph_commonsense_torch.train import engine as engine_lib
 
 
@@ -50,8 +53,9 @@ def to_numpy(out: Dict) -> Dict:
 
 def check_pair_overflow(out, warned: list) -> bool:
     """Warns ONCE per run when the packed pair buffer truncated (silent
-    pair-dropping changes recall).  `warned` is a single-element mutable
-    flag owned by the calling run."""
+    pair-dropping changes recall).  pair_count and pair_capacity hold one
+    entry per shard (one without a mesh).  `warned` is a single-element
+    mutable flag owned by the calling run."""
     count = np.asarray(out["pair_count"])
     cap = np.asarray(out["pair_capacity"])
     over = bool((count > cap).any())
@@ -59,8 +63,8 @@ def check_pair_overflow(out, warned: list) -> bool:
         warned[0] = True
         warnings.warn(
             f"pair buffer overflow: {int(count.max())} live pairs > "
-            f"capacity {int(cap.min())} — excess pairs are DROPPED and "
-            f"recall may shift; raise training.pair_capacity",
+            f"capacity {int(cap.min())} per shard — excess pairs are "
+            f"DROPPED and recall may shift; raise training.pair_capacity",
             RuntimeWarning, stacklevel=2)
     return over
 
@@ -70,6 +74,24 @@ def _model_batch(batch: Dict) -> Dict:
     raw images, pixel masks)."""
     return {k: batch[k] for k in engine_lib.MODEL_KEYS
             if batch.get(k) is not None}
+
+
+# the global batch entries the PredCLS evaluators read on the host
+HOST_KEYS = ("cats", "boxes", "rel", "valid")
+
+
+def shard_eval_batch(mesh, batch: Dict,
+                     featurize: Optional[Callable[[Dict], Dict]] = None
+                     ) -> Dict:
+    """A global PredCLS batch sharded ahead of run_eval_pc(mesh=): the
+    entries the evaluators read stay global on the host, and this rank's
+    rows, featurized when `featurize` is given (no rank encodes images it
+    then drops), go under "shard"."""
+    local = shard_batch(mesh, batch)
+    if featurize is not None:
+        local = featurize(local)
+    return {**{k: np.asarray(batch[k]) for k in HOST_KEYS},
+            "shard": _model_batch(local)}
 
 
 def _accumulate_batch(evaluator, ev3, cfg, out, batch, artifacts,
@@ -108,6 +130,7 @@ def _accumulate_batch(evaluator, ev3, cfg, out, batch, artifacts,
             out["pair_mask"], out["iou_ok"], cats, boxes,
             num_geometric=m.num_geometric, num_possessive=m.num_possessive)
         ev3.accumulate(cand3, tgt)
+    return cand, tgt
 
 
 def _make_evaluators(cfg, artifacts, predcls: bool):
@@ -138,25 +161,51 @@ def _results(cfg, ev, ev3) -> Dict:
 
 def run_eval_pc(cfg, model, batches: Iterable[Dict],
                 artifacts=None, use_cs: bool = False, estep=None,
-                device=None, max_batches: Optional[int] = None) -> Dict:
+                device=None, max_batches: Optional[int] = None,
+                on_batch: Optional[Callable] = None, mesh=None) -> Dict:
     """PredCLS: GT boxes + labels, overlap-filtered pair grid.  `model` is a
     RelationClassifier; it runs on `device` (default cuda, see
     train.engine.make_eval_step, which also turns TF32 off).  Pass a
     prebuilt `estep` to reuse it across calls; `max_batches` truncates the
-    pass (the training loop's per-epoch test)."""
+    pass (the training loop's per-epoch test).  `on_batch(i, out, cand,
+    tgt)` is called after each batch with its index, the step's outputs
+    (numpy) and the Candidates / Targets it added (the visualization dump,
+    eval/visualization.py).
+
+    With a mesh (parallel/mesh.py; every rank iterates the same global
+    batches) each rank steps on its rows of each batch through the sharded
+    eval step (make_eval_step(mesh=); a prebuilt `estep` must be one),
+    which gathers the global outputs on every rank.  A batch may come
+    sharded already (shard_eval_batch: its "shard" entry is stepped on);
+    any other is sharded here.  Rank 0 alone runs the evaluators and calls
+    `on_batch`; every rank returns its results."""
     ev, ev3 = _make_evaluators(cfg, artifacts, predcls=True)
     if estep is None:
-        estep = engine_lib.make_eval_step(model, cfg, device=device)
+        estep = engine_lib.make_eval_step(model, cfg, device=device,
+                                          mesh=mesh)
+    lead = mesh is None or mesh.rank == 0
     warned = [False]
     for i, batch in enumerate(batches):
         if max_batches is not None and i >= max_batches:
             break
-        out = to_numpy(estep(batch))
+        if mesh is None:
+            run_batch = batch
+        elif "shard" in batch:
+            run_batch = batch["shard"]
+        else:
+            run_batch = shard_batch(mesh, _model_batch(batch))
+        out = estep(run_batch)
+        if not lead:
+            continue
+        out = to_numpy(out)
         check_pair_overflow(out, warned)
-        _accumulate_batch(ev, ev3, cfg, out, batch, artifacts, use_cs,
-                          predcls=True, cats=np.asarray(batch["cats"]),
-                          boxes=np.asarray(batch["boxes"]))
-    return _results(cfg, ev, ev3)
+        cand, tgt = _accumulate_batch(
+            ev, ev3, cfg, out, batch, artifacts, use_cs, predcls=True,
+            cats=np.asarray(batch["cats"]), boxes=np.asarray(batch["boxes"]))
+        if on_batch is not None:
+            on_batch(i, out, cand, tgt)
+    res = _results(cfg, ev, ev3) if lead else None
+    return res if mesh is None else broadcast_object(mesh, res)
 
 
 def match_predicted_labels(det: Dict[str, np.ndarray],
@@ -235,10 +284,14 @@ def match_predicted_labels_top2(det: Dict[str, np.ndarray],
 def run_eval_sgc(cfg, model, batches: Iterable[Dict],
                  detect_fn: Callable[[Dict], Dict],
                  artifacts=None, use_cs: bool = False,
-                 max_batches: Optional[int] = None, device=None) -> Dict:
+                 max_batches: Optional[int] = None, device=None,
+                 mesh=None) -> Dict:
     """SGCLS: GT boxes, predicted labels.  detect_fn(batch) returns the
     detection dict of ops/detection.postprocess_detections (numpy or
-    tensors).  `model` runs on `device` (default cuda)."""
+    tensors).  `model` runs on `device` (default cuda).  A mesh is not yet
+    ported and raises."""
+    if mesh is not None:
+        not_yet_ported("run_eval_sgc")
     ev, _ = _make_evaluators(cfg, artifacts, predcls=False)
     cap = 0
     if cfg.training.sgcls_top2_duplicates:
@@ -292,10 +345,13 @@ def run_eval_sgc(cfg, model, batches: Iterable[Dict],
 def run_eval_sgd(cfg, model, batches: Iterable[Dict],
                  detect_fn: Callable[[Dict], Dict],
                  artifacts=None, use_cs: bool = False,
-                 max_batches: Optional[int] = None, device=None) -> Dict:
+                 max_batches: Optional[int] = None, device=None,
+                 mesh=None) -> Dict:
     """SGDET: predicted boxes + labels drive the pair grid; GT pairs are the
     unmatched target set (reference utils.py:294-352).  `model` runs on
-    `device` (default cuda)."""
+    `device` (default cuda).  A mesh is not yet ported and raises."""
+    if mesh is not None:
+        not_yet_ported("run_eval_sgd")
     ev, _ = _make_evaluators(cfg, artifacts, predcls=False)
     estep = engine_lib.make_eval_step(model, cfg, device=device)
     sub2super = artifacts.sub2super if artifacts is not None else None
@@ -339,13 +395,16 @@ def run_eval_sgd(cfg, model, batches: Iterable[Dict],
     return _results(cfg, ev, None)   # Top-3 is a PredCLS-only report
 
 
-def make_detr_detect_fn(cfg, detr_model):
+def make_detr_detect_fn(cfg, detr_model, mesh=None):
     """Returns detect_fn(batch) -> the detection dict (numpy): the full DETR
     forward of the detection view batch["image_nonsq"] under
     batch["pixel_mask"] (all pixels real when absent), then the static
     postprocess (reference evaluate.py:309-368), both under
     torch.inference_mode on the model's device; one copy to the host at the
-    end.  `detr_model` is a models.detr.DETR built with `detection`."""
+    end.  `detr_model` is a models.detr.DETR built with `detection`.  A
+    mesh is not yet ported and raises."""
+    if mesh is not None:
+        not_yet_ported("make_detr_detect_fn")
     dev = next(detr_model.parameters()).device
     alp2fre = torch.as_tensor(OBJ_ALP2FRE, device=dev)
     m = cfg.model

@@ -1,7 +1,7 @@
 """Serving-style scene-graph inference (torch port of
 scene_graph_commonsense_tpu/inference.py): from images through the frozen
-DETR featurizer, or from precomputed features; multi-GPU serving comes with
-a later slice.
+DETR featurizer, or from precomputed features; sharded serving over a mesh
+is not yet ported.
 
 Usage:
     model = make_relation_classifier(cfg, state_dict=weights)
@@ -20,6 +20,7 @@ from scene_graph_commonsense_torch.constants import (
     VG_OBJECTS, VG_RELATIONS_BY_SUPER)
 from scene_graph_commonsense_torch.eval.builders import build_candidates
 from scene_graph_commonsense_torch.eval.engines import to_numpy
+from scene_graph_commonsense_torch.parallel.mesh import not_yet_ported
 from scene_graph_commonsense_torch.train import engine as engine_lib
 from scene_graph_commonsense_torch.train.loop import make_detr_featurize_fn
 
@@ -32,14 +33,17 @@ class SceneGraphPredictor:
     """Batched scene-graph inference with the hierarchical relation head."""
 
     def __init__(self, cfg, model, detr_model=None, detr_params=None,
-                 validator=None, device=None):
+                 validator=None, device=None, mesh=None):
         """`model`: a RelationClassifier; it runs on `device` (default
         cuda, see train.engine.make_eval_step, which also turns TF32 off).
         `detr_model`: optional frozen models.detr.DETR (make_detr) on the
         same device; with it, requests may carry 'image' (B, S*32, S*32, 3)
         instead of 'features'.  `detr_params`: an optional state dict loaded
         into it.  `validator`: optional commonsense filter with a
-        filter_scores(conf, sub, rel, obj) method."""
+        filter_scores(conf, sub, rel, obj) method.  A `mesh` is not yet
+        ported and raises."""
+        if mesh is not None:
+            not_yet_ported("SceneGraphPredictor")
         self.cfg = cfg
         self.model = model
         self.validator = validator

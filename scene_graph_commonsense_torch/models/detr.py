@@ -46,6 +46,7 @@ from scene_graph_commonsense_torch.models.resnet_fused import (
     resnet_forward_fused)
 from scene_graph_commonsense_torch.ops.attention import fused_attention
 from scene_graph_commonsense_torch.ops.ffn import fused_ffn_ln, kernel_weights
+from scene_graph_commonsense_torch.parallel.mesh import world_size
 
 RESNET101_BLOCKS = (3, 4, 23, 3)
 
@@ -493,12 +494,12 @@ def resolve_detr_modes(cfg, device: torch.device) -> Tuple[bool, bool]:
 
     flash_encoder: "on", or "auto" on a CUDA device outside float64 (the
     JAX package's "on the accelerator" rule).  fused_backbone: "on", or
-    "auto" on a CUDA device outside float64, and in both cases only for the
-    ResNet-101 layout (other detr_blocks run unfused, as in JAX).  The JAX
-    rule also asks for a single device, because its GSPMD mesh shards the
-    batch; the port has no mesh yet, and that guard comes with it.  float64
-    stays unfused under auto because the kernels take float32 and bfloat16
-    (the JAX package never runs float64 on the TPU)."""
+    "auto" on a CUDA device outside float64 in a single process (a process
+    group of one rank or none: the JAX rule asks for a single device), and
+    in both cases only for the ResNet-101 layout (other detr_blocks run
+    unfused, as in JAX).  float64 stays unfused under auto because the
+    kernels take float32 and bfloat16 (the JAX package never runs float64
+    on the TPU)."""
     m = cfg.model
     for knob in ("fused_backbone", "flash_encoder"):
         if getattr(m, knob) not in ("auto", "on", "off"):
@@ -506,8 +507,9 @@ def resolve_detr_modes(cfg, device: torch.device) -> Tuple[bool, bool]:
                              f"{getattr(m, knob)!r}")
     dtype = getattr(torch, m.compute_dtype)
     accel = device.type == "cuda" and dtype != torch.float64
+    single = world_size() == 1
     fused = (m.fused_backbone == "on"
-             or (m.fused_backbone == "auto" and accel)) \
+             or (m.fused_backbone == "auto" and accel and single)) \
         and tuple(m.detr_blocks) == RESNET101_BLOCKS
     flash = m.flash_encoder == "on" or (m.flash_encoder == "auto" and accel)
     return fused, flash

@@ -1,6 +1,8 @@
 """Training and evaluation steps over the packed pair grid (torch port of
-scene_graph_commonsense_tpu/train/engine.py, one device; the mesh branch is
-not yet ported).
+scene_graph_commonsense_tpu/train/engine.py).  With a mesh
+(parallel/mesh.py) each rank steps on its rows of the global batch: the
+train step averages the gradients and metrics over the group before the
+update, the eval step concatenates every rank's outputs.
 
 Batch dict (fixed shapes; B images, N = max_objects, S = feature_size):
   features:     (B, S, S, C)   frozen detector features
@@ -28,6 +30,7 @@ from scene_graph_commonsense_torch.models.relation_head import (
 from scene_graph_commonsense_torch.ops import boxes as box_ops
 from scene_graph_commonsense_torch.ops import pairs as pair_ops
 from scene_graph_commonsense_torch.ops.pair_pool import pair_pool
+from scene_graph_commonsense_torch.parallel import mesh as mesh_lib
 from scene_graph_commonsense_torch.train import losses as L
 
 # the batch entries the eval step reads
@@ -160,7 +163,7 @@ def pair_targets(batch: Dict[str, torch.Tensor],
 
 
 def make_eval_step(model: RelationClassifier, cfg, capacity: int = 0,
-                   device=None, chunk_size: int = 0):
+                   device=None, chunk_size: int = 0, mesh=None):
     """Deterministic forward returning everything the evaluator needs
     (relations, connectivity, packed indexing, overlap filter), under
     torch.inference_mode.  Deterministic whatever the module's mode: the
@@ -171,23 +174,34 @@ def make_eval_step(model: RelationClassifier, cfg, capacity: int = 0,
     (device.disable_tf32) so float32 runs in full float32.  The step takes
     a batch dict of numpy arrays or tensors and returns tensors on the
     device.  chunk_size > 0 runs the pair trunk in chunks of that many
-    pairs (forward_pairs): one pair-pool launch per chunk."""
-    dev = resolve_device(device)
+    pairs (forward_pairs): one pair-pool launch per chunk.
+
+    With a mesh the step runs on the mesh's device and takes this rank's
+    rows of the global batch (parallel.mesh.shard_batch).  Each rank packs
+    its own pair buffer at ceil(capacity / shards); pair_img is shifted to
+    global image indices and every output is gathered over the ranks in
+    rank order, so every rank returns the single-device contract of the
+    global batch, with pair_count and pair_capacity one entry per shard.
+    A shard truncates at its own bound, so below the worst-case capacity a
+    dense shard can drop pairs that one global buffer would keep."""
+    dev = resolve_device(device if mesh is None else mesh.device)
     disable_tf32()
     model.to(dev).eval()
     cap = capacity or cfg.pair_capacity
+    shards = 1 if mesh is None else mesh.shape["data"]
+    local_cap = max(-(-cap // shards), 1)
 
     @torch.inference_mode()
     def step(batch: Dict) -> Dict[str, torch.Tensor]:
         batch = {k: torch.as_tensor(batch[k], device=dev)
                  for k in MODEL_KEYS if batch.get(k) is not None}
-        out, packed = forward_pairs(model, batch, cap,
+        out, packed = forward_pairs(model, batch, local_cap,
                                     chunk_size=chunk_size)
         s = batch["features"].shape[1]
-        n = batch["cats"].shape[1]
+        b, n = batch["cats"].shape
         iou_ok = _grid_at(pair_ops.eval_pair_filter(batch["boxes"], s),
                           packed, n) & packed.mask
-        return {
+        res = {
             "relation": out["relation"],
             "super_relation": out["super_relation"],
             "connectivity": out["connectivity"],
@@ -195,11 +209,17 @@ def make_eval_step(model: RelationClassifier, cfg, capacity: int = 0,
             "pair_img": packed.img, "pair_sub": packed.sub,
             "pair_obj": packed.obj, "pair_mask": packed.mask,
             "iou_ok": iou_ok,
-            # truncation telemetry; engines warn when count > capacity
+            # truncation telemetry, one entry per shard; engines warn when
+            # count > capacity
             "pair_count": packed.count[None],
-            "pair_capacity": torch.full((1,), cap, dtype=torch.int32,
+            "pair_capacity": torch.full((1,), local_cap, dtype=torch.int32,
                                         device=dev),
         }
+        if mesh is None:
+            return res
+        res["pair_img"] = packed.img + mesh.rank * b
+        return {k: None if v is None else mesh_lib.all_gather_rows(mesh, v)
+                for k, v in res.items()}
 
     return step
 
@@ -362,41 +382,130 @@ def init_train_state(model: RelationClassifier, optimizer: SGD,
     return TrainState(params, optimizer.init(params, count=step), step)
 
 
-def dropout_generators(seed: int, step: int, device) -> list:
+def dropout_generators(seed: int, step: int, device, rank: int = 0) -> list:
     """Four independent dropout streams for one train step, (trunk, head)
-    of the main view then of the augmented view, seeded from (seed, step):
-    the counterpart of the JAX step's fold_in(rng, step) and its splits
-    (engine.py:162, 301, 316)."""
-    seeds = np.random.SeedSequence([seed, step]).generate_state(4, np.uint64)
+    of the main view then of the augmented view, seeded from (seed, step)
+    and, on ranks above 0, the rank: the counterpart of the JAX step's
+    fold_in(rng, step), its fold_in of the data-axis index (per-shard
+    streams, like per-rank seeds under DDP) and its splits (engine.py:162,
+    301, 316).  Rank 0 draws the single-device step's streams."""
+    key = [seed, step] if rank == 0 else [seed, step, rank]
+    seeds = np.random.SeedSequence(key).generate_state(4, np.uint64)
     return [torch.Generator(device=device).manual_seed(int(s) >> 1)
             for s in seeds]
 
 
-def train_pair_capacity(cfg) -> int:
-    """Capacity of the train step's main-view pair buffer: cfg.pair_capacity,
-    or with training.faithful_dynamics every valid pair, batch_size *
-    max_objects * (max_objects - 1) (the per-column losses need each valid
-    pair on the grid)."""
+def train_pair_capacity(cfg, shards: int = 1) -> int:
+    """Capacity of one shard's main-view pair buffer: cfg.pair_capacity //
+    shards (at least 1), or with training.faithful_dynamics every valid
+    pair of the shard, max(batch_size // shards, 1) * max_objects *
+    (max_objects - 1) (the per-column losses need each valid pair on the
+    grid)."""
     if cfg.training.faithful_dynamics:
         n = cfg.data.max_objects
-        return max(cfg.training.batch_size, 1) * n * (n - 1)
-    return cfg.pair_capacity
+        return max(cfg.training.batch_size // shards, 1) * n * (n - 1)
+    return max(cfg.pair_capacity // shards, 1)
 
 
-def aug_pair_capacity(cfg) -> int:
-    """Capacity of the augmented view's connected-pairs buffer: connected
-    pairs (GT relations) are an order of magnitude sparser than valid pairs
-    (TrainConfig.aug_pair_capacity; 0 = the main view's capacity // 4, the
-    faithful one in faithful mode)."""
-    cap = train_pair_capacity(cfg)
-    aug = cfg.training.aug_pair_capacity or cap // 4
+def aug_pair_capacity(cfg, shards: int = 1) -> int:
+    """Capacity of one shard's augmented-view buffer of connected pairs:
+    connected pairs (GT relations) are an order of magnitude sparser than
+    valid pairs.  An explicit TrainConfig.aug_pair_capacity is global and
+    divided across the shards; 0 takes the shard's main-view capacity
+    // 4 (the faithful one in faithful mode); within [1, main view's]."""
+    cap = train_pair_capacity(cfg, shards)
+    aug = cfg.training.aug_pair_capacity
+    aug = aug // shards if aug > 0 else cap // 4
     return min(max(aug, 1), cap)
+
+
+def _mean_over_mesh(mesh, params: Dict[str, torch.Tensor],
+                    metrics: Dict[str, torch.Tensor], allreduce_dtype):
+    """The gradient and metric means over the data axis: one all-reduce of
+    every gradient flattened into one buffer (in `allreduce_dtype`, cast
+    back to each master dtype), one of the metrics in float64 (integer
+    counts come back as float64 means, as pmean makes them floats).
+    Returns (grads by name, metrics)."""
+    grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
+             for k, p in params.items()}
+    flat = mesh_lib.all_mean_(mesh, torch.cat(
+        [g.reshape(-1).to(allreduce_dtype) for g in grads.values()]))
+    off = 0
+    for k, g in grads.items():
+        grads[k] = flat[off:off + g.numel()].view_as(g).to(g.dtype)
+        off += g.numel()
+    means = mesh_lib.all_mean_(mesh, torch.stack(
+        [v.detach().to(torch.float64) for v in metrics.values()]))
+    metrics = {k: m.to(v.dtype) if v.is_floating_point() else m
+               for (k, v), m in zip(metrics.items(), means)}
+    return grads, metrics
+
+
+def train_losses(model: RelationClassifier, cfg,
+                 batch: Dict[str, torch.Tensor], capacity: int,
+                 aug_capacity: int,
+                 gens: Sequence[torch.Generator], weights: torch.Tensor,
+                 cs_tables=None, chunk_size: int = 0):
+    """The train step's forward and losses on one batch of tensors (a
+    rank's rows under a mesh): the main view packed at `capacity` and,
+    when the batch has features_aug, the augmented view's connected pairs
+    at `aug_capacity` feeding the hierarchical SupCon term; faithful_losses
+    over the scattered grid with training.faithful_dynamics, compute_losses
+    otherwise.  `gens` are dropout_generators' four streams.  Returns
+    (total, metrics) with the pair-overflow metrics."""
+    m = cfg.model
+    faithful = cfg.training.faithful_dynamics
+    out, packed = forward_pairs(model, batch, capacity,
+                                view="features", generators=gens[:2],
+                                chunk_size=chunk_size)
+    targets = pair_targets(batch, packed)
+    loss_contrast = None
+    aug_overflow = torch.zeros((), dtype=torch.int32,
+                               device=batch["cats"].device)
+    if "features_aug" in batch:
+        # the SupCon loss reads only CONNECTED pairs' hidden states
+        # (reference train_utils.py:96-99)
+        conn_grid = pair_ops.pair_validity(batch["valid"]) \
+            & (batch["rel"] >= 0)
+        packed_c = pair_ops.pack_pairs(conn_grid, aug_capacity)
+        aug_overflow = torch.clamp(packed_c.count - aug_capacity, min=0)
+        out_aug, _ = forward_pairs(
+            model, batch, aug_capacity, view="features_aug",
+            generators=gens[2:], packed=packed_c, chunk_size=chunk_size)
+        pos, found = pair_ops.align_packings(packed, packed_c)
+        feats = torch.stack([out["hidden"][pos.long()],
+                             out_aug["hidden"]], dim=1)
+        labels = torch.clamp(pair_targets(batch, packed_c), min=0)
+        loss_contrast = L.supcon_hierar_loss(
+            feats.to(torch.promote_types(feats.dtype, torch.float32)),
+            labels, found, m.num_geometric, m.num_possessive)
+    if faithful:
+        b, n = batch["cats"].shape
+        sup_grid = None
+        if m.hierarchical_pred:
+            sup_grid = _scatter_grid(out["super_relation"], packed, b, n)
+        total, metrics = L.faithful_losses(
+            m, cfg.training, _scatter_grid(out["relation"], packed, b, n),
+            sup_grid, _scatter_grid(out["connectivity"], packed, b, n),
+            batch["rel"], batch["valid"], weights,
+            sub_cats=batch["cats"], obj_cats=batch["cats"],
+            cs_tables=cs_tables, loss_contrast=loss_contrast)
+    else:
+        total, metrics = compute_losses(m, cfg.training, out, packed,
+                                        targets, weights, cs_tables,
+                                        loss_contrast)
+    # silent pair-dropping is where the static capacity can change
+    # results: reported, and warned about by the loop
+    metrics["pair_overflow"] = torch.clamp(
+        packed.count - capacity, min=0).to(torch.float32)
+    metrics["aug_pair_overflow"] = aug_overflow.to(torch.float32)
+    return total, metrics
 
 
 def make_train_step(model: RelationClassifier, cfg, optimizer: SGD,
                     class_weights, cs_tables=None, mesh=None, device=None,
                     chunk_size: int = 0):
-    """The train step for one device: forward of the main view over all
+    """The train step: forward of the main view over all
     valid pairs and, when the batch has features_aug, of the augmented view
     over the connected pairs only (packed at aug_pair_capacity) feeding the
     hierarchical SupCon term; the losses; backward (the pair pool's
@@ -413,75 +522,47 @@ def make_train_step(model: RelationClassifier, cfg, optimizer: SGD,
     (train_pair_capacity), the losses are faithful_losses over the
     scattered grid, and the update is multiplied by its lr_scale.
     chunk_size > 0 runs both views' pair trunks in chunks with
-    recomputation (forward_pairs).  The mesh (data-parallel) branch is not
-    yet ported and raises."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "the multi-device train step is not yet ported to PyTorch")
-    dev = resolve_device(device)
+    recomputation (forward_pairs).
+
+    With a mesh (parallel/mesh.py; data parallel) the step runs on the
+    mesh's device and takes this rank's rows of the global batch
+    (parallel.mesh.shard_batch), packed at the shard's capacities
+    (train_pair_capacity / aug_pair_capacity of the data axis); dropout
+    draws the rank's streams.  After the backward the gradients and the
+    metrics are averaged over the group (an all-reduce each, the gradients
+    in training.grad_allreduce_dtype), so the clip, the momentum and
+    faithful mode's lr_scale act on the means and every rank applies the
+    same update to its replica."""
+    dev = resolve_device(device if mesh is None else mesh.device)
     disable_tf32()
     model.to(dev)
     faithful = cfg.training.faithful_dynamics
-    capacity = train_pair_capacity(cfg)
-    aug_capacity = aug_pair_capacity(cfg)
+    shards = 1 if mesh is None else mesh.shape["data"]
+    rank = 0 if mesh is None else mesh.rank
+    capacity = train_pair_capacity(cfg, shards)
+    aug_capacity = aug_pair_capacity(cfg, shards)
+    allreduce_dtype = getattr(torch, cfg.training.grad_allreduce_dtype)
     weights = torch.as_tensor(np.asarray(class_weights), device=dev)
     if cs_tables is not None:
         cs_tables = tuple(torch.as_tensor(np.asarray(t), device=dev)
                           for t in cs_tables)
-    m = cfg.model
 
     def step(state: TrainState, batch: Dict):
         batch = {k: torch.as_tensor(batch[k], device=dev)
                  for k in TRAIN_KEYS if batch.get(k) is not None}
-        gens = dropout_generators(cfg.training.seed, state.step, dev)
+        gens = dropout_generators(cfg.training.seed, state.step, dev, rank)
         model.train()
         for p in state.params.values():
             p.grad = None
-        out, packed = forward_pairs(model, batch, capacity,
-                                    view="features", generators=gens[:2],
-                                    chunk_size=chunk_size)
-        targets = pair_targets(batch, packed)
-        loss_contrast = None
-        aug_overflow = torch.zeros((), dtype=torch.int32, device=dev)
-        if "features_aug" in batch:
-            # the SupCon loss reads only CONNECTED pairs' hidden states
-            # (reference train_utils.py:96-99)
-            conn_grid = pair_ops.pair_validity(batch["valid"]) \
-                & (batch["rel"] >= 0)
-            packed_c = pair_ops.pack_pairs(conn_grid, aug_capacity)
-            aug_overflow = torch.clamp(packed_c.count - aug_capacity, min=0)
-            out_aug, _ = forward_pairs(
-                model, batch, aug_capacity, view="features_aug",
-                generators=gens[2:], packed=packed_c, chunk_size=chunk_size)
-            pos, found = pair_ops.align_packings(packed, packed_c)
-            feats = torch.stack([out["hidden"][pos.long()],
-                                 out_aug["hidden"]], dim=1)
-            labels = torch.clamp(pair_targets(batch, packed_c), min=0)
-            loss_contrast = L.supcon_hierar_loss(
-                feats.to(torch.promote_types(feats.dtype, torch.float32)),
-                labels, found, m.num_geometric, m.num_possessive)
-        if faithful:
-            b, n = batch["cats"].shape
-            sup_grid = None
-            if m.hierarchical_pred:
-                sup_grid = _scatter_grid(out["super_relation"], packed, b, n)
-            total, metrics = L.faithful_losses(
-                m, cfg.training, _scatter_grid(out["relation"], packed, b, n),
-                sup_grid, _scatter_grid(out["connectivity"], packed, b, n),
-                batch["rel"], batch["valid"], weights,
-                sub_cats=batch["cats"], obj_cats=batch["cats"],
-                cs_tables=cs_tables, loss_contrast=loss_contrast)
-        else:
-            total, metrics = compute_losses(m, cfg.training, out, packed,
-                                            targets, weights, cs_tables,
-                                            loss_contrast)
-        # silent pair-dropping is where the static capacity can change
-        # results: reported, and warned about by the loop
-        metrics["pair_overflow"] = torch.clamp(
-            packed.count - capacity, min=0).to(torch.float32)
-        metrics["aug_pair_overflow"] = aug_overflow.to(torch.float32)
+        total, metrics = train_losses(
+            model, cfg, batch, capacity, aug_capacity, gens, weights,
+            cs_tables, chunk_size)
         total.backward()
-        grads = {k: p.grad for k, p in state.params.items()}
+        if mesh is None:
+            grads = {k: p.grad for k, p in state.params.items()}
+        else:
+            grads, metrics = _mean_over_mesh(mesh, state.params, metrics,
+                                             allreduce_dtype)
         # faithful: the dynamic learning rate of the reference's last
         # column (train_test.py:192) scales this step's update
         opt_state = optimizer.update(

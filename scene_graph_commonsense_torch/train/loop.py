@@ -1,5 +1,6 @@
 """Epoch-level training loop and the frozen DETR featurizer (torch port of
-scene_graph_commonsense_tpu/train/loop.py, one device, without a mesh).
+scene_graph_commonsense_tpu/train/loop.py; data parallel over a mesh,
+parallel/mesh.py).
 
 The orchestration of reference train_test.py:31-330: per-epoch loop,
 step-decay learning rate (x0.1 at the scheduler epochs), per-epoch
@@ -29,6 +30,8 @@ from scene_graph_commonsense_torch.models.detr import (
     DETR, make_detr, module_from_cfg as detr_module)
 from scene_graph_commonsense_torch.models.weights import (
     detr_encode_half, detr_from_flax_bytes, detr_from_hub_state_dict)
+from scene_graph_commonsense_torch.parallel.mesh import (
+    replicate_tree, shard_batch)
 from scene_graph_commonsense_torch.train import checkpoint as ckpt_lib
 from scene_graph_commonsense_torch.train import engine
 from scene_graph_commonsense_torch.utils.logging import (
@@ -53,6 +56,18 @@ def lr_schedule(cfg, steps_per_epoch: int) -> Callable[[int], float]:
         return v
 
     return schedule
+
+
+def eval_mesh(cfg, mesh):
+    """The mesh to use for sharded evaluation, or None when the eval batch
+    cannot be evenly sharded or the data axis is 1 (the JAX package's rule:
+    single-device eval then)."""
+    if mesh is None:
+        return None
+    shards = mesh.shape["data"]
+    if shards <= 1 or cfg.training.batch_size % shards != 0:
+        return None
+    return mesh
 
 
 def _host(x) -> np.ndarray:
@@ -171,19 +186,35 @@ def fit(cfg, model, train_batches_fn: Callable[[int], Iterable],
         steps_per_epoch: int = 1000, artifacts=None, device=None,
         featurize: Optional[Callable[[Dict], Dict]] = None,
         chunk_size: int = 0,
-        log_fn: Callable[[str], None] = print) -> engine.TrainState:
-    """Full training run on one device (default cuda); returns the final
-    TrainState.  `model` is a RelationClassifier whose parameters are
-    trained in place; the batch functions map an epoch to an iterable of
-    numpy batch dicts.  `featurize` (make_detr_featurize_fn) turns image
+        log_fn: Callable[[str], None] = print,
+        mesh=None) -> engine.TrainState:
+    """Full training run on one device (default cuda) or over a mesh;
+    returns the final TrainState.  `model` is a RelationClassifier whose
+    parameters are trained in place; the batch functions map an epoch to
+    an iterable of numpy batch dicts.  `featurize` (make_detr_featurize_fn) turns image
     batches into feature batches on the prefetcher's thread, overlapping
     the train step.  `chunk_size` > 0 runs the train step's pair trunk in
     chunks (engine.make_train_step).  training.tensorboard writes the
     scalars of the JAX fit (ScalarWriter, training.tensorboard_dir), and
     training.profile_dir with profile_start_step >= 0 traces
-    profile_num_steps steps (StepProfiler)."""
+    profile_num_steps steps (StepProfiler).
+
+    With a mesh (parallel/mesh.py) every rank calls fit with the same
+    batch functions and runs on the mesh's device: the weights are
+    broadcast from rank 0, each rank takes its rows of every global train
+    batch before featurizing it (no rank encodes images it then drops) and
+    steps on them with the data-parallel train step; the train-time recall
+    and the test pass go through the sharded eval step
+    (make_eval_step(mesh=eval_mesh(cfg, mesh))), each rank encoding only
+    its rows of a test batch too.  Rank 0 alone runs the evaluators and
+    writes the checkpoints, the result files, the scalars, the trace and
+    the log lines."""
     tc = cfg.training
-    dev = resolve_device(device)
+    dev = resolve_device(device if mesh is None else mesh.device)
+    lead = mesh is None or mesh.rank == 0
+    if not lead:
+        def log_fn(line):
+            return None
     schedule = lr_schedule(cfg, steps_per_epoch)
     opt = engine.make_optimizer(schedule, momentum=tc.momentum,
                                 weight_decay=tc.weight_decay,
@@ -212,35 +243,52 @@ def fit(cfg, model, train_batches_fn: Callable[[int], Iterable],
         model, cfg, opt, class_weights(cfg.data.dataset,
                                        cfg.data.supcat_clustering,
                                        faithful=tc.faithful_dynamics),
-        cs_tables=cs_tables, device=dev, chunk_size=chunk_size)
+        cs_tables=cs_tables, mesh=mesh, device=dev, chunk_size=chunk_size)
     # the schedule count starts at the resume point, so a resumed run past
     # a scheduler epoch does not train at the undecayed rate
     state = engine.init_train_state(model, opt,
                                     step=tc.start_epoch * steps_per_epoch)
+    if mesh is not None:
+        replicate_tree(mesh, state.params)
 
-    recorder = ResultRecorder(tc.result_path, "train_results",
-                              fresh=not tc.continue_train)
-    test_recorder = ResultRecorder(tc.result_path, "test_results",
-                                   fresh=not tc.continue_train)
-    writer = ScalarWriter(tc.tensorboard_dir, enabled=tc.tensorboard)
-    profiler = StepProfiler(tc.profile_dir, tc.profile_start_step,
-                            tc.profile_num_steps, device=dev)
+    if lead:
+        recorder = ResultRecorder(tc.result_path, "train_results",
+                                  fresh=not tc.continue_train)
+        test_recorder = ResultRecorder(tc.result_path, "test_results",
+                                       fresh=not tc.continue_train)
+    writer = ScalarWriter(tc.tensorboard_dir, enabled=tc.tensorboard and lead)
+    profiler = StepProfiler(tc.profile_dir if lead else "",
+                            tc.profile_start_step, tc.profile_num_steps,
+                            device=dev)
     timer = StepTimer()
     train_eval, _ = engines._make_evaluators(cfg, artifacts, predcls=True)
-    train_estep = engine.make_eval_step(model, cfg, device=dev)
+    test_mesh = eval_mesh(cfg, mesh)
+    train_estep = engine.make_eval_step(model, cfg, device=dev,
+                                        mesh=test_mesh)
     host_step = state.step
     overflow_warned = False
 
-    def _prep(batch: Dict, on_device: bool) -> Dict:
-        # featurize, then (train batches) the copy to the card, all on the
-        # producer thread; test batches stay numpy apart from their
-        # features (run_eval_pc's evaluators read them on the host)
+    def _prep_train(batch: Dict):
+        # on the producer thread: the rank's rows, featurize, the copy to
+        # the card; the recall's targets stay global, on the host
+        host = {k: _host(batch[k]) for k in engines.HOST_KEYS}
+        if mesh is not None:
+            batch = shard_batch(mesh, batch)
         batch = featurize(batch) if featurize is not None else dict(batch)
         batch.pop("annot_path", None)
-        return to_device(batch, dev) if on_device else batch
+        return to_device(batch, dev), host
 
-    def _prepped(batches, on_device: bool):
-        prep = lambda b: _prep(b, on_device)  # noqa: E731
+    def _prep_test(batch: Dict):
+        # test batches stay global and numpy apart from their features
+        # (run_eval_pc's evaluators read them on the host); over a mesh,
+        # the rank's rows are featurized alone (engines.shard_eval_batch)
+        if test_mesh is not None:
+            return engines.shard_eval_batch(test_mesh, batch, featurize)
+        batch = featurize(batch) if featurize is not None else dict(batch)
+        batch.pop("annot_path", None)
+        return batch
+
+    def _prepped(batches, prep):
         if tc.prefetch_batches > 0:
             return prefetch_iterator(batches, tc.prefetch_batches, prep)
         return map(prep, batches)
@@ -250,8 +298,8 @@ def fit(cfg, model, train_batches_fn: Callable[[int], Iterable],
         # per-epoch train recall, like the reference's in-epoch accumulation
         train_eval.reset()
         t0 = time.time()
-        for batch_count, batch in enumerate(_prepped(train_batches_fn(epoch),
-                                                     on_device=True)):
+        for batch_count, (batch, host) in enumerate(_prepped(
+                train_batches_fn(epoch), _prep_train)):
             profiler.step(host_step)
             state, metrics = step(state, batch)
             host_step += 1
@@ -259,23 +307,26 @@ def fit(cfg, model, train_batches_fn: Callable[[int], Iterable],
 
             recall = mean_recall = None
             if tc.eval_freq > 0 and batch_count % tc.eval_freq == 0:
-                out = engines.to_numpy(train_estep(batch))
-                cats, boxes = _host(batch["cats"]), _host(batch["boxes"])
-                cand = build_candidates(
-                    out["relation"], out["connectivity"],
-                    out["super_relation"], out["pair_img"],
-                    out["pair_sub"], out["pair_obj"], out["pair_mask"],
-                    out["iou_ok"], cats, boxes,
-                    hierarchical=cfg.model.hierarchical_pred,
-                    num_geometric=cfg.model.num_geometric,
-                    num_possessive=cfg.model.num_possessive)
-                tgt = build_targets(_host(batch["rel"]), cats, boxes,
-                                    _host(batch["valid"]))
-                train_eval.accumulate(cand, tgt)
-                res = train_eval.compute()
-                recall, mean_recall = res["recall"], res["mean_recall"]
+                # every rank joins the sharded step's gathers; rank 0
+                # alone runs the evaluator
+                out = train_estep(batch)
+                if lead:
+                    out = engines.to_numpy(out)
+                    cand = build_candidates(
+                        out["relation"], out["connectivity"],
+                        out["super_relation"], out["pair_img"],
+                        out["pair_sub"], out["pair_obj"], out["pair_mask"],
+                        out["iou_ok"], host["cats"], host["boxes"],
+                        hierarchical=cfg.model.hierarchical_pred,
+                        num_geometric=cfg.model.num_geometric,
+                        num_possessive=cfg.model.num_possessive)
+                    tgt = build_targets(host["rel"], host["cats"],
+                                        host["boxes"], host["valid"])
+                    train_eval.accumulate(cand, tgt)
+                    res = train_eval.compute()
+                    recall, mean_recall = res["recall"], res["mean_recall"]
 
-            if batch_count % tc.print_freq == 0:
+            if lead and batch_count % tc.print_freq == 0:
                 metrics = {k: float(v) for k, v in metrics.items()}
                 if not overflow_warned and (
                         metrics["pair_overflow"] > 0
@@ -301,24 +352,25 @@ def fit(cfg, model, train_batches_fn: Callable[[int], Iterable],
                                prefix="perf/")
 
         # per-epoch checkpoint (reference train_test.py:311-322)
-        path = checkpoint_file(cfg, epoch)
-        ckpt_lib.save(path, model)
-        log_fn(f"Saved checkpoint {path}")
+        if lead:
+            path = checkpoint_file(cfg, epoch)
+            ckpt_lib.save(path, model)
+            log_fn(f"Saved checkpoint {path}")
 
         if test_batches_fn is not None:
             max_batches = 100 if epoch < 2 else None  # train_test.py:347
             res = engines.run_eval_pc(
-                cfg, model, _prepped(test_batches_fn(epoch),
-                                     on_device=False),
+                cfg, model, _prepped(test_batches_fn(epoch), _prep_test),
                 artifacts=artifacts, max_batches=max_batches,
-                estep=train_estep)
+                estep=train_estep, mesh=test_mesh)
             log_fn(format_test_line(epoch, res["recall"],
                                     res["mean_recall"],
                                     res.get("recall_zs")))
-            test_recorder.add({"epoch": epoch,
-                               "recall": list(map(float, res["recall"])),
-                               "mean_recall": list(map(float,
-                                                       res["mean_recall"]))})
+            if lead:
+                test_recorder.add({
+                    "epoch": epoch,
+                    "recall": list(map(float, res["recall"])),
+                    "mean_recall": list(map(float, res["mean_recall"]))})
             # test R@k scalars (reference train_test.py:446-450)
             for k, r in zip((20, 50, 100), res["recall"]):
                 writer.scalar(f"test/R@{k}", r, epoch)

@@ -28,6 +28,7 @@ from scene_graph_commonsense_torch.models.predictors import (
     HierarchicalPredictor)
 from scene_graph_commonsense_torch.ops import boxes as box_ops
 from scene_graph_commonsense_torch.ops import pairs as pair_ops
+from scene_graph_commonsense_torch.parallel.mesh import not_yet_ported
 from scene_graph_commonsense_torch.train import checkpoint as ckpt_lib
 from scene_graph_commonsense_torch.train import engine
 from scene_graph_commonsense_torch.train import losses as L
@@ -38,9 +39,7 @@ MODEL_KEYS = ("features", "boxes", "cats", "valid", "rel")
 
 def _no_mesh(mesh):
     if mesh is not None:
-        raise NotImplementedError(
-            "the multi-device plug-and-play steps are not yet ported to "
-            "PyTorch")
+        not_yet_ported("the plug-and-play steps")
 
 
 def roi_pool_features(features: torch.Tensor, boxes: torch.Tensor,

@@ -40,7 +40,8 @@ def _imported_roots(path):
 
 def test_torch_port_imports_nothing_of_jax():
     files = sorted((ROOT / "scene_graph_commonsense_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    # chip_smoke.py, and the worker that the data-parallel tests spawn
+    files += [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_mesh_worker.py"]
     assert len(files) > 15
     scanned = {p.relative_to(ROOT).as_posix() for p in files}
     for module in ("bench.py", "train/engine.py", "train/losses.py",
@@ -54,7 +55,9 @@ def test_torch_port_imports_nothing_of_jax():
                    "data/oiv6.py", "data/label_transfer.py",
                    "models/context.py", "models/predictors.py",
                    "train/pnp_engine.py", "plugandplay.py",
-                   "tools/make_mini_oiv6.py"):
+                   "tools/make_mini_oiv6.py", "parallel/mesh.py",
+                   "parallel/launch.py", "eval/visualization.py",
+                   "tools/dryrun_multichip.py"):
         assert f"scene_graph_commonsense_torch/{module}" in scanned, module
     for path in files:
         bad = _imported_roots(path) & FORBIDDEN

@@ -8,6 +8,7 @@ import sys
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 sys.path.insert(0, "tests")
@@ -97,3 +98,14 @@ def assert_metrics_close(got, want, atol):
         else:
             np.testing.assert_allclose(got[k], w, atol=atol, rtol=0,
                                        err_msg=k)
+
+
+@pytest.fixture
+def one_thread():
+    """One CPU thread for the test: with several, the CPU's reductions may
+    split differently between two runs of one computation, and a test that
+    holds two runs equal to the bit needs them split alike."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)

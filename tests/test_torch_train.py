@@ -43,10 +43,13 @@ from scene_graph_commonsense_torch.data.artifacts import (  # noqa: E402
 from scene_graph_commonsense_torch.data.pipeline import (  # noqa: E402
     prefetch_iterator, to_device)
 from scene_graph_commonsense_torch.eval import engines  # noqa: E402
+from scene_graph_commonsense_torch.inference import (  # noqa: E402
+    SceneGraphPredictor)
 from scene_graph_commonsense_torch.models import weights  # noqa: E402
 from scene_graph_commonsense_torch.models.relation_head import (  # noqa
     make_relation_classifier as make_torch_classifier)
 from scene_graph_commonsense_torch.ops import pairs  # noqa: E402
+from scene_graph_commonsense_torch.parallel import mesh as mesh_lib  # noqa
 from scene_graph_commonsense_torch.train import engine  # noqa: E402
 from scene_graph_commonsense_torch.train import loop  # noqa: E402
 
@@ -381,15 +384,23 @@ def test_torch_unported_observability_raises(tmp_path, knob):
         assert written and os.path.getsize(os.path.join(out, written[0]))
 
 
-def test_torch_train_step_unported_branches_raise():
-    # the mesh branch is not ported (the faithful branch is:
-    # tests/test_torch_faithful.py)
+def test_torch_mesh_unported_entry_points_raise():
+    """The train and PredCLS eval steps take a mesh
+    (tests/test_torch_mesh.py); tensor parallelism (make_mesh(model=2)),
+    SGCLS / SGDET, the detector and the predictor over a mesh are not yet
+    ported and raise rather than run on one device."""
     _, tc = _cfgs()
     model = make_torch_classifier(tc, device="cpu")
-    opt = engine.make_optimizer(1e-3)
+    mesh = mesh_lib.Mesh(2, 1, 0, torch.device("cpu"))
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        engine.make_train_step(model, tc, opt, class_weights("vg"),
-                               mesh=object(), device="cpu")
+        mesh_lib.make_mesh(data=1, model=2, device="cpu")
+    for run in (engines.run_eval_sgc, engines.run_eval_sgd):
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            run(tc, model, [], lambda b: b, device="cpu", mesh=mesh)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        engines.make_detr_detect_fn(tc, None, mesh=mesh)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        SceneGraphPredictor(tc, model, device="cpu", mesh=mesh)
 
 
 def test_torch_prefetch_iterator_order_and_errors():

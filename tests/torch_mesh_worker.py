@@ -1,0 +1,169 @@
+"""One rank of the port's data-parallel CPU tests (tests/test_torch_mesh.py).
+
+    python tests/torch_mesh_worker.py WORK_DIR RANK
+
+Joins a gloo group of the spec's world size through a file store in
+WORK_DIR, runs every scenario of WORK_DIR/spec.pt in order on its rows of
+the global batches and saves what each returns to
+WORK_DIR/<scenario>_rank<RANK>.pt.  A failure writes the traceback to
+WORK_DIR/error_rank<RANK>.txt and exits 1.  Imports only the port (no JAX,
+no conftest)."""
+
+import contextlib
+import io
+import os
+import sys
+import traceback
+from datetime import timedelta
+
+import torch
+import torch.distributed as dist
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                os.pardir))
+
+from scene_graph_commonsense_torch import __main__ as cli  # noqa: E402
+from scene_graph_commonsense_torch.constants import (  # noqa: E402
+    class_weights)
+from scene_graph_commonsense_torch.data.artifacts import (  # noqa: E402
+    load_vg_artifacts)
+from scene_graph_commonsense_torch.eval import engines  # noqa: E402
+from scene_graph_commonsense_torch.models.relation_head import (  # noqa
+    make_relation_classifier)
+from scene_graph_commonsense_torch.parallel import mesh as mesh_lib  # noqa
+from scene_graph_commonsense_torch.train import engine, loop  # noqa: E402
+
+ARTIFACTS_DIR = "datasets/artifacts"
+
+
+def _model(cfg, state_dict, dtype):
+    return make_relation_classifier(cfg, device="cpu",
+                                    state_dict=state_dict).to(dtype)
+
+
+def _snapshot(model):
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def _same_as_rank0(mesh, tensors):
+    """Whether this rank holds rank 0's bits of every tensor."""
+    same = True
+    for t in tensors.values():
+        buf = t.clone()
+        dist.broadcast(buf, src=0)
+        same = same and torch.equal(buf, t)
+    return same
+
+
+def train_steps(mesh, sc):
+    """sc: cfg, state dict name, dtype, batches (global), clip, faithful.
+    Per step: rank 0's parameters (rank 1's are compared with them here),
+    the metrics, and whether this rank's parameters equal rank 0's."""
+    cfg = sc["cfg"]
+    model = _model(cfg, sc["state_dict"], sc["dtype"])
+    opt = engine.make_optimizer(1e-3, grad_clip_norm=sc["clip"])
+    state = engine.init_train_state(model, opt)
+    mesh_lib.replicate_tree(mesh, state.params)
+    step = engine.make_train_step(
+        model, cfg, opt, class_weights("vg", faithful=sc["faithful"]),
+        mesh=mesh)
+    trail = []
+    for b in sc["batches"]:
+        state, met = step(state, mesh_lib.shard_batch(mesh, b))
+        params = _snapshot(model)
+        trail.append((params if mesh.rank == 0 else None,
+                      {k: float(v) for k, v in met.items()},
+                      _same_as_rank0(mesh, params)))
+    return trail
+
+
+def eval_step(mesh, sc):
+    """The sharded eval step on each global batch; run_eval_pc with an
+    on_batch hook that records its calls; run_eval_pc on batches sharded
+    ahead (shard_eval_batch) through a featurize that records the rows it
+    is given."""
+    cfg = sc["cfg"]
+    model = _model(cfg, sc["state_dict"], sc["dtype"])
+    estep = engine.make_eval_step(model, cfg, mesh=mesh)
+    outs = [engines.to_numpy(estep(mesh_lib.shard_batch(mesh, b)))
+            for b in sc["batches"]]
+    calls = []
+    res = engines.run_eval_pc(
+        cfg, model, sc["batches"], mesh=mesh,
+        on_batch=lambda i, out, cand, tgt: calls.append(i))
+    rows = []
+
+    def featurize(b):
+        rows.append(len(b["cats"]))
+        return dict(b)
+
+    pre = engines.run_eval_pc(
+        cfg, model, [engines.shard_eval_batch(mesh, b, featurize)
+                     for b in sc["batches"]], mesh=mesh)
+    return {"outs": outs, "calls": calls, "results": res,
+            "presharded_results": pre, "featurized_rows": rows}
+
+
+def fit(mesh, sc):
+    cfg = sc["cfg"]
+    model = _model(cfg, sc["state_dict"], sc["dtype"])
+    lines = []
+    state = loop.fit(cfg, model, lambda e: iter(sc["train"]),
+                     lambda e: iter(sc["test"]),
+                     steps_per_epoch=len(sc["train"]),
+                     artifacts=load_vg_artifacts(ARTIFACTS_DIR), mesh=mesh,
+                     log_fn=lines.append)
+    params = _snapshot(model)
+    return {"state_dict": params if mesh.rank == 0 else None,
+            "same_as_rank0": _same_as_rank0(mesh, params), "lines": lines,
+            "step": state.step}
+
+
+def cli_runs(mesh, sc):
+    """Each argv through the CLI's main() in this group (as under
+    torchrun, main() finds the group up); stdout and the exit message of
+    each."""
+    got = []
+    for argv in sc["argvs"]:
+        out = io.StringIO()
+        code = None
+        sys.argv = ["scene_graph_commonsense_torch", *argv]
+        with contextlib.redirect_stdout(out):
+            try:
+                cli.main()
+            except SystemExit as e:
+                code = str(e.code)
+        got.append({"stdout": out.getvalue(), "exit": code})
+    return got
+
+
+SCENARIOS = {"train": train_steps, "eval": eval_step, "fit": fit,
+             "cli": cli_runs}
+
+
+def main():
+    work, rank = sys.argv[1], int(sys.argv[2])
+    torch.set_num_threads(2)
+    try:
+        spec = torch.load(os.path.join(work, "spec.pt"), weights_only=False)
+        # a rank that fails leaves its peers waiting in a collective: the
+        # timeout bounds the wait
+        dist.init_process_group(
+            "gloo", init_method=f"file://{os.path.join(work, 'rdv.store')}",
+            world_size=spec["world"], rank=rank,
+            timeout=timedelta(seconds=120))
+        mesh = mesh_lib.make_mesh(device="cpu")
+        for name, sc in spec["scenarios"]:
+            sc = {k: spec["tensors"][v] if k == "state_dict" else v
+                  for k, v in sc.items()}
+            result = SCENARIOS[sc["kind"]](mesh, sc)
+            torch.save(result, os.path.join(work, f"{name}_rank{rank}.pt"))
+        dist.destroy_process_group()
+    except BaseException:
+        with open(os.path.join(work, f"error_rank{rank}.txt"), "w") as f:
+            f.write(traceback.format_exc())
+        sys.exit(1)
+
+
+if __name__ == "__main__":
+    main()
