@@ -186,7 +186,30 @@ Phases, each printing JSON lines:
               gloo's all-gather, fused_backbone auto resolved off, and a
               step with the bfloat16 all-reduce (finite, the ranks
               bit-identical after it); last, two processes that put NCCL
-              on the one card (what NCCL says).
+              on the one card (what NCCL says).  The remaining entry
+              points over the mesh, at full width (phase detect's DETR-101
+              detector, seeded, on 12 of its 1000^2 canvases; the VG head
+              in bf16; Motifs at phase pnp's widths from features, the
+              second half of its batch cut to 2 valid objects an image):
+              at world size 1 over NCCL with fused_backbone auto,
+              make_detr_detect_fn(mesh=) and the Motifs eval step (with
+              and without TDE) and 3 train steps bit for bit against their
+              unsharded runs, run_eval_sgd(mesh=) (batches sharded ahead)
+              and run_eval_sgc(mesh=) over MESH_EVAL_BATCHES batches (their
+              GT objects the detector's detections) and
+              SceneGraphPredictor(mesh=) from 12 1024^2 images equal to
+              theirs, each path's launches (a detect dispatch's, an
+              encode's, K1 once a relation step, none in the pnp steps)
+              and its host-clock times beside the unsharded run's in
+              turns; at world size 2 over gloo in the same two processes
+              (the cuDNN trunk, K7 and K8 6 a dispatch, K3-K5 none): the
+              gathered detections equal to the bit to one process's
+              detect_fn on the two halves concatenated, run_eval_sgd(mesh=)
+              equal on both ranks, the Motifs first update (at
+              PNP_UPDATE_LR, unclipped) within PNP_UPDATE_TOL of one
+              process's global-loss update over all 12 images while the
+              mean of the halves' local-loss updates misses it, then 3
+              steps with the ranks bit-identical after each.
 Phase `kernel` also holds the encoder kernels against their plain versions:
 attention at (B, 1024, 8, 32) for B = 12 and 24, with all keys valid, 80%
 of the keys masked, and one image's keys all masked; FFN + LayerNorm at
@@ -3651,6 +3674,412 @@ def mesh_first_update(mesh, cfg, batch):
     return got
 
 
+# phase mesh, the remaining entry points: SGDET and SGCLS over
+# MESH_EVAL_BATCHES batches; the rule of the world-2 Motifs first update
+# against one process's global-loss update: |got - want| <= PNP_UPDATE_TOL *
+# max |want| over the update, taken at learning rate PNP_UPDATE_LR (the
+# config's after it) without clip or weight decay, so that the update is
+# minus the global gradient, far above the weights' rounding; both sum the
+# same float32 per-image terms, in another order
+MESH_EVAL_BATCHES = 2
+PNP_UPDATE_TOL = 1e-4
+PNP_UPDATE_LR = 1.0
+
+
+def detect_config(batch_size=12):
+    """Phase detect's configuration: VG width, bf16, batch 12."""
+    return config_lib.derive("vg", hierarchical_pred=True, run_mode="eval",
+                             eval_mode="sgd",
+                             training={"batch_size": batch_size})
+
+
+def sg_batches(cfg, seed):
+    """MESH_EVAL_BATCHES synthetic full-VG-width batches, each with 12
+    seeded 1000^2 canvases and their pixel masks (phase detect's)."""
+    rng = np.random.default_rng(seed)
+    b, n = cfg.training.batch_size, cfg.data.max_objects
+    return [{**synthetic_batch(rng, batch_size=b, max_objects=n,
+                               with_aug=False),
+             **detection_canvases(rng, canvas_regions(b))}
+            for _ in range(MESH_EVAL_BATCHES)]
+
+
+def detected_targets(batches, detect_fn, seed=95):
+    """The batches with their GT objects replaced by `detect_fn`'s
+    detections of their canvases and a seeded relation on every directed
+    pair of them, so that SGDET and SGCLS have targets that a random
+    detector's boxes and labels match."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for b in batches:
+        det = detect_fn(b)
+        n = det["valid"].shape[1]
+        pair = det["valid"][:, :, None] & det["valid"][:, None, :] \
+            & ~np.eye(n, dtype=bool)
+        rel = rng.integers(0, 50, pair.shape).astype(np.int32)
+        out.append({**b, "boxes": det["boxes"].astype(np.float32),
+                    "cats": det["cats"].astype(np.int32),
+                    "valid": det["valid"], "rel": np.where(pair, rel, -1)})
+    return out
+
+
+def related_by_model(cfg, model, batches, artifacts, device):
+    """detected_targets' `batches` with every detected pair that the
+    overlap filter keeps related by `model`'s best geometric predicate on
+    it in the unsharded eval step, and no other pair related: SGDET
+    targets that the random weights' candidates hit, so that its recall
+    is not 0 and a wrong step cannot match a right one by both being 0."""
+    estep = engine.make_eval_step(model, cfg, device=device)
+    ng = cfg.model.num_geometric
+    out = []
+    for b in batches:
+        o = engines.to_numpy(estep({
+            **b, "super_mh": artifacts.sub2super[b["cats"]].astype(
+                np.float32)}))
+        keep = o["pair_mask"] & o["iou_ok"]
+        rel = np.full(b["rel"].shape, -1, np.int32)
+        rel[o["pair_img"][keep], o["pair_sub"][keep], o["pair_obj"][keep]] \
+            = o["relation"][keep, :ng].argmax(1)
+        out.append({**b, "rel": rel})
+    return out
+
+
+def pnp_mesh_batch(seed):
+    """A batch at phase pnp's widths from features (12 images, 20 objects,
+    the 32x32x256 map) whose second half is cut to 2 valid objects an
+    image: the halves hold different numbers of valid objects and
+    connected pairs, so a mean of the halves' local losses is not the
+    global loss."""
+    b = synthetic_batch(np.random.default_rng(seed), batch_size=12,
+                        max_objects=20, with_aug=False)
+    valid = b["valid"].copy()
+    valid[6:, 2:] = False
+    pair = valid[:, :, None] & valid[:, None, :]
+    b.update(valid=valid, cats=np.where(valid, b["cats"], 0),
+             rel=np.where(pair, b["rel"], -1))
+    return b
+
+
+def pnp_mesh_parts(cfg, mesh=None, first_lr=None):
+    """A seeded Motifs predictor at the JAX widths on the card, its train
+    step (over `mesh`, else on one device) with fit_predictor's optimizer,
+    or with `first_lr` for the first update (the config's learning rate
+    after it) and no clip or weight decay; (predictor, state, step)."""
+    p = pnp_engine.make_predictor(cfg, "motifs", device="cuda",
+                                  log_fn=lambda *a: None)
+    tc = cfg.training
+    opt = engine.make_optimizer(tc.learning_rate, momentum=tc.momentum,
+                                weight_decay=tc.weight_decay,
+                                grad_clip_norm=bench.GRAD_CLIP_NORM) \
+        if first_lr is None else engine.make_optimizer(
+            lambda count: first_lr if count == 0 else tc.learning_rate,
+            momentum=tc.momentum, weight_decay=0.0)
+    step = pnp_engine.make_pnp_train_step(p, cfg, opt, mesh=mesh,
+                                          device="cuda")
+    return p, engine.init_train_state(p, opt), step
+
+
+def differing_keys(got, want):
+    """The keys of two dicts whose values differ in dtype, shape or any
+    element, NaN equal to NaN (nested dicts key by key)."""
+    bad = []
+    for k in set(got) | set(want):
+        a, b = got.get(k), want.get(k)
+        if isinstance(b, dict) and isinstance(a, dict):
+            bad += [f"{k}.{x}" for x in differing_keys(a, b)]
+            continue
+        if isinstance(b, torch.Tensor):
+            a, b = a.cpu().numpy(), b.cpu().numpy()
+        a, b = np.asarray(a), np.asarray(b)
+        if a.dtype != b.dtype or not np.array_equal(
+                a, b, equal_nan=a.dtype.kind in "fc"):
+            bad.append(k)
+    return bad
+
+
+def in_turns(single, sharded, iters=3):
+    """Host-clock ms of single() and sharded() (each ending in a copy to
+    the host or a synchronise) in turns single, sharded, sharded, single,
+    `iters` calls each time after a warm-up."""
+    def ms(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3 / iters
+
+    single()
+    sharded()
+    order = (("single", single), ("mesh", sharded), ("mesh", sharded),
+             ("single", single))
+    out = {"single": [], "mesh": []}
+    for name, fn in order:
+        out[name].append(ms(fn))
+    return out
+
+
+def mesh_world1_paths(mesh):
+    """World size 1 over NCCL, the remaining entry points, with
+    fused_backbone auto (the trunk and encoder kernels run): the detector
+    (load_detr(detection=True), seeded) through make_detr_detect_fn(mesh=)
+    against the unsharded detect_fn, every field bit for bit, on 12 of
+    phase detect's 1000^2 canvases; run_eval_sgd(mesh=) over batches
+    sharded ahead (shard_eval_batch) and run_eval_sgc(mesh=) over
+    MESH_EVAL_BATCHES batches whose GT objects are the detections
+    (detected_targets) against the unsharded runs, result dicts equal; SceneGraphPredictor(mesh=) from 12 seeded 1024^2 images against
+    the unsharded predictor, graphs equal; Motifs at phase pnp's widths:
+    the eval step without and with TDE and 3 train steps over the mesh
+    against the unsharded ones bit for bit.  The launches of each mesh
+    path, and the host-clock times of each path beside its unsharded run
+    in turns (the Motifs train step by CUDA events)."""
+    cfg = detect_config()
+    quiet = dict(log_fn=lambda *a: None)
+    detr = loop.load_detr(cfg, device="cuda",
+                          generator=torch.Generator().manual_seed(0),
+                          detection=True, **quiet)
+    if not (detr.fused_backbone and detr.flash_encoder):
+        raise AssertionError("fused_backbone / flash_encoder auto off at "
+                             "world size 1")
+    model = make_relation_classifier(
+        cfg, device="cuda", generator=torch.Generator().manual_seed(0))
+    artifacts = load_vg_artifacts("datasets/artifacts")
+    batches = sg_batches(cfg, 90)
+    single = engines.make_detr_detect_fn(cfg, detr)
+    sharded = engines.make_detr_detect_fn(cfg, detr, mesh=mesh)
+    out, launches, ms = {}, {}, {}
+    with deterministic():
+        want = single(batches[0])
+        reset_counts()
+        got = sharded(batches[0])
+        launches["detect"] = read_counts()
+        bad = differing_keys(got, want)
+        if bad or launches["detect"] != expected(**PER_DETECT):
+            raise AssertionError(f"mesh detect_fn: fields {bad} differ, "
+                                 f"launches {launches['detect']}")
+        ms["detect"] = in_turns(lambda: single(batches[0]),
+                                lambda: sharded(batches[0]))
+        out["detections"] = int(want["valid"].sum())
+        batches = detected_targets(batches, single)
+
+        for mode, runner in (("sgd", engines.run_eval_sgd),
+                             ("sgc", engines.run_eval_sgc)):
+            want = runner(cfg, model, batches, single, artifacts=artifacts,
+                          device="cuda")
+            rows = [engines.shard_eval_batch(mesh, b) for b in batches] \
+                if mode == "sgd" else batches
+            reset_counts()
+            got = runner(cfg, model, rows, sharded, artifacts=artifacts,
+                         mesh=mesh)
+            torch.cuda.synchronize()
+            launches[mode] = read_counts()
+            want_launches = expected(
+                **{k: v * MESH_EVAL_BATCHES for k, v in PER_DETECT.items()},
+                pair_pool=MESH_EVAL_BATCHES)
+            bad = differing_keys(got, want)
+            if bad or launches[mode] != want_launches \
+                    or not want["num_targets"]:
+                raise AssertionError(f"run_eval_{mode}(mesh=): {bad} differ "
+                                     f"from the unsharded run, launches "
+                                     f"{launches[mode]}")
+            ms[mode] = in_turns(
+                lambda: runner(cfg, model, batches, single,
+                               artifacts=artifacts, device="cuda"),
+                lambda: runner(cfg, model, rows, sharded,
+                               artifacts=artifacts, mesh=mesh), iters=1)
+            out[f"{mode}_recall"] = got["recall"]
+
+        request = next(image_batches(np.random.default_rng(91), 1, 12,
+                                     cfg.model.image_size, with_aug=False))
+        pred_a = SceneGraphPredictor(cfg, model, detr_model=detr,
+                                     device="cuda")
+        pred_b = SceneGraphPredictor(cfg, model, detr_model=detr, mesh=mesh)
+        want = pred_a.predict(request)
+        reset_counts()
+        got = pred_b.predict(request)
+        launches["predict"] = read_counts()
+        if got != want or not sum(map(len, want)) \
+                or launches["predict"] != expected(**PER_ENCODE,
+                                                   pair_pool=1):
+            raise AssertionError(f"SceneGraphPredictor(mesh=) graphs differ "
+                                 f"or launches {launches['predict']}")
+        ms["predict"] = in_turns(lambda: pred_a.predict(request),
+                                 lambda: pred_b.predict(request))
+        out["predict_edges"] = sum(map(len, got))
+        del detr, pred_a, pred_b, request, batches
+        torch.cuda.empty_cache()
+
+        pcfg = config_lib.derive("vg", hierarchical_pred=True,
+                                 training={"batch_size": 12})
+        pbatch = to_device(pnp_mesh_batch(92), torch.device("cuda"))
+        p_a, state_a, step_a = pnp_mesh_parts(pcfg)
+        p_b, state_b, step_b = pnp_mesh_parts(pcfg, mesh)
+        for tde in (False, True):
+            want = pnp_engine.make_pnp_eval_step(p_a, pcfg, tde=tde,
+                                                 device="cuda")(pbatch)
+            estep = pnp_engine.make_pnp_eval_step(p_b, pcfg, tde=tde,
+                                                  mesh=mesh)
+            reset_counts()
+            got = estep(mesh_lib.shard_batch(mesh, pbatch))
+            tag = "pnp_eval_tde" if tde else "pnp_eval"
+            launches[tag] = read_counts()
+            bad = differing_keys(got, want)
+            if bad or launches[tag] != expected():
+                raise AssertionError(f"{tag}(mesh=): {bad} differ, "
+                                     f"launches {launches[tag]}")
+        launches["pnp_train"] = expected()
+        for i in range(MESH_STEPS):
+            state_a, met_a = step_a(state_a, pbatch)
+            reset_counts()
+            state_b, met_b = step_b(state_b,
+                                    mesh_lib.shard_batch(mesh, pbatch))
+            launches["pnp_train"] = {
+                k: n + read_counts()[k]
+                for k, n in launches["pnp_train"].items()}
+            met_a = {k: float(v) for k, v in met_a.items()}
+            met_b = {k: float(v) for k, v in met_b.items()}
+            differ = [k for k, q in p_a.named_parameters()
+                      if not torch.equal(q, p_b.get_parameter(k))]
+            if met_a != met_b or differ \
+                    or not all(np.isfinite(list(met_a.values()))):
+                raise AssertionError(f"pnp mesh step {i}: metrics {met_b} "
+                                     f"vs {met_a}, parameters {differ}")
+        if launches["pnp_train"] != expected():
+            raise AssertionError(f"pnp steps launched {launches}")
+    local = mesh_lib.shard_batch(mesh, pbatch)
+    ms["pnp_train_cuda_events"] = {"single": [], "mesh": []}
+    for name, step, state, b in (("single", step_a, state_a, pbatch),
+                                 ("mesh", step_b, state_b, local),
+                                 ("mesh", step_b, state_b, local),
+                                 ("single", step_a, state_a, pbatch)):
+        ms["pnp_train_cuda_events"][name].append(
+            cuda_ms(lambda: step(state, b), 3))
+    del p_a, p_b, state_a, state_b, step_a, step_b, model
+    torch.cuda.empty_cache()
+    return {"bitwise_equal": ["detect", "pnp_eval", "pnp_eval_tde",
+                              f"pnp_train x{MESH_STEPS}"],
+            "equal_results": ["sgd", "sgc", "predict"],
+            "launches": launches, "ms_in_turns": ms, **out}
+
+
+def mesh_rank_paths(mesh):
+    """World size 2 over gloo on the one card, the remaining entry points
+    (fused_backbone auto resolves off: the cuDNN trunk; the encoder
+    kernels run): the detector on this rank's 6 canvases, gathered (rank
+    0 holds the gathered detections against one process's detect_fn on
+    rows 0-5 and 6-11 concatenated, bit for bit: each half is the per-rank
+    batch, so the same algorithms run); run_eval_sgd(mesh=) over
+    MESH_EVAL_BATCHES batches sharded ahead; Motifs: the first unclipped
+    update against one process's global-loss update over all 12 images
+    (rank 0 computes it, and beside it the mean of the two halves' own
+    updates, which the rule must refuse), then MESH_STEPS steps with the
+    ranks' parameters compared after each; host-clock times and the
+    launches of each path."""
+    cfg = detect_config()
+    quiet = dict(log_fn=lambda *a: None)
+    dev = mesh.device
+    detr = loop.load_detr(cfg, device=dev,
+                          generator=torch.Generator().manual_seed(0),
+                          detection=True, **quiet)
+    model = make_relation_classifier(
+        cfg, device=dev, generator=torch.Generator().manual_seed(0))
+    batches = sg_batches(cfg, 93)
+    sharded = engines.make_detr_detect_fn(cfg, detr, mesh=mesh)
+    res = {"detr_fused_backbone": detr.fused_backbone,
+           "detr_flash_encoder": detr.flash_encoder}
+    with deterministic():
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = sharded(batches[0])
+        res["detect_s"] = time.perf_counter() - t0
+        res["detect_launches"] = read_counts()
+        if mesh.rank == 0:
+            single = engines.make_detr_detect_fn(cfg, detr)
+            halves = [single(mesh_lib.shard_batch(
+                mesh_lib.Mesh(MESH_WORLD, 1, r, dev),
+                {k: batches[0][k] for k in engines.DETECT_KEYS}))
+                for r in range(MESH_WORLD)]
+            want = {k: np.concatenate([h[k] for h in halves])
+                    for k in halves[0]}
+            res["detect_fields_differ"] = differing_keys(got, want)
+            res["detections"] = int(want["valid"].sum())
+        artifacts = load_vg_artifacts("datasets/artifacts")
+        batches = related_by_model(cfg, model,
+                                   detected_targets(batches, sharded),
+                                   artifacts, dev)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sgd = engines.run_eval_sgd(
+            cfg, model, [engines.shard_eval_batch(mesh, b) for b in batches],
+            sharded, artifacts=artifacts, mesh=mesh)
+        torch.cuda.synchronize()
+        res["sgd_s"] = time.perf_counter() - t0
+        res["sgd_launches"] = read_counts()
+        res["sgd_results"] = {k: np.asarray(sgd[k]).tolist() for k in (
+            "recall", "mean_recall", "recall_zs", "num_targets")}
+        if mesh.rank == 0:
+            # the unsharded run over each batch's halves, the per-rank
+            # batches (the same algorithms run; recall is per image)
+            half = detect_config(cfg.training.batch_size // MESH_WORLD)
+            rows = [mesh_lib.shard_batch(
+                mesh_lib.Mesh(MESH_WORLD, 1, r, dev), b)
+                for b in batches for r in range(MESH_WORLD)]
+            res["sgd_differ_from_halves"] = differing_keys(
+                sgd, engines.run_eval_sgd(half, model, rows, single,
+                                          artifacts=artifacts, device=dev))
+        del detr, model, batches, sharded
+        torch.cuda.empty_cache()
+
+        pcfg = config_lib.derive("vg", hierarchical_pred=True,
+                                 training={"batch_size": 12})
+        batch = to_device(pnp_mesh_batch(94), dev)
+        if mesh.rank == 0:
+            p, state, step = pnp_mesh_parts(pcfg, first_lr=PNP_UPDATE_LR)
+            before = {k: q.detach().clone() for k, q in
+                      p.named_parameters()}
+            step(state, batch)
+            want = {k: q.detach() - before[k] for k, q in
+                    p.named_parameters()}
+            ddp = {k: torch.zeros_like(v) for k, v in want.items()}
+            for r in range(MESH_WORLD):
+                p, state, step = pnp_mesh_parts(pcfg, first_lr=PNP_UPDATE_LR)
+                step(state, mesh_lib.shard_batch(
+                    mesh_lib.Mesh(MESH_WORLD, 1, r, dev), batch))
+                for k, q in p.named_parameters():
+                    ddp[k] += (q.detach() - before[k]) / MESH_WORLD
+            del p, state, step
+        p, state, step = pnp_mesh_parts(pcfg, mesh, first_lr=PNP_UPDATE_LR)
+        local = mesh_lib.shard_batch(mesh, batch)
+        reset_counts()
+        step_s, same = [], []
+        for i in range(MESH_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, met = step(state, local)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            if not all(np.isfinite(float(v)) for v in met.values()):
+                raise AssertionError(f"non-finite pnp metrics {met}")
+            if i == 0 and mesh.rank == 0:
+                upd = {k: q.detach() - before[k] for k, q in
+                       p.named_parameters()}
+                res["pnp_first_update_max_abs"] = max(
+                    float(v.abs().max()) for v in want.values())
+                res["pnp_first_update_max_abs_err"] = max(
+                    float((upd[k] - want[k]).abs().max()) for k in want)
+                res["pnp_mean_of_local_losses_max_abs_err"] = max(
+                    float((ddp[k] - want[k]).abs().max()) for k in want)
+            same.append(ranks_identical(mesh, state.params))
+        res.update(pnp_step_s=step_s, pnp_ranks_bitwise_identical=same,
+                   pnp_launches=read_counts(),
+                   pnp_loss_last=float(met["loss"]))
+    del p, state, step
+    torch.cuda.empty_cache()
+    return res
+
+
 def mesh_rank_main(rank, work):
     """One rank of phase mesh's world-size-2 run: gloo's CUDA path, both
     ranks on the one card, at bench.py's configuration (6 images a rank).
@@ -3718,6 +4147,9 @@ def mesh_rank_main(rank, work):
             "step_s": time.perf_counter() - t0,
             "loss": float(met["loss"]),
             "ranks_bitwise_identical": ranks_identical(mesh, state.params)}
+        del model, step, state, bf_step, out
+        torch.cuda.empty_cache()
+        result["paths"] = mesh_rank_paths(mesh)
     finally:
         dist.destroy_process_group()
     with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
@@ -3761,6 +4193,40 @@ def run_ranks(work, flag, timeout):
     return codes, outs, timed_out
 
 
+def check_world2_paths(ranks):
+    """Phase mesh's rules for mesh_rank_paths' records of both ranks."""
+    r0 = ranks[0]
+    per_detect = {"ffn_ln": PER_DETECT["ffn_ln"],
+                  "attention": PER_DETECT["attention"]}
+    for rk in ranks:
+        if rk["detr_fused_backbone"] or not rk["detr_flash_encoder"] \
+                or rk["detect_launches"] != expected(**per_detect) \
+                or rk["sgd_launches"] != expected(
+                    **{k: v * MESH_EVAL_BATCHES
+                       for k, v in per_detect.items()},
+                    pair_pool=MESH_EVAL_BATCHES) \
+                or rk["pnp_launches"] != expected() \
+                or not all(rk["pnp_ranks_bitwise_identical"]) \
+                or rk["sgd_results"] != r0["sgd_results"]:
+            raise AssertionError(f"world-2 gloo paths: {rk}")
+    if r0["detect_fields_differ"] or not r0["detections"]:
+        raise AssertionError(f"world-2 detections differ from one "
+                             f"process's two halves: {r0}")
+    if r0["sgd_differ_from_halves"] \
+            or not min(r0["sgd_results"]["recall"]) > 0:
+        raise AssertionError(f"world-2 run_eval_sgd(mesh=) differs from "
+                             f"one process's run over the two halves, or "
+                             f"its recall is 0: {r0}")
+    err, scale, ddp = (r0["pnp_first_update_max_abs_err"],
+                       r0["pnp_first_update_max_abs"],
+                       r0["pnp_mean_of_local_losses_max_abs_err"])
+    if not (scale > 0 and err <= PNP_UPDATE_TOL * scale < ddp):
+        raise AssertionError(
+            f"world-2 Motifs first update off the one-process global-loss "
+            f"update by {err} (max {scale}; the mean of the halves' local "
+            f"losses by {ddp}, which the rule must refuse)")
+
+
 def phase_mesh():
     """Data parallelism on the card: world size 1 over NCCL (mesh_world1),
     world size 2 over gloo's CUDA path with both ranks on the one card
@@ -3773,8 +4239,9 @@ def phase_mesh():
         try:
             if dist.get_backend() != "nccl":
                 raise AssertionError(f"world size 1 on {dist.get_backend()}")
-            result["world1_nccl"] = mesh_world1(
-                mesh_lib.make_mesh(device="cuda"), tmp)
+            mesh = mesh_lib.make_mesh(device="cuda")
+            result["world1_nccl"] = mesh_world1(mesh, tmp)
+            result["world1_nccl_paths"] = mesh_world1_paths(mesh)
         finally:
             dist.destroy_process_group()
 
@@ -3806,8 +4273,10 @@ def phase_mesh():
         if not (scale > 0 and err <= MESH_UPDATE_TOL * scale):
             raise AssertionError(f"world-2 first update off the one-process "
                                  f"two-shard update by {err} (max {scale})")
+        check_world2_paths([rk["paths"] for rk in ranks])
         result["world2_gloo"] = {"wall_s": time.perf_counter() - t0,
                                  "update_tol": MESH_UPDATE_TOL,
+                                 "pnp_update_tol": PNP_UPDATE_TOL,
                                  "ranks": ranks}
 
         codes, outs, timed_out = run_ranks(tmp, "nccl_duplicate", 120)

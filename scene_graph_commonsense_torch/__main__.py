@@ -55,9 +55,11 @@ scene_graph_commonsense_torch ...), the run joins torchrun's process group
 a data axis of --mesh_data D processes (-1: parallel.data_axis, whose -1
 picks the largest divisor of the batch size that fits the world, as
 main.py does).  The axis must fill the world and divide the batch size:
-unlike a spare TPU device, a launched process cannot sit idle.  Rank 0
-alone prints and writes.  SGCLS / SGDET, --predictor and prepare_cs over a
-mesh are not yet ported and exit with a message.  With
+unlike a spare TPU device, a launched process cannot sit idle.  PredCLS,
+SGCLS and SGDET evaluation and --predictor evaluation run sharded over the
+axis; --predictor training and prepare_cs run on rank 0 alone, as main.py
+runs them on one device, while the other ranks wait for it and exit
+without output.  Rank 0 alone prints and writes.  With
 training.save_vis_results, PredCLS evaluation writes each batch's top
 predictions beside its targets to
 <training.result_path>/visualization/<i>_vis_results.json.
@@ -302,11 +304,12 @@ def _result_view(res):
 
 
 def run_predictor(args, cfg, train_fn, test_fn, steps_per_epoch, artifacts,
-                  featurize):
+                  featurize, mesh, say):
     """--predictor: fit_predictor for train / train_cs; for eval / eval_cs
     the checkpoint of training.test_epoch (else a warning and the seeded
-    initialisation) through run_eval_pc_predictor, printed as one JSON
-    line."""
+    initialisation) through run_eval_pc_predictor (sharded over `mesh`'s
+    eval mesh), printed by `say` as one JSON line."""
+    from scene_graph_commonsense_torch.train import loop
     from scene_graph_commonsense_torch.train import checkpoint as ckpt_lib
     from scene_graph_commonsense_torch.train import pnp_engine
     run_mode = cfg.training.run_mode
@@ -324,21 +327,22 @@ def run_predictor(args, cfg, train_fn, test_fn, steps_per_epoch, artifacts,
     state_dict = None
     if os.path.exists(ckpt):
         state_dict = ckpt_lib.load(ckpt)
-        print(f"Loaded predictor checkpoint {ckpt}")
+        say(f"Loaded predictor checkpoint {ckpt}")
     else:
-        print(f"WARNING: predictor checkpoint {ckpt} not found — "
-              f"evaluating randomly initialized weights")
+        say(f"WARNING: predictor checkpoint {ckpt} not found — "
+            f"evaluating randomly initialized weights")
     predictor = pnp_engine.make_predictor(cfg, args.predictor,
                                           device=args.device,
-                                          state_dict=state_dict)
+                                          state_dict=state_dict, log_fn=say)
     try:
         res = pnp_engine.run_eval_pc_predictor(
             cfg, predictor, test_fn(0), artifacts=artifacts,
             featurize=featurize, use_cs=run_mode == "eval_cs",
-            tde=args.tde, device=args.device)
+            tde=args.tde, device=args.device,
+            mesh=loop.eval_mesh(cfg, mesh))
     except ValueError as e:           # eval_cs without triplet tables
         sys.exit(str(e))
-    print(json.dumps(_result_view(res), default=str))
+    say(json.dumps(_result_view(res), default=str))
 
 
 def main():
@@ -351,7 +355,17 @@ def main():
     owned = not dist.is_initialized()
     init_multihost(device=args.device)
     try:
-        run(args, cfg, make_cli_mesh(args, cfg))
+        mesh = make_cli_mesh(args, cfg)
+        if mesh is not None and (cfg.training.run_mode == "prepare_cs" or (
+                args.predictor
+                and cfg.training.run_mode in ("train", "train_cs"))):
+            # main.py runs these unsharded on one device: rank 0 runs them
+            # as one process would (one checkpoint, one set of LLM
+            # queries, one cache file); the other ranks have nothing to do
+            if mesh.rank == 0:
+                run(args, cfg, None)
+        else:
+            run(args, cfg, mesh)
     finally:
         if owned and dist.is_initialized():
             dist.destroy_process_group()
@@ -378,17 +392,6 @@ def run(args, cfg, mesh):
     # the predictor families score PredCLS only: no detector
     detect = run_mode in ("eval", "eval_cs") \
         and cfg.training.eval_mode != "pc" and not args.predictor
-    if mesh is not None:
-        what = None
-        if args.predictor:
-            what = "--predictor"
-        elif run_mode == "prepare_cs":
-            what = "prepare_cs"
-        elif detect:
-            what = f"--eval_mode {cfg.training.eval_mode}"
-        if what:
-            sys.exit(f"{what} over a data-parallel mesh is not yet ported "
-                     f"to PyTorch; run it in one process")
     if args.synthetic and detect:
         sys.exit("sgc/sgd need detector outputs; run on real data with a "
                  "converted DETR checkpoint")
@@ -427,7 +430,7 @@ def run(args, cfg, mesh):
 
     if args.predictor:
         run_predictor(args, cfg, train_fn, test_fn, steps_per_epoch,
-                      artifacts, featurize)
+                      artifacts, featurize, mesh, say)
         return
     if training:
         model = make_relation_classifier(cfg, device=args.device)
@@ -466,19 +469,20 @@ def run(args, cfg, mesh):
             else None, device=args.device)
         print(f"Wrote commonsense triplet tables {path}")
         return
+    emesh = loop.eval_mesh(cfg, mesh)
+    prep = featurize
+    if emesh is not None:
+        # each rank encodes, and detects on, only its rows of a test batch
+        def prep(batch):
+            return engines.shard_eval_batch(emesh, batch, featurize)
     if detect:
         runner = (engines.run_eval_sgc if cfg.training.eval_mode == "sgc"
                   else engines.run_eval_sgd)
-        res = runner(cfg, model, prepped_batches(cfg, test_fn(0), featurize),
-                     engines.make_detr_detect_fn(cfg, detr),
-                     artifacts=artifacts, use_cs=use_cs, device=args.device)
+        res = runner(cfg, model, prepped_batches(cfg, test_fn(0), prep),
+                     engines.make_detr_detect_fn(cfg, detr, mesh=emesh),
+                     artifacts=artifacts, use_cs=use_cs, device=args.device,
+                     mesh=emesh)
     else:
-        emesh = loop.eval_mesh(cfg, mesh)
-        prep = featurize
-        if emesh is not None:
-            # each rank encodes only its rows of a test batch
-            def prep(batch):
-                return engines.shard_eval_batch(emesh, batch, featurize)
         res = engines.run_eval_pc(
             cfg, model, prepped_batches(cfg, test_fn(0), prep),
             artifacts=artifacts, use_cs=use_cs, device=args.device,

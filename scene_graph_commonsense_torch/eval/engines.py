@@ -1,7 +1,6 @@
 """Evaluation engines: PredCLS / SGCLS / SGDET (torch port of
-scene_graph_commonsense_tpu/eval/engines.py).  PredCLS takes a
-data-parallel mesh (parallel/mesh.py); the SGCLS / SGDET engines and the
-detector do not yet, and refuse one.
+scene_graph_commonsense_tpu/eval/engines.py), each on one device or over
+a data-parallel mesh (parallel/mesh.py).
 
 Mirrors reference evaluate.py's three modes:
   * run_eval_pc  (reference evaluate.py:29-227): GT boxes + GT labels;
@@ -15,6 +14,12 @@ turns them into flat Candidates/Targets and streams them into the numpy
 evaluators.  SGCLS and SGDET take a `detect_fn(batch)` returning the
 detection dict of ops/detection.postprocess_detections;
 make_detr_detect_fn builds it from the frozen DETR detector, on the device.
+
+Over a mesh every rank iterates the same global batches: each rank detects
+on its rows and gathers the global detections, builds the global step
+batch from them on the host, steps on its rows through the sharded eval
+step (train.engine.make_eval_step(mesh=)), which gathers the global
+outputs; rank 0 alone runs the evaluators, and its results are broadcast.
 
 Documented deviation (the JAX package's): the reference's SGCLS label
 matcher duplicates a GT box when the two best-IoU predicted slots tie (the
@@ -41,7 +46,7 @@ from scene_graph_commonsense_torch.eval.recall import (
 from scene_graph_commonsense_torch.ops.detection import (
     postprocess_detections)
 from scene_graph_commonsense_torch.parallel.mesh import (
-    broadcast_object, not_yet_ported, shard_batch)
+    all_gather_rows, broadcast_object, shard_batch)
 from scene_graph_commonsense_torch.train import engine as engine_lib
 
 
@@ -76,22 +81,38 @@ def _model_batch(batch: Dict) -> Dict:
             if batch.get(k) is not None}
 
 
-# the global batch entries the PredCLS evaluators read on the host
+# the global batch entries the evaluators read on the host
 HOST_KEYS = ("cats", "boxes", "rel", "valid")
+# the detection view that detect_fn reads
+DETECT_KEYS = ("image_nonsq", "pixel_mask")
 
 
 def shard_eval_batch(mesh, batch: Dict,
                      featurize: Optional[Callable[[Dict], Dict]] = None
                      ) -> Dict:
-    """A global PredCLS batch sharded ahead of run_eval_pc(mesh=): the
-    entries the evaluators read stay global on the host, and this rank's
-    rows, featurized when `featurize` is given (no rank encodes images it
-    then drops), go under "shard"."""
+    """A global batch sharded ahead of run_eval_pc / run_eval_sgc /
+    run_eval_sgd (mesh=): the entries the evaluators read stay global on
+    the host, and this rank's rows, featurized when `featurize` is given
+    (no rank encodes images it then drops), go under "shard" with the
+    rows of the detection view, where the batch has one."""
     local = shard_batch(mesh, batch)
     if featurize is not None:
         local = featurize(local)
     return {**{k: np.asarray(batch[k]) for k in HOST_KEYS},
-            "shard": _model_batch(local)}
+            "shard": {**_model_batch(local),
+                      **{k: local[k] for k in DETECT_KEYS if k in local}}}
+
+
+def _step_rows(mesh, batch: Dict, **overrides) -> Dict:
+    """What the eval step takes of a batch: its model entries with
+    `overrides` (global arrays: the entries built from the detections) in
+    their place; under a mesh this rank's rows of them, the model entries
+    from the batch's "shard" when it was sharded ahead."""
+    if mesh is None:
+        return {**_model_batch(batch), **overrides}
+    local = batch["shard"] if "shard" in batch \
+        else shard_batch(mesh, _model_batch(batch))
+    return {**_model_batch(local), **shard_batch(mesh, overrides)}
 
 
 def _accumulate_batch(evaluator, ev3, cfg, out, batch, artifacts,
@@ -188,13 +209,7 @@ def run_eval_pc(cfg, model, batches: Iterable[Dict],
     for i, batch in enumerate(batches):
         if max_batches is not None and i >= max_batches:
             break
-        if mesh is None:
-            run_batch = batch
-        elif "shard" in batch:
-            run_batch = batch["shard"]
-        else:
-            run_batch = shard_batch(mesh, _model_batch(batch))
-        out = estep(run_batch)
+        out = estep(_step_rows(mesh, batch))
         if not lead:
             continue
         out = to_numpy(out)
@@ -288,19 +303,21 @@ def run_eval_sgc(cfg, model, batches: Iterable[Dict],
                  mesh=None) -> Dict:
     """SGCLS: GT boxes, predicted labels.  detect_fn(batch) returns the
     detection dict of ops/detection.postprocess_detections (numpy or
-    tensors).  `model` runs on `device` (default cuda).  A mesh is not yet
-    ported and raises."""
-    if mesh is not None:
-        not_yet_ported("run_eval_sgc")
+    tensors).  `model` runs on `device` (default cuda).  With a mesh (see
+    the module docstring) detect_fn returns the global detections on every
+    rank (make_detr_detect_fn(mesh=)); a batch may come sharded ahead
+    (shard_eval_batch)."""
     ev, _ = _make_evaluators(cfg, artifacts, predcls=False)
     cap = 0
     if cfg.training.sgcls_top2_duplicates:
-        # slot-expanded 2N grid needs its own worst-case capacity
+        # slot-expanded 2N grid needs its own worst-case capacity (a
+        # mesh step takes its ceiling per shard)
         n2 = 2 * cfg.data.max_objects
         cap = cfg.training.batch_size * n2 * (n2 - 1)
     estep = engine_lib.make_eval_step(model, cfg, capacity=cap,
-                                      device=device)
+                                      device=device, mesh=mesh)
     sub2super = artifacts.sub2super if artifacts is not None else None
+    lead = mesh is None or mesh.rank == 0
     warned = [False]
     for i, batch in enumerate(batches):
         if max_batches is not None and i >= max_batches:
@@ -308,24 +325,25 @@ def run_eval_sgc(cfg, model, batches: Iterable[Dict],
         det = to_numpy(detect_fn(batch))
         gt_boxes = np.asarray(batch["boxes"])
         gt_valid = np.asarray(batch["valid"])
-        run_batch = _model_batch(batch)
         if cfg.training.sgcls_top2_duplicates:
             # faithful slot-expanded grid (2N slots, GT boxes duplicated
             # on exact top-2 IoU ties)
             cats, conf, boxes, valid = match_predicted_labels_top2(
                 det, gt_boxes, gt_valid, cfg.model.feature_size)
             n2 = cats.shape[1]
-            run_batch.update(cats=cats, boxes=boxes, valid=valid,
-                             rel=np.full((cats.shape[0], n2, n2), -1,
-                                         np.int32))
+            over = dict(cats=cats, boxes=boxes, valid=valid,
+                        rel=np.full((cats.shape[0], n2, n2), -1, np.int32))
         else:
             cats, conf = match_predicted_labels(
                 det, gt_boxes, gt_valid, cfg.model.feature_size)
             boxes = gt_boxes
-            run_batch["cats"] = cats
+            over = dict(cats=cats)
         if sub2super is not None:
-            run_batch["super_mh"] = sub2super[cats].astype(np.float32)
-        out = to_numpy(estep(run_batch))
+            over["super_mh"] = sub2super[cats].astype(np.float32)
+        out = estep(_step_rows(mesh, batch, **over))
+        if not lead:
+            continue
+        out = to_numpy(out)
         check_pair_overflow(out, warned)
         # targets keep GT cats; candidates use matched predicted cats.  The
         # reference adds the RAW class confidences (softmax prob x IoU) to
@@ -339,7 +357,9 @@ def run_eval_sgc(cfg, model, batches: Iterable[Dict],
         _accumulate_batch(ev, None, cfg, out, batch, artifacts, use_cs,
                           predcls=False, cats=cats, boxes=boxes,
                           cat_conf=conf, target_keep=tk)
-    return _results(cfg, ev, None)   # Top-3 is a PredCLS-only report
+    # Top-3 is a PredCLS-only report
+    res = _results(cfg, ev, None) if lead else None
+    return res if mesh is None else broadcast_object(mesh, res)
 
 
 def run_eval_sgd(cfg, model, batches: Iterable[Dict],
@@ -349,23 +369,24 @@ def run_eval_sgd(cfg, model, batches: Iterable[Dict],
                  mesh=None) -> Dict:
     """SGDET: predicted boxes + labels drive the pair grid; GT pairs are the
     unmatched target set (reference utils.py:294-352).  `model` runs on
-    `device` (default cuda).  A mesh is not yet ported and raises."""
-    if mesh is not None:
-        not_yet_ported("run_eval_sgd")
+    `device` (default cuda).  A mesh as in run_eval_sgc."""
     ev, _ = _make_evaluators(cfg, artifacts, predcls=False)
-    estep = engine_lib.make_eval_step(model, cfg, device=device)
+    estep = engine_lib.make_eval_step(model, cfg, device=device, mesh=mesh)
     sub2super = artifacts.sub2super if artifacts is not None else None
+    lead = mesh is None or mesh.rank == 0
     warned = [False]
     for i, batch in enumerate(batches):
         if max_batches is not None and i >= max_batches:
             break
         det = to_numpy(detect_fn(batch))
-        run_batch = _model_batch(batch)
-        run_batch.update(cats=det["cats"], boxes=det["boxes"],
-                         valid=det["valid"])
+        over = dict(cats=det["cats"], boxes=det["boxes"],
+                    valid=det["valid"])
         if sub2super is not None:
-            run_batch["super_mh"] = sub2super[det["cats"]].astype(np.float32)
-        out = to_numpy(estep(run_batch))
+            over["super_mh"] = sub2super[det["cats"]].astype(np.float32)
+        out = estep(_step_rows(mesh, batch, **over))
+        if not lead:
+            continue
+        out = to_numpy(out)
         check_pair_overflow(out, warned)
         m = cfg.model
         cs_a = cs_v = None
@@ -392,7 +413,9 @@ def run_eval_sgd(cfg, model, batches: Iterable[Dict],
         ev.accumulate(cand, tgt)
         if cfg.data.dataset == "oiv6":
             ev.accumulate_precision(cand, tgt)
-    return _results(cfg, ev, None)   # Top-3 is a PredCLS-only report
+    # Top-3 is a PredCLS-only report
+    res = _results(cfg, ev, None) if lead else None
+    return res if mesh is None else broadcast_object(mesh, res)
 
 
 def make_detr_detect_fn(cfg, detr_model, mesh=None):
@@ -401,15 +424,23 @@ def make_detr_detect_fn(cfg, detr_model, mesh=None):
     batch["pixel_mask"] (all pixels real when absent), then the static
     postprocess (reference evaluate.py:309-368), both under
     torch.inference_mode on the model's device; one copy to the host at the
-    end.  `detr_model` is a models.detr.DETR built with `detection`.  A
-    mesh is not yet ported and raises."""
-    if mesh is not None:
-        not_yet_ported("make_detr_detect_fn")
+    end.  `detr_model` is a models.detr.DETR built with `detection`.
+
+    With a mesh each rank runs the detector and the post-process on its
+    rows of the batch (parallel.mesh.shard_batch, which raises where the
+    data axis does not divide them; a batch sharded ahead by
+    shard_eval_batch gives its "shard" rows) and gathers every field in
+    rank order, in its dtype: every rank returns the global detections,
+    as the JAX package's GSPMD-sharded detector does."""
     dev = next(detr_model.parameters()).device
     alp2fre = torch.as_tensor(OBJ_ALP2FRE, device=dev)
     m = cfg.model
 
     def detect_fn(batch: Dict) -> Dict[str, np.ndarray]:
+        if mesh is not None:
+            batch = batch["shard"] if "shard" in batch else shard_batch(
+                mesh, {k: batch[k] for k in DETECT_KEYS
+                       if batch.get(k) is not None})
         with torch.inference_mode():
             images = torch.as_tensor(batch["image_nonsq"], device=dev)
             mask = batch.get("pixel_mask")
@@ -422,6 +453,8 @@ def make_detr_detect_fn(cfg, detr_model, mesh=None):
                 num_classes=m.num_classes, topk_cat=m.topk_cat,
                 feature_size=m.feature_size, nms_iou=m.nms_iou,
                 max_objects=cfg.data.max_objects)
+            if mesh is not None:
+                det = all_gather_rows(mesh, det)
         return to_numpy(det)
 
     return detect_fn

@@ -1,7 +1,7 @@
 """Serving-style scene-graph inference (torch port of
 scene_graph_commonsense_tpu/inference.py): from images through the frozen
-DETR featurizer, or from precomputed features; sharded serving over a mesh
-is not yet ported.
+DETR featurizer, or from precomputed features, on one device or sharded
+over a data-parallel mesh (parallel/mesh.py).
 
 Usage:
     model = make_relation_classifier(cfg, state_dict=weights)
@@ -20,7 +20,7 @@ from scene_graph_commonsense_torch.constants import (
     VG_OBJECTS, VG_RELATIONS_BY_SUPER)
 from scene_graph_commonsense_torch.eval.builders import build_candidates
 from scene_graph_commonsense_torch.eval.engines import to_numpy
-from scene_graph_commonsense_torch.parallel.mesh import not_yet_ported
+from scene_graph_commonsense_torch.parallel.mesh import shard_batch
 from scene_graph_commonsense_torch.train import engine as engine_lib
 from scene_graph_commonsense_torch.train.loop import make_detr_featurize_fn
 
@@ -40,14 +40,18 @@ class SceneGraphPredictor:
         same device; with it, requests may carry 'image' (B, S*32, S*32, 3)
         instead of 'features'.  `detr_params`: an optional state dict loaded
         into it.  `validator`: optional commonsense filter with a
-        filter_scores(conf, sub, rel, obj) method.  A `mesh` is not yet
-        ported and raises."""
-        if mesh is not None:
-            not_yet_ported("SceneGraphPredictor")
+        filter_scores(conf, sub, rel, obj) method.  `mesh`: a data-parallel
+        mesh (parallel/mesh.py) whose ranks all call predict with the same
+        request: each rank featurizes and steps on its rows (the sharded
+        eval step, on the mesh's device), and every rank returns the
+        graphs of the whole request.  The batch size must divide by the
+        axis size; predict() checks this per call."""
         self.cfg = cfg
         self.model = model
         self.validator = validator
-        self.estep = engine_lib.make_eval_step(model, cfg, device=device)
+        self.mesh = mesh
+        self.estep = engine_lib.make_eval_step(model, cfg, device=device,
+                                               mesh=mesh)
         self.featurize = None
         if detr_model is not None:
             self.featurize = make_detr_featurize_fn(cfg, detr_model,
@@ -57,13 +61,23 @@ class SceneGraphPredictor:
         """batch: engine batch contract ('features' or 'image' + objects).
         Returns, per image, the top_k ranked edges as dicts with names,
         ids, boxes, and confidence."""
+        rows = batch
+        if self.mesh is not None:
+            shards = self.mesh.shape["data"]
+            b = len(batch["cats"])
+            if b % shards != 0:
+                raise ValueError(
+                    f"batch size {b} does not divide the 'data' mesh axis "
+                    f"({shards}); pad the request batch or build the "
+                    f"predictor without a mesh")
+            rows = shard_batch(self.mesh, batch)
         if self.featurize is not None:
-            batch = self.featurize(batch)
-        batch = {k: v for k, v in batch.items() if k in BATCH_KEYS}
-        if "rel" not in batch:
-            b, n = np.asarray(batch["cats"]).shape
-            batch = {**batch, "rel": np.full((b, n, n), -1, np.int32)}
-        out = to_numpy(self.estep(batch))
+            rows = self.featurize(rows)
+        rows = {k: v for k, v in rows.items() if k in BATCH_KEYS}
+        if "rel" not in rows:
+            b, n = np.asarray(rows["cats"]).shape
+            rows["rel"] = np.full((b, n, n), -1, np.int32)
+        out = to_numpy(self.estep(rows))
         m = self.cfg.model
         cats = np.asarray(batch["cats"])
         cand = build_candidates(

@@ -6,9 +6,11 @@ reduces gradients with `pmean` inside shard_map.  Here each process is one
 rank of an initialised process group (NCCL on the card, gloo on the CPU),
 holds one replica of the weights and takes its rows of every global batch:
 
-  * axis 'data'  - batch sharding; the train step averages the gradients
-    with one all-reduce over the group (train.engine.make_train_step), the
-    eval step concatenates every rank's outputs (make_eval_step);
+  * axis 'data'  - batch sharding; the flagship train step averages the
+    gradients with one all-reduce over the group (train.engine.
+    make_train_step), the plug-and-play step sums the gradients of its
+    global losses (train.pnp_engine.make_pnp_train_step), and the eval
+    steps and the detector concatenate every rank's outputs;
   * axis 'model' - tensor parallelism (the JAX package's parallel/tp.py),
     not yet ported: make_mesh refuses model > 1.
 
@@ -45,13 +47,6 @@ class Mesh:
     def shape(self) -> Dict[str, int]:
         """The axis sizes by name, as jax.sharding.Mesh.shape reads."""
         return {"data": self.data, "model": self.model}
-
-
-def not_yet_ported(what: str) -> None:
-    """Raises for an entry point whose mesh branch is not yet ported: it
-    must not run single-device quietly."""
-    raise NotImplementedError(
-        f"{what} with a mesh is not yet ported to PyTorch")
 
 
 def world_size() -> int:
@@ -163,11 +158,23 @@ def replicate_tree(mesh: Mesh, tree: Dict[str, torch.Tensor]
     return tree
 
 
+def all_sum_(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
+    """The sum over the group, in place: one all-reduce."""
+    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=mesh.group)
+    return t
+
+
 def all_mean_(mesh: Mesh, flat: torch.Tensor) -> torch.Tensor:
     """The mean over the group, in place: one all-reduce (sum), then the
     division by the axis size, as jax.lax.pmean computes it."""
-    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=mesh.group)
-    return flat.div_(mesh.data)
+    return all_sum_(mesh, flat).div_(mesh.data)
+
+
+def global_total(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
+    """The group's sum of `t`, detached (a copy; `t` is left as it is): the
+    global count, or sum, of a quantity of which each rank holds its rows'
+    share."""
+    return all_sum_(mesh, t.detach().clone())
 
 
 def broadcast_object(mesh: Mesh, obj: Any) -> Any:
@@ -177,9 +184,16 @@ def broadcast_object(mesh: Mesh, obj: Any) -> Any:
     return box[0]
 
 
-def all_gather_rows(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
-    """Every rank's `t` concatenated along the first axis in rank order (the
-    JAX package's out_specs=P('data'))."""
-    parts = [torch.empty_like(t) for _ in range(mesh.data)]
-    dist.all_gather(parts, t.contiguous(), group=mesh.group)
-    return torch.cat(parts)
+def all_gather_rows(mesh: Mesh, tree: Dict[str, Optional[torch.Tensor]]
+                    ) -> Dict[str, Optional[torch.Tensor]]:
+    """Every rank's tensors of `tree` concatenated along the first axis in
+    rank order, each in its own dtype (the JAX package's out_specs=
+    P('data')); None entries pass through."""
+    out = {}
+    for k, t in tree.items():
+        if t is not None:
+            parts = [torch.empty_like(t) for _ in range(mesh.data)]
+            dist.all_gather(parts, t.contiguous(), group=mesh.group)
+            t = torch.cat(parts)
+        out[k] = t
+    return out

@@ -218,8 +218,7 @@ def make_eval_step(model: RelationClassifier, cfg, capacity: int = 0,
         if mesh is None:
             return res
         res["pair_img"] = packed.img + mesh.rank * b
-        return {k: None if v is None else mesh_lib.all_gather_rows(mesh, v)
-                for k, v in res.items()}
+        return mesh_lib.all_gather_rows(mesh, res)
 
     return step
 
@@ -419,25 +418,28 @@ def aug_pair_capacity(cfg, shards: int = 1) -> int:
     return min(max(aug, 1), cap)
 
 
-def _mean_over_mesh(mesh, params: Dict[str, torch.Tensor],
-                    metrics: Dict[str, torch.Tensor], allreduce_dtype):
-    """The gradient and metric means over the data axis: one all-reduce of
-    every gradient flattened into one buffer (in `allreduce_dtype`, cast
-    back to each master dtype), one of the metrics in float64 (integer
-    counts come back as float64 means, as pmean makes them floats).
-    Returns (grads by name, metrics)."""
+def reduce_over_mesh(mesh, params: Dict[str, torch.Tensor],
+                     metrics: Dict[str, torch.Tensor], allreduce_dtype,
+                     reduce=mesh_lib.all_mean_):
+    """The gradients and the metrics reduced over the data axis by
+    `reduce` (in place on a flat buffer: all_mean_, the flagship's pmean,
+    or all_sum_, the plug-and-play step's sum of its global losses' shares):
+    one all-reduce of every gradient flattened into one buffer (in
+    `allreduce_dtype`, cast back to each master dtype), one of the metrics
+    in float64 (integer counts come back as float64, as pmean makes them
+    floats).  Returns (grads by name, metrics)."""
     grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
              for k, p in params.items()}
-    flat = mesh_lib.all_mean_(mesh, torch.cat(
+    flat = reduce(mesh, torch.cat(
         [g.reshape(-1).to(allreduce_dtype) for g in grads.values()]))
     off = 0
     for k, g in grads.items():
         grads[k] = flat[off:off + g.numel()].view_as(g).to(g.dtype)
         off += g.numel()
-    means = mesh_lib.all_mean_(mesh, torch.stack(
+    reduced = reduce(mesh, torch.stack(
         [v.detach().to(torch.float64) for v in metrics.values()]))
     metrics = {k: m.to(v.dtype) if v.is_floating_point() else m
-               for (k, v), m in zip(metrics.items(), means)}
+               for (k, v), m in zip(metrics.items(), reduced)}
     return grads, metrics
 
 
@@ -561,8 +563,8 @@ def make_train_step(model: RelationClassifier, cfg, optimizer: SGD,
         if mesh is None:
             grads = {k: p.grad for k, p in state.params.items()}
         else:
-            grads, metrics = _mean_over_mesh(mesh, state.params, metrics,
-                                             allreduce_dtype)
+            grads, metrics = reduce_over_mesh(mesh, state.params, metrics,
+                                              allreduce_dtype)
         # faithful: the dynamic learning rate of the reference's last
         # column (train_test.py:192) scales this step's update
         opt_state = optimizer.update(

@@ -7,38 +7,52 @@ whole batch's pairs at once: the reference's per-pair-column estimators
 estimator of the JAX package: one masked mean per term, without the
 reference's connectivity rebinding and column re-accumulation;
 `faithful_losses` keeps those loop artifacts (training.faithful_dynamics).
+
+`total`, where a loss takes it, maps each detached denominator (a masked
+count or a weight sum of this batch) to the one the mean divides by: the
+data-parallel plug-and-play step passes the group's sum, so that each
+rank's loss is its rows' share of the global batch's loss
+(train/pnp_engine.py); None divides by this batch's own.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
+
+Total = Optional[Callable[[torch.Tensor], torch.Tensor]]
 
 
 def _zero(like: torch.Tensor) -> torch.Tensor:
     return torch.zeros((), dtype=like.dtype, device=like.device)
 
 
-def _masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def _masked_mean(values: torch.Tensor, mask: torch.Tensor,
+                 total: Total = None) -> torch.Tensor:
     """Mean of values where mask, 0 if mask is empty (the reference's
     `0.0 if nan` guards, train_utils.py:56-71)."""
     mask = mask.to(values.dtype)
     count = mask.sum()
+    if total is not None:
+        count = total(count)
     return torch.where(count > 0,
                        (values * mask).sum() / torch.clamp(count, min=1),
                        _zero(values))
 
 
 def _weighted_nll(log_probs: torch.Tensor, targets: torch.Tensor,
-                  weights: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+                  weights: torch.Tensor, mask: torch.Tensor,
+                  total: Total = None) -> torch.Tensor:
     """torch.nn.NLLLoss(weight=w) semantics: sum(w[y] * -logp[y]) / sum(w[y])
     over masked rows (reference train_test.py:109-112)."""
     safe_t = torch.clamp(targets, 0, log_probs.shape[-1] - 1).long()
     nll = -torch.gather(log_probs, 1, safe_t[:, None])[:, 0]
     w = weights[safe_t] * mask.to(log_probs.dtype)
     wsum = w.sum()
+    if total is not None:
+        wsum = total(wsum)
     return torch.where(wsum > 0,
                        (nll * w).sum() / torch.clamp(wsum, min=1e-12),
                        _zero(nll * w))
@@ -48,7 +62,8 @@ def relation_loss(relation: torch.Tensor,
                   super_relation: Optional[torch.Tensor],
                   targets: torch.Tensor, connected: torch.Tensor,
                   class_weights: torch.Tensor, num_geometric: int,
-                  num_possessive: int, hierarchical: bool) -> torch.Tensor:
+                  num_possessive: int, hierarchical: bool,
+                  total: Total = None) -> torch.Tensor:
     """Relationship loss over connected pairs.
 
     Hierarchical (reference train_utils.py:116-151): unweighted NLL on the
@@ -62,7 +77,7 @@ def relation_loss(relation: torch.Tensor,
     connected = connected & (targets >= 0)
     if not hierarchical:
         return _weighted_nll(F.log_softmax(relation, dim=-1), targets,
-                             class_weights, connected)
+                             class_weights, connected, total)
     ng, npos = num_geometric, num_possessive
     # super-category target: 0 geometric / 1 possessive / 2 semantic
     # (reference utils.py:28-35)
@@ -71,7 +86,7 @@ def relation_loss(relation: torch.Tensor,
     loss = _weighted_nll(super_relation, sup_t,
                          torch.ones(3, dtype=super_relation.dtype,
                                     device=super_relation.device),
-                         connected)
+                         connected, total)
     branches = [(0, ng), (ng, npos), (ng + npos,
                                       relation.shape[1] - ng - npos)]
     for offset, width in branches:
@@ -79,7 +94,7 @@ def relation_loss(relation: torch.Tensor,
             & (targets < offset + width)
         loss = loss + _weighted_nll(
             relation[:, offset:offset + width], targets - offset,
-            class_weights[offset:offset + width], in_branch)
+            class_weights[offset:offset + width], in_branch, total)
     return loss
 
 
@@ -100,16 +115,16 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
 
 
 def connectivity_loss(logits: torch.Tensor, connected: torch.Tensor,
-                      valid: torch.Tensor, lambda_not_connected: float
-                      ) -> ConnectivityStats:
+                      valid: torch.Tensor, lambda_not_connected: float,
+                      total: Total = None) -> ConnectivityStats:
     """BCE-with-logits on the connectivity head over all valid directed
     pairs: target 1 for connected, 0 otherwise; the not-connected term is
     scaled by lambda_not_connected (reference train_utils.py:64-92)."""
     connected = connected & valid
     not_connected = valid & ~connected
     loss = lambda_not_connected * _masked_mean(_softplus(logits),
-                                               not_connected) \
-        + _masked_mean(_softplus(-logits), connected)
+                                               not_connected, total) \
+        + _masked_mean(_softplus(-logits), connected, total)
     prob = torch.sigmoid(logits)
     pred_pos = (prob >= 0.5) & valid
 
@@ -131,7 +146,8 @@ def commonsense_loss(relation: torch.Tensor, sub_cats: torch.Tensor,
                      violated_table: torch.Tensor, num_geometric: int,
                      num_possessive: int, num_classes: int,
                      lambda_weak: float, lambda_strong: float,
-                     hierarchical: bool) -> torch.Tensor:
+                     hierarchical: bool, total: Total = None
+                     ) -> torch.Tensor:
     """Commonsense penalty for train_cs (reference train_utils.py:36-60).
 
     Every prediction (the argmax of each branch, hierarchical; the global
@@ -160,8 +176,8 @@ def commonsense_loss(relation: torch.Tensor, sub_cats: torch.Tensor,
     tid = (sub.long() * num_relations + rel_pred) * num_classes + obj.long()
     in_yes = aligned_table[tid]
     in_no = violated_table[tid]
-    return lambda_weak * _masked_mean(rel_prob, mask & ~in_yes) \
-        + lambda_strong * _masked_mean(rel_prob, mask & in_no)
+    return lambda_weak * _masked_mean(rel_prob, mask & ~in_yes, total) \
+        + lambda_strong * _masked_mean(rel_prob, mask & in_no, total)
 
 
 def faithful_losses(model_cfg, train_cfg, relation: torch.Tensor,

@@ -1,6 +1,6 @@
 """Training and evaluation of the plug-and-play predictor families (torch
-port of scene_graph_commonsense_tpu/train/pnp_engine.py, one device; the
-mesh arguments are not yet ported and raise).
+port of scene_graph_commonsense_tpu/train/pnp_engine.py), on one device or
+over a data-parallel mesh (parallel/mesh.py).
 
 A HierarchicalPredictor (Motifs / Transformer / VCTree / VTransE context,
 models/predictors.py) trains and evaluates on the batch contract of the
@@ -11,6 +11,13 @@ ROIAlign box features).  Pairs are the full N x N directed grid per image
 evaluator of eval/recall.py scores the outputs.  No kernel of csrc/ runs
 here: the pooling is two batched products and the contexts are plain
 PyTorch, as they are plain XLA in the JAX package.
+
+Over a mesh each rank runs its rows of the global batch.  The JAX package
+partitions these steps by GSPMD over the global batch, so two things that a
+per-rank program would make local stay global here: every loss is a ratio
+of sums over the whole batch (each denominator is the group's sum, and the
+gradients of the ranks' shares are summed), and TDE's counterfactual mean
+feature is the mean over every rank's rows.
 """
 
 from __future__ import annotations
@@ -28,18 +35,13 @@ from scene_graph_commonsense_torch.models.predictors import (
     HierarchicalPredictor)
 from scene_graph_commonsense_torch.ops import boxes as box_ops
 from scene_graph_commonsense_torch.ops import pairs as pair_ops
-from scene_graph_commonsense_torch.parallel.mesh import not_yet_ported
+from scene_graph_commonsense_torch.parallel import mesh as mesh_lib
 from scene_graph_commonsense_torch.train import checkpoint as ckpt_lib
 from scene_graph_commonsense_torch.train import engine
 from scene_graph_commonsense_torch.train import losses as L
 
 # the batch entries the predictor steps read
 MODEL_KEYS = ("features", "boxes", "cats", "valid", "rel")
-
-
-def _no_mesh(mesh):
-    if mesh is not None:
-        not_yet_ported("the plug-and-play steps")
 
 
 def roi_pool_features(features: torch.Tensor, boxes: torch.Tensor,
@@ -80,7 +82,8 @@ def grid_pairs(b: int, n: int, device=None):
 
 
 def _forward(predictor: HierarchicalPredictor, batch: Dict[str, torch.Tensor],
-             counterfactual: bool = False) -> Dict[str, torch.Tensor]:
+             counterfactual: bool = False, mesh=None
+             ) -> Dict[str, torch.Tensor]:
     b, n = batch["cats"].shape
     dev = batch["cats"].device
     feats = roi_pool_features(batch["features"], batch["boxes"],
@@ -94,13 +97,19 @@ def _forward(predictor: HierarchicalPredictor, batch: Dict[str, torch.Tensor],
         # feature is replaced by the mean feature, labels and boxes kept
         # (the context and bias paths are untouched).  The mean is the
         # batch's masked mean, over all images (the JAX package's choice:
-        # no running mean to carry).
+        # no running mean to carry): over a mesh the sums and counts of
+        # every rank's rows, in one all-reduce.
         v = batch["valid"].to(feats.dtype)
-        feats = ((feats * v[..., None]).sum((0, 1))
-                 / v.sum().clamp_min(1.0)).expand(feats.shape)
         pm = pair_mask.to(union.dtype)
-        union = ((union * pm[..., None]).sum((0, 1))
-                 / pm.sum().clamp_min(1.0)).expand(union.shape)
+        c = feats.shape[-1]
+        sums = torch.cat([(feats * v[..., None]).sum((0, 1)), v.sum()[None],
+                          (union * pm[..., None]).sum((0, 1)),
+                          pm.sum()[None].to(union.dtype)])
+        if mesh is not None:
+            sums = mesh_lib.global_total(mesh, sums)
+        feats = (sums[:c] / sums[c].clamp_min(1.0)).expand(feats.shape)
+        union = (sums[c + 1:-1] / sums[-1].clamp_min(1.0)).expand(
+            union.shape)
     out = predictor(feats, batch["boxes"], batch["cats"], batch["valid"],
                     pair_sub, pair_obj, pair_mask, union)
     out["pair_img"] = torch.arange(b, dtype=torch.int32,
@@ -136,15 +145,27 @@ def make_pnp_train_step(predictor: HierarchicalPredictor, cfg,
 
     `state` is an engine.TrainState over the predictor's parameters (which
     the optimizer updates in place); metrics are 0-dim tensors on the
-    device.  The predictor has no dropout, so the step is deterministic."""
-    _no_mesh(mesh)
-    dev = resolve_device(device)
+    device.  The predictor has no dropout, so the step is deterministic.
+
+    With a mesh (parallel/mesh.py) the step runs on the mesh's device and
+    takes this rank's rows of the global batch (parallel.mesh.shard_batch).
+    The losses are the global batch's, as the JAX package's GSPMD step
+    computes them: every term is a ratio of sums over the whole batch, so
+    each denominator (a masked count or weight sum, detached: it depends on
+    the batch and the argmax only) is the group's sum, each rank
+    back-propagates its rows' numerators over it, and the gradients and the
+    metrics are summed over the group (not averaged).  The clip and the
+    momentum then act on the global gradient, and every rank applies the
+    same update."""
+    dev = resolve_device(device if mesh is None else mesh.device)
     disable_tf32()
     predictor.to(dev)
     tc, m = cfg.training, cfg.model
     if cs_tables is not None:
         cs_tables = tuple(torch.as_tensor(np.asarray(t), device=dev)
                           for t in cs_tables)
+    total = None if mesh is None else (
+        lambda t: mesh_lib.global_total(mesh, t))
 
     def step(state: engine.TrainState, batch: Dict):
         batch = _device_batch(batch, dev)
@@ -158,9 +179,10 @@ def make_pnp_train_step(predictor: HierarchicalPredictor, cfg,
                           device=dev)
         loss_rel = L.relation_loss(
             out["relation"], out["super_relation"], targets, connected,
-            ones, m.num_geometric, m.num_possessive, hierarchical=True)
+            ones, m.num_geometric, m.num_possessive, hierarchical=True,
+            total=total)
         conn = L.connectivity_loss(out["connectivity"], connected, valid_p,
-                                   tc.lambda_not_connected)
+                                   tc.lambda_not_connected, total=total)
         loss = loss_rel + tc.lambda_connectivity * conn.loss
         extra = {}
         b, n = batch["cats"].shape
@@ -176,14 +198,14 @@ def make_pnp_train_step(predictor: HierarchicalPredictor, cfg,
             eye = torch.eye(n, dtype=torch.bool, device=dev)
             vp = valid[:, :, None] & valid[:, None, :] & ~eye
             bce = torch.where(related, L._softplus(-s), L._softplus(s))
-            loss_struct = (bce * vp).sum() / vp.sum().clamp_min(1)
+            loss_struct = L._masked_mean(bce, vp, total)
             loss = loss + loss_struct
             extra["loss_structure"] = loss_struct
         if predictor.mode != "predcls":
             lab = F.log_softmax(out["obj_logits"], dim=-1)
             nll = -torch.gather(lab, -1, batch["cats"].long()[..., None]
                                 )[..., 0]
-            loss = loss + (nll * valid).sum() / valid.sum().clamp_min(1)
+            loss = loss + L._masked_mean(nll, valid, total)
         loss_cs = torch.zeros((), dtype=torch.float32, device=dev)
         if cs_tables is not None:
             flat_cats = batch["cats"].reshape(b * n)
@@ -193,13 +215,19 @@ def make_pnp_train_step(predictor: HierarchicalPredictor, cfg,
                 flat_cats[(img * n + out["pair_obj"]).long()], valid_p,
                 cs_tables[0], cs_tables[1], m.num_geometric,
                 m.num_possessive, m.num_classes, tc.lambda_cs_weak,
-                tc.lambda_cs_strong, hierarchical=True)
+                tc.lambda_cs_strong, hierarchical=True, total=total)
             loss = loss + tc.lambda_commonsense * loss_cs
         metrics = {"loss": loss, "loss_relationship": loss_rel,
                    "loss_connectivity": conn.loss,
                    "loss_commonsense": loss_cs, **extra}
         loss.backward()
-        grads = {k: p.grad for k, p in state.params.items()}
+        if mesh is None:
+            grads = {k: p.grad for k, p in state.params.items()}
+        else:
+            grads, metrics = engine.reduce_over_mesh(
+                mesh, state.params, metrics,
+                next(iter(state.params.values())).dtype,
+                reduce=mesh_lib.all_sum_)
         opt_state = optimizer.update(grads, state.opt_state, state.params)
         for p in state.params.values():
             p.grad = None
@@ -219,9 +247,16 @@ def make_pnp_eval_step(predictor: HierarchicalPredictor, cfg,
     super scores become factual minus counterfactual, where the
     counterfactual forward sees the batch's mean visual features (labels
     and boxes intact); the outputs are then ranking scores, not
-    log-probabilities."""
-    _no_mesh(mesh)
-    dev = resolve_device(device)
+    log-probabilities.
+
+    With a mesh the step runs on the mesh's device and takes this rank's
+    rows of the global batch (parallel.mesh.shard_batch); pair_img is
+    shifted to global image indices and every output is gathered over the
+    ranks in rank order, so every rank returns the single-device outputs
+    of the global batch.  TDE's mean feature is the global batch's (an
+    all-reduce of the sums and counts), as the JAX package's GSPMD step
+    computes it: the one place where a shard is not independent."""
+    dev = resolve_device(device if mesh is None else mesh.device)
     disable_tf32()
     predictor.to(dev)
 
@@ -230,17 +265,21 @@ def make_pnp_eval_step(predictor: HierarchicalPredictor, cfg,
         batch = _device_batch(batch, dev)
         out = _forward(predictor, batch)
         if tde:
-            out_cf = _forward(predictor, batch, counterfactual=True)
+            out_cf = _forward(predictor, batch, counterfactual=True,
+                              mesh=mesh)
             for k in ("relation", "super_relation"):
                 out[k] = out[k] - out_cf[k]
         b, n = batch["cats"].shape
         s = batch["features"].shape[1]
         out["iou_ok"] = pair_ops.eval_pair_filter(batch["boxes"], s) \
             .reshape(b * n * n) & out["pair_mask"]
-        return {k: out[k] for k in
-                ("relation", "super_relation", "connectivity", "targets",
-                 "pair_img", "pair_sub", "pair_obj", "pair_mask",
-                 "iou_ok")}
+        res = {k: out[k] for k in
+               ("relation", "super_relation", "connectivity", "targets",
+                "pair_img", "pair_sub", "pair_obj", "pair_mask", "iou_ok")}
+        if mesh is None:
+            return res
+        res["pair_img"] = res["pair_img"] + mesh.rank * b
+        return mesh_lib.all_gather_rows(mesh, res)
 
     return step
 
@@ -366,8 +405,7 @@ def fit_predictor(cfg, family: str,
                   train_batches_fn: Callable[[int], Iterable],
                   test_batches_fn: Optional[Callable[[int], Iterable]] = None,
                   artifacts=None, featurize=None, steps_per_epoch=1000,
-                  device=None, log_fn: Callable[[str], None] = print,
-                  mesh=None):
+                  device=None, log_fn: Callable[[str], None] = print):
     """Training driver of a predictor family on one device (default cuda),
     the orchestration of train.loop.fit: per epoch the train steps, a
     checkpoint <checkpoint_path>/<checkpoint_name>.pt, and a PredCLS test
@@ -377,7 +415,6 @@ def fit_predictor(cfg, family: str,
     package's documented deviation).  train_cs starts from the baseline's
     last checkpoint when it exists.  Returns (predictor, state)."""
     from scene_graph_commonsense_torch.train.loop import lr_schedule
-    _no_mesh(mesh)
     tc = cfg.training
     dev = resolve_device(device)
     predictor = make_predictor(cfg, family, device=dev)
@@ -437,29 +474,41 @@ def run_eval_pc_predictor(cfg, predictor: HierarchicalPredictor,
     use_cs applies the commonsense triplet filtering (eval_cs) through the
     flagship's dense tables; tde scores pairs by Total Direct Effect
     (make_pnp_eval_step).  Pass a prebuilt `estep` to reuse it (the tde
-    flag is then the step's own)."""
+    flag is then the step's own).
+
+    With a mesh (every rank iterates the same global batches) each rank
+    takes its rows of each batch before `featurize` (no rank encodes images
+    it then drops) and steps on them through make_pnp_eval_step(mesh=),
+    which gathers the global outputs on every rank (a prebuilt `estep` must
+    be one); rank 0 alone runs the evaluator, and every rank returns its
+    results."""
     from scene_graph_commonsense_torch.eval.builders import (
         build_candidates, build_targets)
     from scene_graph_commonsense_torch.eval.engines import (
         _make_evaluators, to_numpy)
-    _no_mesh(mesh)
     evaluator, _ = _make_evaluators(cfg, artifacts, predcls=True)
     if estep is None:
-        estep = make_pnp_eval_step(predictor, cfg, tde=tde, device=device)
+        estep = make_pnp_eval_step(predictor, cfg, tde=tde, device=device,
+                                   mesh=mesh)
     cs_a = cs_v = None
     if use_cs:
         if artifacts is None or artifacts.cs_aligned is None:
             raise ValueError("eval_cs requires converted commonsense "
                              "triplet tables (run prepare_cs first)")
         cs_a, cs_v = artifacts.cs_aligned, artifacts.cs_violated
+    lead = mesh is None or mesh.rank == 0
     m = cfg.model
     for i, batch in enumerate(batches):
         if max_batches is not None and i >= max_batches:
             break
         batch = _strip(batch)
+        rows = batch if mesh is None else mesh_lib.shard_batch(mesh, batch)
         if featurize is not None:
-            batch = featurize(batch)
-        out = to_numpy(estep(batch))
+            rows = featurize(rows)
+        out = estep(rows)
+        if not lead:
+            continue
+        out = to_numpy(out)
         cats, boxes = _host(batch["cats"]), _host(batch["boxes"])
         cand = build_candidates(
             out["relation"], out["connectivity"], out["super_relation"],
@@ -471,4 +520,5 @@ def run_eval_pc_predictor(cfg, predictor: HierarchicalPredictor,
         tgt = build_targets(_host(batch["rel"]), cats, boxes,
                             _host(batch["valid"]))
         evaluator.accumulate(cand, tgt)
-    return evaluator.compute()
+    res = evaluator.compute() if lead else None
+    return res if mesh is None else mesh_lib.broadcast_object(mesh, res)

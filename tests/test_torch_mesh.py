@@ -23,6 +23,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import shutil
 import sys
 
 import jax
@@ -82,11 +83,11 @@ def _f32(bs):
              for k, v in b.items()} for b in bs]
 
 
-def _yaml(path, result, ckpt, **training):
+def _yaml(path, result, ckpt, data=None, **training):
     path.write_text(json.dumps({
         "model": {"feature_size": 16, "hidden_dim": 8, "num_img_feature": 16,
                   "compute_dtype": "float32"},
-        "data": {"max_objects": 6},
+        "data": {"max_objects": 6, **(data or {})},
         "training": {"batch_size": 4, "num_epoch": 1, "print_freq": 1,
                      "eval_freq": 0, "grad_clip_norm": 1.0, "test_epoch": 0,
                      "checkpoint_path": str(ckpt),
@@ -106,6 +107,14 @@ def _cli_argvs(work):
     train_yaml = _yaml(work / "cli.yaml", work / "cli_res", work / "cli_ck")
     vis_yaml = _yaml(work / "vis.yaml", work / "vis_res", work / "cli_ck",
                      save_vis_results=True)
+    pnp_yaml = _yaml(work / "pnp.yaml", work / "pnp_res", work / "pnp_ck")
+    # prepare_cs writes its table beside a copy of the artifacts
+    (work / "cs_art").mkdir()
+    shutil.copy(os.path.join(ARTIFACTS_DIR, "vg_artifacts.npz"),
+                work / "cs_art")
+    cs_yaml = _yaml(work / "cs.yaml", work / "cs_res", work / "cli_ck",
+                    data={"artifacts_dir": str(work / "cs_art"),
+                          "annot_dir": str(work / "cs_annot")})
     return {
         "train": ["--run_mode", "train", "--eval_mode", "pc", "--config",
                   train_yaml, "--mesh_data", "2", "--epochs", "1", *common],
@@ -114,10 +123,10 @@ def _cli_argvs(work):
         "sgd": ["--run_mode", "eval", "--eval_mode", "sgd", "--config",
                 train_yaml, *common],
         "predictor": ["--run_mode", "train", "--eval_mode", "pc",
-                      "--predictor", "motifs", "--config", train_yaml,
+                      "--predictor", "motifs", "--config", pnp_yaml,
                       *common],
         "prepare_cs": ["--run_mode", "prepare_cs", "--eval_mode", "pc",
-                       "--config", train_yaml, "--mock-llm", *common],
+                       "--config", cs_yaml, "--mock-llm", *common],
         "odd_batch": ["--run_mode", "train", "--eval_mode", "pc",
                       "--config", train_yaml, "--batch_size", "3", *common],
     }
@@ -369,9 +378,11 @@ def test_torch_mesh_fit_matches_jax(world2):
 def test_torch_mesh_cli(world2):
     """The CLI under two processes: --mesh_data 2 trains (rank 0 alone
     prints and writes one checkpoint), PredCLS eval with save_vis_results
-    writes one file per test batch from rank 0; SGDET, --predictor and
-    prepare_cs over the mesh exit "not yet ported", a batch of 3 exits
-    naming it."""
+    writes one file per test batch from rank 0; SGDET over the mesh is no
+    longer refused (on synthetic batches it exits as main.py does, for want
+    of detector outputs); --predictor training and prepare_cs run on rank 0
+    alone, as main.py runs them on one device: one checkpoint, one triplet
+    table, and rank 1 prints nothing; a batch of 3 exits naming it."""
     r0, r1 = world2["results"]["cli"]
     got = dict(zip(world2["argv_names"], zip(r0, r1)))
     work = world2["work"]
@@ -392,9 +403,19 @@ def test_torch_mesh_cli(world2):
     vis = json.loads((work / "vis_res" / "visualization" /
                       "0_vis_results.json").read_text())
     assert len(vis) == 4 and all(v["predicted_graph"] for v in vis)
-    for name in ("sgd", "predictor", "prepare_cs"):
-        for r in got[name]:
-            assert "not yet ported" in r["exit"], (name, r)
+    for r in got["sgd"]:
+        assert "sgc/sgd need detector outputs" in r["exit"], r
+    for name in ("predictor", "prepare_cs"):
+        r0, r1 = got[name]
+        assert r0["exit"] is None and r1["exit"] is None, (name, r0, r1)
+        assert r1["stdout"] == "", name
+    assert "[pnp:motifs] TEST epoch 0" in got["predictor"][0]["stdout"]
+    assert os.listdir(work / "pnp_ck") == ["PnpMotifsModel_motif0.pt"]
+    cs0 = got["prepare_cs"][0]["stdout"]
+    assert "Loaded relation checkpoint" in cs0
+    assert "Wrote commonsense triplet tables" in cs0
+    assert sorted(os.listdir(work / "cs_art")) == [
+        "commonsense_triplets.npz", "vg_artifacts.npz"]
     for r in got["odd_batch"]:
         assert "batch size 3" in r["exit"], r
 

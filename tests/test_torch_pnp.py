@@ -23,7 +23,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_tiny import batches, cfgs
+from test_torch_tiny import batches, cfgs, one_thread  # noqa: F401
 
 from scene_graph_commonsense_tpu.models.predictors import (
     HierarchicalPredictor as JaxPredictor)
@@ -32,6 +32,7 @@ from scene_graph_commonsense_tpu.train import pnp_engine as jax_pnp
 from scene_graph_commonsense_torch.models import weights
 from scene_graph_commonsense_torch.models.predictors import (
     HierarchicalPredictor)
+from scene_graph_commonsense_torch.parallel import mesh as mesh_lib
 from scene_graph_commonsense_torch.train import engine, pnp_engine
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -200,13 +201,52 @@ def test_torch_pnp_apply_glove_init_matches_jax(tmp_path):
     assert logs_t == logs_j and "not found" in logs_t[0]
 
 
-def test_torch_pnp_mesh_is_refused():
-    jc, tc = cfgs()
-    _, _, tm = _predictors(jc, "motifs", "predcls")
-    opt = engine.make_optimizer(1e-3)
-    with pytest.raises(NotImplementedError):
-        pnp_engine.make_pnp_train_step(tm, tc, opt, mesh=object(),
-                                       device="cpu")
-    with pytest.raises(NotImplementedError):
-        pnp_engine.run_eval_pc_predictor(tc, tm, [], mesh=object(),
-                                         device="cpu")
+def test_torch_pnp_mesh_is_refused(tmp_path, one_thread):
+    """The pnp steps take a mesh (tests/test_torch_mesh_pnp.py): over a
+    mesh of one rank (gloo, this process) the train step, with every ratio
+    of the loss over an all-reduced denominator (VCTree's structure term,
+    sgcls's object CE, the commonsense penalty), and the eval step with and
+    without TDE give the unsharded steps' parameters, metrics and outputs
+    bit for bit.  One CPU thread, as two runs of a step are compared to the
+    bit."""
+    jc, tc = cfgs(training={"learning_rate": 1e-2, "grad_clip_norm": 5.0})
+    rng = np.random.RandomState(0)
+    n_ids = jc.model.num_classes * jc.model.num_relations \
+        * jc.model.num_classes
+    cs = (rng.rand(n_ids) < 0.3, rng.rand(n_ids) < 0.3)
+    bs = batches(2, with_aug=False, seed=8)
+    runs = []
+    for use_mesh in (False, True):
+        mesh = None
+        if use_mesh:
+            mesh_lib.init_multihost(f"file://{tmp_path / 'store'}", 1, 0,
+                                    device="cpu")
+        try:
+            if use_mesh:
+                mesh = mesh_lib.make_mesh(device="cpu")
+            dev = None if mesh else "cpu"
+            _, _, tm = _predictors(jc, "vctree", "sgcls")
+            opt = engine.make_optimizer(1e-2, grad_clip_norm=5.0)
+            state = engine.init_train_state(tm, opt)
+            step = pnp_engine.make_pnp_train_step(
+                tm, tc, opt, cs_tables=cs, mesh=mesh, device=dev)
+            mets = []
+            for b in bs:
+                state, met = step(state, b)
+                mets.append({k: float(v) for k, v in met.items()})
+            outs = [{k: v.clone() for k, v in pnp_engine.make_pnp_eval_step(
+                tm, tc, tde=tde, mesh=mesh, device=dev)(bs[0]).items()}
+                for tde in (False, True)]
+            runs.append((dict(tm.state_dict()), mets, outs))
+        finally:
+            if use_mesh:
+                torch.distributed.destroy_process_group()
+    (sd0, m0, o0), (sd1, m1, o1) = runs
+    assert m0 == m1 and "loss_structure" in m0[0]
+    assert m0[0]["loss_commonsense"] > 0
+    for k in sd0:
+        assert torch.equal(sd0[k], sd1[k]), k
+    for a, b in zip(o0, o1):
+        assert a.keys() == b.keys()
+        for k in a:
+            assert torch.equal(a[k], b[k]), k

@@ -43,8 +43,6 @@ from scene_graph_commonsense_torch.data.artifacts import (  # noqa: E402
 from scene_graph_commonsense_torch.data.pipeline import (  # noqa: E402
     prefetch_iterator, to_device)
 from scene_graph_commonsense_torch.eval import engines  # noqa: E402
-from scene_graph_commonsense_torch.inference import (  # noqa: E402
-    SceneGraphPredictor)
 from scene_graph_commonsense_torch.models import weights  # noqa: E402
 from scene_graph_commonsense_torch.models.relation_head import (  # noqa
     make_relation_classifier as make_torch_classifier)
@@ -385,22 +383,11 @@ def test_torch_unported_observability_raises(tmp_path, knob):
 
 
 def test_torch_mesh_unported_entry_points_raise():
-    """The train and PredCLS eval steps take a mesh
-    (tests/test_torch_mesh.py); tensor parallelism (make_mesh(model=2)),
-    SGCLS / SGDET, the detector and the predictor over a mesh are not yet
-    ported and raise rather than run on one device."""
-    _, tc = _cfgs()
-    model = make_torch_classifier(tc, device="cpu")
-    mesh = mesh_lib.Mesh(2, 1, 0, torch.device("cpu"))
+    """Every data-parallel entry point takes a mesh
+    (tests/test_torch_mesh*.py); tensor parallelism (make_mesh(model=2))
+    is not yet ported and raises rather than run without it."""
     with pytest.raises(NotImplementedError, match="not yet ported"):
         mesh_lib.make_mesh(data=1, model=2, device="cpu")
-    for run in (engines.run_eval_sgc, engines.run_eval_sgd):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            run(tc, model, [], lambda b: b, device="cpu", mesh=mesh)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        engines.make_detr_detect_fn(tc, None, mesh=mesh)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        SceneGraphPredictor(tc, model, device="cpu", mesh=mesh)
 
 
 def test_torch_prefetch_iterator_order_and_errors():

@@ -1,11 +1,13 @@
-"""One rank of the port's data-parallel CPU tests (tests/test_torch_mesh.py).
+"""One rank of the port's data-parallel CPU tests (tests/test_torch_mesh.py,
+tests/test_torch_mesh_detect.py, tests/test_torch_mesh_pnp.py).
 
     python tests/torch_mesh_worker.py WORK_DIR RANK
 
 Joins a gloo group of the spec's world size through a file store in
 WORK_DIR, runs every scenario of WORK_DIR/spec.pt in order on its rows of
 the global batches and saves what each returns to
-WORK_DIR/<scenario>_rank<RANK>.pt.  A failure writes the traceback to
+WORK_DIR/<scenario>_rank<RANK>.pt.  A scenario's entries named *state_dict
+name tensors of the spec's "tensors".  A failure writes the traceback to
 WORK_DIR/error_rank<RANK>.txt and exits 1.  Imports only the port (no JAX,
 no conftest)."""
 
@@ -28,10 +30,16 @@ from scene_graph_commonsense_torch.constants import (  # noqa: E402
 from scene_graph_commonsense_torch.data.artifacts import (  # noqa: E402
     load_vg_artifacts)
 from scene_graph_commonsense_torch.eval import engines  # noqa: E402
+from scene_graph_commonsense_torch.inference import (  # noqa: E402
+    SceneGraphPredictor)
+from scene_graph_commonsense_torch.models import detr as detr_lib  # noqa
+from scene_graph_commonsense_torch.models.predictors import (  # noqa: E402
+    HierarchicalPredictor)
 from scene_graph_commonsense_torch.models.relation_head import (  # noqa
     make_relation_classifier)
 from scene_graph_commonsense_torch.parallel import mesh as mesh_lib  # noqa
-from scene_graph_commonsense_torch.train import engine, loop  # noqa: E402
+from scene_graph_commonsense_torch.train import (  # noqa: E402
+    engine, loop, pnp_engine)
 
 ARTIFACTS_DIR = "datasets/artifacts"
 
@@ -137,8 +145,133 @@ def cli_runs(mesh, sc):
     return got
 
 
+def detect(mesh, sc):
+    """make_detr_detect_fn(mesh=) on each global batch and on the batch
+    sharded ahead (shard_eval_batch); the error of a batch of 3."""
+    cfg = sc["cfg"]
+    detr = detr_lib.make_detr(cfg, device="cpu",
+                              state_dict=sc["detr_state_dict"],
+                              detection=True)
+    fn = engines.make_detr_detect_fn(cfg, detr, mesh=mesh)
+    odd = None
+    try:
+        fn({k: v[:3] for k, v in sc["batches"][0].items()})
+    except ValueError as e:
+        odd = str(e)
+    return {"dets": [fn(b) for b in sc["batches"]],
+            "presharded": [fn(engines.shard_eval_batch(mesh, b))
+                           for b in sc["batches"]], "odd": odd}
+
+
+def sg_eval(mesh, sc):
+    """run_eval_sgc / run_eval_sgd (mesh=) with the given global
+    detections per batch, or with the detector (make_detr_detect_fn(mesh=))
+    on batches sharded ahead."""
+    cfg = sc["cfg"]
+    model = _model(cfg, sc["state_dict"], sc["dtype"])
+    batches = sc["batches"]
+    if sc.get("detr_state_dict") is not None:
+        detr = detr_lib.make_detr(cfg, device="cpu",
+                                  state_dict=sc["detr_state_dict"],
+                                  detection=True)
+        detect_fn = engines.make_detr_detect_fn(cfg, detr, mesh=mesh)
+        batches = [engines.shard_eval_batch(mesh, b) for b in batches]
+    else:
+        dets = iter(sc["dets"])
+
+        def detect_fn(batch):
+            return next(dets)
+    run = engines.run_eval_sgc if sc["mode"] == "sgc" \
+        else engines.run_eval_sgd
+    return run(cfg, model, batches, detect_fn,
+               artifacts=load_vg_artifacts(ARTIFACTS_DIR), mesh=mesh)
+
+
+def predictor(mesh, sc):
+    """SceneGraphPredictor(mesh=) from features; and from images through a
+    seeded tiny DETR (the rows each rank featurizes recorded), beside the
+    unsharded predictor's graphs of the same request."""
+    cfg = sc["cfg"]
+    model = _model(cfg, sc["state_dict"], sc["dtype"])
+    graphs = SceneGraphPredictor(cfg, model, mesh=mesh).predict(
+        sc["batch"], top_k=sc["top_k"])
+    icfg = sc["image_cfg"]
+    imodel = _model(icfg, sc["image_state_dict"], sc["dtype"])
+    torch.manual_seed(0)
+    detr = detr_lib.DETR(**sc["detr_kw"]).to(sc["dtype"]).eval() \
+        .requires_grad_(False)
+    sharded = SceneGraphPredictor(icfg, imodel, detr_model=detr, mesh=mesh)
+    rows = []
+    featurize = sharded.featurize
+
+    def recorded(b):
+        rows.append(len(b["cats"]))
+        return featurize(b)
+
+    sharded.featurize = recorded
+    image_graphs = sharded.predict(sc["image_batch"], top_k=sc["top_k"])
+    single = SceneGraphPredictor(icfg, imodel, detr_model=detr,
+                                 device="cpu").predict(sc["image_batch"],
+                                                       top_k=sc["top_k"])
+    return {"graphs": graphs, "image_graphs": image_graphs,
+            "single_image_graphs": single, "featurized_rows": rows}
+
+
+def _predictor(sc, family):
+    p = HierarchicalPredictor(family=family, **sc["kw"]).to(sc["dtype"])
+    p.load_state_dict(sc["state_dicts"][family])
+    return p
+
+
+def pnp_eval(mesh, sc):
+    """make_pnp_eval_step(mesh=) without and with TDE for each family on
+    the global batch; run_eval_pc_predictor(mesh=, tde=True) of the first
+    family through a featurize that records the rows it is given."""
+    cfg = sc["cfg"]
+    outs = {}
+    for family in sc["families"]:
+        p = _predictor(sc, family)
+        for tde in (False, True):
+            step = pnp_engine.make_pnp_eval_step(p, cfg, tde=tde, mesh=mesh)
+            outs[family, tde] = engines.to_numpy(
+                step(mesh_lib.shard_batch(mesh, sc["batch"])))
+    rows = []
+
+    def featurize(b):
+        rows.append(len(b["cats"]))
+        return dict(b)
+
+    res = pnp_engine.run_eval_pc_predictor(
+        cfg, _predictor(sc, sc["families"][0]), sc["eval_batches"],
+        featurize=featurize, tde=True, mesh=mesh)
+    return {"outs": outs, "results": res, "featurized_rows": rows}
+
+
+def pnp_train(mesh, sc):
+    """make_pnp_train_step(mesh=) over the global batches: per step rank
+    0's parameters, the metrics and whether this rank's parameters equal
+    rank 0's."""
+    cfg = sc["cfg"]
+    p = _predictor(sc, sc["family"])
+    opt = engine.make_optimizer(sc["lr"], grad_clip_norm=sc["clip"])
+    state = engine.init_train_state(p, opt)
+    step = pnp_engine.make_pnp_train_step(p, cfg, opt,
+                                          cs_tables=sc["cs_tables"],
+                                          mesh=mesh)
+    trail = []
+    for b in sc["batches"]:
+        state, met = step(state, mesh_lib.shard_batch(mesh, b))
+        params = _snapshot(p)
+        trail.append((params if mesh.rank == 0 else None,
+                      {k: float(v) for k, v in met.items()},
+                      _same_as_rank0(mesh, params)))
+    return trail
+
+
 SCENARIOS = {"train": train_steps, "eval": eval_step, "fit": fit,
-             "cli": cli_runs}
+             "cli": cli_runs, "detect": detect, "sg_eval": sg_eval,
+             "predictor": predictor, "pnp_eval": pnp_eval,
+             "pnp_train": pnp_train}
 
 
 def main():
@@ -154,8 +287,8 @@ def main():
             timeout=timedelta(seconds=120))
         mesh = mesh_lib.make_mesh(device="cpu")
         for name, sc in spec["scenarios"]:
-            sc = {k: spec["tensors"][v] if k == "state_dict" else v
-                  for k, v in sc.items()}
+            sc = {k: spec["tensors"][v] if k.endswith("state_dict")
+                  and v is not None else v for k, v in sc.items()}
             result = SCENARIOS[sc["kind"]](mesh, sc)
             torch.save(result, os.path.join(work, f"{name}_rank{rank}.pt"))
         dist.destroy_process_group()
