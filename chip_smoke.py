@@ -210,6 +210,32 @@ Phases, each printing JSON lines:
               process's global-loss update over all 12 images while the
               mean of the halves' local-loss updates misses it, then 3
               steps with the ranks bit-identical after each.
+ 15. tp:      tensor parallelism (parallel/tp.py) at bench.py's configuration
+              at the worst-case pair capacity (4560, the augmented view
+              1140): the unsharded run in this process (twice: the
+              run-to-run spread of the first update), then a (1, 2) mesh
+              as two processes of this script over gloo's CUDA path on the
+              one card (`--tp_rank R --work DIR`; fc1 split 65536 x 2048 a
+              rank, fc2_h 512 x 2048): the eval step's outputs within
+              TP_EVAL_TOL of the unsharded one's, an unclipped first update
+              whose every parameter lies within TP_UPDATE_TOL of its
+              largest unsharded update, then TP_STEPS clipped steps with the
+              replicated parameters bit-identical on both ranks after each,
+              exactly 2 + 2 training-kernel launches a step and 1 forward
+              launch an eval step per rank, each rank's peak memory below
+              the unsharded process's; step times and the (P, 65536) bf16
+              all-reduce alone by the host clock; then the port's dryrun at
+              world size 4 over gloo on the card, its dp x tp leg on a
+              (2, 2) mesh.
+ 16. contention: the stride-2 and stride-1 bottleneck kernels (K4 at its
+              three transitions, K3 at its five block shapes, batch 12,
+              bf16, seeded random blocks) launched back to back for
+              CONTENTION_S seconds while a second process of this script
+              (`--contend SECONDS`) keeps the card busy with bf16 matrix
+              products, so that the card switches between the two
+              processes mid-kernel; every output must equal the same
+              launch made alone, and the second process must still be
+              running when the check ends.
 Phase `kernel` also holds the encoder kernels against their plain versions:
 attention at (B, 1024, 8, 32) for B = 12 and 24, with all keys valid, 80%
 of the keys masked, and one image's keys all masked; FFN + LayerNorm at
@@ -295,6 +321,7 @@ from scene_graph_commonsense_torch.ops.detection import (
     postprocess_detections)
 from scene_graph_commonsense_torch.ops.nms import class_aware_nms
 from scene_graph_commonsense_torch.parallel import mesh as mesh_lib
+from scene_graph_commonsense_torch.parallel import tp as tp_lib
 from scene_graph_commonsense_torch.parallel.launch import run_processes
 from scene_graph_commonsense_torch.tools.make_mini_oiv6 import (
     data_config, make_mini_oiv6)
@@ -3467,6 +3494,93 @@ def phase_pnp(data):
     emit(result)
 
 
+# phase contention: how long the kernels run beside the other process, and
+# the side of that process's bf16 products.  The two blocks of a K3/K4
+# cluster drift apart when the card switches processes mid-kernel; before
+# every ring release became one arrival a warp, that overflowed a barrier
+# and faulted K4 within a few seconds of such a run.
+CONTENTION_S = 20.0
+CONTENTION_SIDE = 8192
+
+
+def contend_main(seconds):
+    """The other process of phase contention: bf16 products on the card
+    for `seconds`; prints "ready" after the first one."""
+    a = torch.randn(CONTENTION_SIDE, CONTENTION_SIDE, device="cuda",
+                    dtype=torch.bfloat16)
+    a @ a
+    torch.cuda.synchronize()
+    print("ready", flush=True)
+    n = 0
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        for _ in range(10):
+            a @ a
+        torch.cuda.synchronize()
+        n += 10
+    print(json.dumps({"products": n}), flush=True)
+
+
+def phase_contention():
+    """K4 and K3 at the trunk's shapes under time-slicing with a second
+    process: the outputs of back-to-back launches against the same launches
+    made alone."""
+    dev = torch.device("cuda")
+    disable_tf32()
+    gen = torch.Generator(device=dev).manual_seed(5)
+    cpu_gen = torch.Generator().manual_seed(6)
+    b = 12
+    calls = []
+    for label, h, w, cin, m in K4_CASES:
+        calls.append((label, bottleneck.bottleneck_s2_kernel, cin, m, 2,
+                      True, h, w))
+    for label, h, w, cin, m, proj, _ in K3_CASES:
+        calls.append((label, bottleneck.bottleneck_kernel, cin, m, 1, proj,
+                      h, w))
+    work = []
+    for label, fn, cin, m, stride, proj, h, w in calls:
+        blk = resnet_fused.prepare_block(
+            random_bottleneck(cin, m, stride, proj, cpu_gen, dev), stride,
+            torch.bfloat16)
+        x = torch.randn((b, h, w, cin), device=dev,
+                        generator=gen).to(torch.bfloat16)
+        work.append((label, fn, x, blk.args()))
+    refs = []
+    for _, fn, x, args in work:
+        refs.append(fn(x, *args))
+        torch.cuda.synchronize()
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--contend",
+         str(CONTENTION_S + 60)], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        if proc.stdout.readline().strip() != "ready":
+            raise AssertionError("the contending process did not start")
+        cycles = 0
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < CONTENTION_S:
+            outs = [fn(x, *args) for _, fn, x, args in work]
+            torch.cuda.synchronize()
+            for (label, *_), got, want in zip(work, outs, refs):
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"{label} under contention differs from its launch "
+                        f"alone by {(got.float() - want.float()).abs().max()}")
+            cycles += 1
+        secs = time.perf_counter() - t0
+        beside = proc.poll() is None
+    finally:
+        proc.kill()
+        proc.communicate()
+    if not beside:
+        raise AssertionError("the contending process ended before the check")
+    emit({"phase": "contention", "card": bench.card_name(),
+          "seconds": secs, "cycles": cycles,
+          "launches": {"bottleneck_s2": cycles * len(K4_CASES),
+                       "bottleneck": cycles * len(K3_CASES)},
+          "cases": [label for label, *_ in work]})
+
+
 # phase mesh: train steps per path, the world-size-2 run's processes and its
 # limit, and the rule of the world-2 run's first update against one
 # process's two-shard update: |got - want| <= MESH_UPDATE_TOL * max |want|
@@ -4292,16 +4406,258 @@ def phase_mesh():
     emit(result)
 
 
+
+# phase tp: a (1, 2) mesh of two gloo processes on the one card at full VG
+# width, bench.py's configuration at the worst-case pair capacity (4560,
+# the augmented view 1140).  Rules, decided before the first run: each
+# parameter's first update (unclipped, bf16) within TP_UPDATE_TOL of its
+# largest |update| from the one-process unsharded update (the split sums of
+# fc2_h and of fc1's input gradient are rounded on another path); each float
+# output of the eval step within TP_EVAL_TOL of its largest |value| from the
+# unsharded step's, integer outputs equal; the replicated parameters of the
+# two ranks equal to the bit after every step; each rank's peak memory
+# below the unsharded process's
+TP_STEPS = 3
+TP_UPDATE_TOL = 2 ** -5
+TP_EVAL_TOL = 2 ** -5
+TP_TIMEOUT_S = 600
+TP_DRYRUN_WORLD = 4
+
+
+def tp_config():
+    """bench.py's configuration at the default pair capacity."""
+    return bench.bench_config(pair_capacity=0)
+
+
+def tp_run(mesh=None):
+    """The sequence both sides of phase tp run, unsharded in this process
+    (mesh None) or in a rank: the seeded model, the eval step on
+    eval_batch (its outputs, launches), one unclipped train step (the
+    weights before it, unsharded, and after it, gathered on rank 0), then
+    TP_STEPS clipped steps timed by the host clock (launches; after each,
+    whether the replicas agree) and their peak memory over the memory
+    allocated before the run."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = tp_config()
+    dev = "cuda" if mesh is None else None
+    _, model, step, state, batch = bench.setup(cfg, seed=0, device=dev,
+                                               mesh=mesh)
+    if mesh is not None:
+        batch = mesh_lib.shard_batch(mesh, batch)
+    ebatch = eval_batch(cfg)
+    if mesh is not None:
+        ebatch = mesh_lib.shard_batch(mesh, ebatch)
+    estep = engine.make_eval_step(model, cfg, device=dev, mesh=mesh)
+    reset_counts()
+    out = estep(ebatch)
+    torch.cuda.synchronize()
+    res = {"eval_launches": read_counts(),
+           "eval": {k: v.cpu() for k, v in out.items() if v is not None}}
+    del out
+    cfg0 = dataclasses.replace(cfg, training=dataclasses.replace(
+        cfg.training, grad_clip_norm=0.0))
+    step0 = engine.make_train_step(model, cfg0, bench.optimizer(cfg0),
+                                   class_weights("vg"), device=dev,
+                                   mesh=mesh)
+    if mesh is None:
+        res["before"] = {k: v.to("cpu", copy=True)
+                         for k, v in model.state_dict().items()}
+    state, met = step0(state, batch)
+    res.update(after={k: v.to("cpu", copy=True) for k, v in
+                      tp_lib.full_state_dict(model).items()},
+               first_loss=float(met["loss"]))
+    if mesh is not None and mesh.rank:
+        del res["after"]
+    # the peak over the clipped steps alone (not the gathers above)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    step_s, same = [], []
+    for _ in range(TP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = step(state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        if not all(np.isfinite(float(v)) for v in met.values()):
+            raise AssertionError(f"non-finite metrics {met}")
+        if mesh is not None:
+            same.append(ranks_identical(mesh, {
+                k: p for k, p in state.params.items()
+                if not tp_lib.is_shard(p)}))
+    torch.cuda.synchronize()
+    res.update(train_launches=read_counts(), step_s=step_s,
+               ranks_bitwise_identical=same, loss_last=float(met["loss"]),
+               peak_bytes=torch.cuda.max_memory_allocated() - base,
+               sharded=tp_lib.is_shard(model.fc1.weight))
+    if mesh is not None:
+        # the fc1 input gradient's all-reduce alone: the main view's
+        # (P, 65536) bf16 through gloo (device to host, the exchange, host
+        # to device)
+        g = torch.zeros(cfg.pair_capacity, model.fc1.weight.shape[1],
+                        dtype=torch.bfloat16, device=mesh.device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.all_reduce(g, group=mesh.model_group)
+        torch.cuda.synchronize()
+        res.update(fc1_grad_allreduce_s=time.perf_counter() - t0,
+                   fc1_grad_allreduce_bytes=g.numel() * g.element_size())
+        del g
+    del model, step, step0, state, estep
+    torch.cuda.empty_cache()
+    return res
+
+
+def tp_rank_main(rank, work):
+    """One rank of phase tp: gloo's CUDA path, both ranks on the one card,
+    mesh (1, 2).  Each rank saves its run to <work>/tp_rank<rank>.pt."""
+    mesh_lib.init_multihost(f"file://{work}/tp.store", 2, rank,
+                            device="cuda", backend="gloo")
+    try:
+        mesh = mesh_lib.make_mesh(data=1, model=2, device="cuda")
+        res = tp_run(mesh)
+    finally:
+        dist.destroy_process_group()
+    torch.save(res, os.path.join(work, f"tp_rank{rank}.pt"))
+
+
+def tp_update_errors(ref, got):
+    """Per parameter: max |got after - ref after| over max |ref update|."""
+    out = {}
+    for k, b in ref["before"].items():
+        want = ref["after"][k].cuda()
+        scale = float((want - b.cuda()).abs().max())
+        err = float((got["after"][k].cuda() - want).abs().max())
+        out[k] = (err, scale)
+    return out
+
+
+def tp_eval_errors(ref, got):
+    """Per float output: max |got - ref| over max |ref|; the integer
+    outputs that differ."""
+    errs, differ = {}, []
+    for k, w in ref["eval"].items():
+        g = got["eval"][k]
+        if g.shape != w.shape:
+            differ.append(k)
+        elif w.is_floating_point():
+            live = ref["eval"]["pair_mask"]
+            if w.dim() > 0 and w.shape[0] == live.shape[0]:
+                w, g = w[live], g[live]
+            errs[k] = (float((g.float() - w.float()).abs().max()),
+                       float(w.float().abs().max()))
+        elif not torch.equal(g, w):
+            differ.append(k)
+    return errs, differ
+
+
+def phase_tp(info):
+    """Tensor parallelism on the card (parallel/tp.py): the unsharded run
+    in this process twice (the second gives the run-to-run spread of the
+    first update), then the (1, 2) mesh as two processes of this script
+    over gloo's CUDA path on the one card (NCCL refuses two ranks on one
+    card), the rules above; then the port's dryrun at world size
+    TP_DRYRUN_WORLD over gloo on the card, its dp x tp leg at (2, 2).  The
+    phase's line is printed before any rule fails."""
+    torch.cuda.empty_cache()
+    result = {"phase": "tp", "card": info["nvidia_smi"],
+              "capacity": engine.train_pair_capacity(tp_config()),
+              "aug_capacity": engine.aug_pair_capacity(tp_config())}
+    ref = tp_run()
+    again = tp_run()
+    spread = tp_update_errors(ref, again)
+    del again
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        codes, outs, timed_out = run_ranks(tmp, "tp_rank", TP_TIMEOUT_S)
+        if any(codes) or timed_out:
+            raise AssertionError(f"tp ranks: exit codes {codes}, timed out "
+                                 f"{timed_out}:\n"
+                                 + "\n".join(o[-4000:] for o in outs))
+        wall_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"tp_rank{r}.pt"),
+                            weights_only=False) for r in range(2)]
+    upd = tp_update_errors(ref, ranks[0])
+    ratio = {k: e / sc if sc > 0 else math.inf for k, (e, sc) in upd.items()}
+    failures = [f"first update of {k}: {upd[k][0]} off of {upd[k][1]}"
+                for k, r in ratio.items() if not r <= TP_UPDATE_TOL]
+    want_train = expected(pair_pool_idx=2 * TP_STEPS,
+                          pair_pool_bwd=2 * TP_STEPS)
+    eval_rel = []
+    for r, rk in enumerate(ranks):
+        errs, differ = tp_eval_errors(ref, rk)
+        eval_rel.append({k: e / max(sc, 1e-30)
+                         for k, (e, sc) in errs.items()})
+        failures += [f"rank {r} eval {k}" for k in differ] + [
+            f"rank {r} eval {k}: {e} of {eval_rel[-1][k]}"
+            for k, e in eval_rel[-1].items() if not e <= TP_EVAL_TOL]
+        if not rk["sharded"] or not all(rk["ranks_bitwise_identical"]) \
+                or rk["train_launches"] != want_train \
+                or rk["eval_launches"] != expected(pair_pool=1) \
+                or not rk["peak_bytes"] < ref["peak_bytes"]:
+            failures.append(
+                f"rank {r}: sharded {rk['sharded']}, replicas "
+                f"{rk['ranks_bitwise_identical']}, launches "
+                f"{rk['train_launches']} / {rk['eval_launches']}, peak "
+                f"{rk['peak_bytes']} against {ref['peak_bytes']}")
+    worst = max(ratio, key=ratio.get)
+    result.update(
+        unsharded={"step_s": ref["step_s"], "peak_bytes": ref["peak_bytes"],
+                   "loss_last": ref["loss_last"],
+                   "first_loss": ref["first_loss"],
+                   "launches": ref["train_launches"]},
+        ranks=[{k: rk[k] for k in (
+            "step_s", "peak_bytes", "loss_last", "first_loss",
+            "train_launches", "eval_launches", "ranks_bitwise_identical",
+            "fc1_grad_allreduce_s", "fc1_grad_allreduce_bytes")}
+            for rk in ranks],
+        peak_saving_bytes=[ref["peak_bytes"] - rk["peak_bytes"]
+                           for rk in ranks],
+        update_tol=TP_UPDATE_TOL, eval_tol=TP_EVAL_TOL,
+        update_ratio={k: round(v, 6) for k, v in ratio.items()},
+        worst_update={"param": worst, "max_abs_err": upd[worst][0],
+                      "max_abs_update": upd[worst][1]},
+        unsharded_spread_ratio_max=max(
+            e / sc if sc > 0 else 0.0 for e, sc in spread.values()),
+        eval_rel_err=eval_rel[0], ranks_wall_s=wall_s)
+    del ref, ranks
+    if not failures:
+        # the port's dryrun at world size 4: both legs over gloo on the
+        # card
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m",
+             "scene_graph_commonsense_torch.tools.dryrun_multichip", "--n",
+             str(TP_DRYRUN_WORLD), "--device", "cuda", "--backend", "gloo"],
+            capture_output=True, text=True, timeout=TP_TIMEOUT_S,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        tp_line = [ln for ln in proc.stdout.splitlines() if "dp x tp" in ln]
+        if proc.returncode or not tp_line or "nan" in tp_line[0]:
+            failures.append(f"dryrun_multichip({TP_DRYRUN_WORLD}): "
+                            f"{proc.returncode}\n{proc.stdout[-2000:]}"
+                            f"\n{proc.stderr[-4000:]}")
+        result["dryrun"] = {"wall_s": time.perf_counter() - t0,
+                            "lines": proc.stdout.strip().splitlines()}
+    emit(result)
+    if failures:
+        raise AssertionError("phase tp: " + "; ".join(failures))
+
 def main():
     ap = argparse.ArgumentParser(description="chip smoke of the port")
     ap.add_argument(
         "--phases",
         default="kernel,slice,profile,train,featurize,detect,parity,"
-                "real_data,commonsense,oiv6,pnp,mesh")
+                "real_data,commonsense,oiv6,pnp,mesh,tp,contention")
     # the entries of phase mesh's rank processes
     ap.add_argument("--mesh_rank", type=int, default=None,
                     help=argparse.SUPPRESS)
     ap.add_argument("--nccl_duplicate", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--tp_rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--contend", type=float, default=None,
                     help=argparse.SUPPRESS)
     ap.add_argument("--work", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -4310,6 +4666,12 @@ def main():
         return 0
     if args.nccl_duplicate is not None:
         nccl_duplicate_rank_main(args.nccl_duplicate, args.work)
+        return 0
+    if args.tp_rank is not None:
+        tp_rank_main(args.tp_rank, args.work)
+        return 0
+    if args.contend is not None:
+        contend_main(args.contend)
         return 0
     phases = set(args.phases.split(","))
     info = phase_device()
@@ -4351,6 +4713,10 @@ def main():
                 phase_pnp(data)
     if "mesh" in phases:
         phase_mesh()
+    if "tp" in phases:
+        phase_tp(info)
+    if "contention" in phases:
+        phase_contention()
     if len(kernel) != len(KERNELS) or len(launches) != len(KERNELS):
         return 0                                # a partial run: no summary
     rows = [{"name": name, "route": "cuda", "source": source,

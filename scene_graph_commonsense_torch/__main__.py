@@ -152,9 +152,11 @@ def build_cfg(args):
 
 
 def make_cli_mesh(args, cfg):
-    """The data-parallel mesh of a launch of several processes, or None in
-    a single process (main.py's rule, with the port's one difference: the
-    data axis must fill the world).  Exits with a message where it cannot."""
+    """The mesh of a launch of several processes, data axis by
+    --mesh_data or parallel.data_axis, model axis (tensor parallelism) by
+    parallel.model_axis, or None in a single process (main.py's rule, with
+    the port's one difference: the mesh must fill the world).  Exits with a
+    message where it cannot."""
     from scene_graph_commonsense_torch.parallel.mesh import (
         make_mesh, world_size)
     world = world_size()
@@ -170,13 +172,11 @@ def make_cli_mesh(args, cfg):
         data_axis = max(d for d in range(1, avail + 1) if b % d == 0)
     if data_axis * model_axis != world or b % data_axis:
         sys.exit(f"batch size {b} cannot be sharded over the {world} "
-                 f"launched processes (data axis {data_axis}): a process "
-                 f"cannot sit idle, so launch a number of processes that "
-                 f"divides the batch size")
-    try:
-        return make_mesh(data=data_axis, model=model_axis, device=args.device)
-    except NotImplementedError as e:      # model_axis > 1: no TP yet
-        sys.exit(str(e))
+                 f"launched processes (data axis {data_axis}, model axis "
+                 f"{model_axis}): a process cannot sit idle, so launch "
+                 f"model axis times a number of processes that divides "
+                 f"the batch size")
+    return make_mesh(data=data_axis, model=model_axis, device=args.device)
 
 
 def synthetic_batches(cfg, n_batches, seed, with_aug=False):

@@ -722,7 +722,13 @@ __device__ __forceinline__ void each_pair(F f) {
 // at accumulator row (r, row) goes to box row box_row(r, row) as the
 // packed val(r, k, nl, at), where `at` holds what the producer left there
 // (the identity's x, or nothing); then one thread stores the boxes with
-// store(h, slot) and frees the slots once the stores have read them.
+// store(h, slot), and once the stores have read them every consumer warp
+// frees the slots with one arrival each, as every other release of the
+// ring does.  (One arrival of the whole block's count from the storing
+// thread could land on the partner's barrier while the slot's previous
+// phase there still waits for fewer arrivals than that count: the blocks
+// of a cluster drift apart when another process's work preempts the
+// kernel, and the overflowed barrier faults the launch.)
 template <int RBW, int NW, int NP, class C, class Row, class Val,
           class Store>
 __device__ __forceinline__ void store_staged(Rings<C>& ring,
@@ -752,13 +758,11 @@ __device__ __forceinline__ void store_staged(Rings<C>& ring,
       store(h, ring.x.slot(stage[h]));
     }
     sgc::tma_store_wait_read();
+  }
+  sgc::named_sync(kConsumerBar, kConsumerThreads);
 #pragma unroll
-    for (int h = 0; h < NP / 64; ++h) {
-      for (unsigned rank = 0; rank < kCluster; ++rank) {
-        sgc::mbar_arrive_cluster(ring.x.empty(stage[h]), rank,
-                                 kConsumerThreads / 32);
-      }
-    }
+  for (int h = 0; h < NP / 64; ++h) {
+    ring.x.release(stage[h]);
   }
 }
 

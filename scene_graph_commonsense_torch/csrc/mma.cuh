@@ -388,18 +388,20 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, unsigned bytes) {
       "r"(bytes)
       : "memory");
 }
-// `count` arrivals at the barrier at the same offset in cluster block
-// `rank` (release at CTA scope, as the wait below acquires: the data these
+// One arrival at the barrier at the same offset in cluster block `rank`
+// (release at CTA scope, as the wait below acquires: the data these
 // barriers guard moves by TMA, whose completion the barrier itself
 // tracks; cluster scope would make every wait and arrival order this
-// thread's global memory traffic against the whole cluster).
+// thread's global memory traffic against the whole cluster).  One at a
+// time: an arrival may land in the phase before its own when the blocks
+// drift apart, which is harmless while it never exceeds what that phase
+// still waits for.
 __device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar,
-                                                    unsigned rank,
-                                                    unsigned count = 1) {
+                                                    unsigned rank) {
   asm volatile(
       "{\n.reg .b32 remote;\nmapa.shared::cluster.u32 remote, %0, %1;\n"
-      "mbarrier.arrive.shared::cluster.b64 _, [remote], %2;\n}\n" ::"r"(bar),
-      "r"(rank), "r"(count)
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n" ::"r"(bar),
+      "r"(rank)
       : "memory");
 }
 // Waits until the barrier's phase of parity `parity` has completed.

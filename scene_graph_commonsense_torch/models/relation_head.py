@@ -24,15 +24,26 @@ Dropout is functional, like flax's `deterministic` flag: the two dropout
 sites (after fc1, after fc2) drop only when the caller passes a
 torch.Generator for that site, and never otherwise, whatever the module's
 train()/eval() mode.  The masks are not JAX's masks.
+
+Tensor parallelism (parallel/tp.py) runs inside the module, so that every
+caller of the pair trunk and the head gets it: after tp.shard_module the
+module holds this rank's rows of fc1 and columns of fc2_h, and
+pair_trunk_from_pooled / pair_head run the model group's collectives.
+Dropout then draws the full-width mask of each site from the generator and
+keeps this rank's columns of the first, so that a sharded step drops what
+the unsharded one drops and every rank of the model group draws the same
+mask after fc2.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from scene_graph_commonsense_torch.parallel import tp as tp_lib
 
 
 def _at_least_f32(x: torch.Tensor) -> torch.Tensor:
@@ -56,15 +67,23 @@ def _dense(layer: nn.Module, x: torch.Tensor,
 
 
 def _dropout(x: torch.Tensor, rate: float,
-             generator: Optional[torch.Generator]) -> torch.Tensor:
+             generator: Optional[torch.Generator],
+             shard: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """flax nn.Dropout: keep each element with probability 1 - rate and
     scale it by 1 / (1 - rate); the identity without a generator or at
-    rate 0."""
+    rate 0.  `shard` = (index, count): x is the index-th of count equal
+    column blocks of the activation, whose full-width mask is drawn and
+    sliced."""
     if generator is None or rate == 0.0:
         return x
     keep_prob = 1.0 - rate
-    keep = torch.empty(x.shape, device=x.device).bernoulli_(
+    shape = x.shape if shard is None \
+        else x.shape[:-1] + (x.shape[-1] * shard[1],)
+    keep = torch.empty(shape, device=x.device).bernoulli_(
         keep_prob, generator=generator) > 0
+    if shard is not None:
+        w = x.shape[-1]
+        keep = keep[..., shard[0] * w:(shard[0] + 1) * w]
     return torch.where(keep, x / keep_prob,
                        torch.zeros((), dtype=x.dtype, device=x.device))
 
@@ -141,6 +160,7 @@ class RelationClassifier(nn.Module):
         self.temperatures = (T1, T2, T3)
         self.dropout_rate = dropout_rate
         self.dtype = dtype
+        self.tp_mesh = None               # set by tp.shard_module
 
         def conv(cin_, cout, k, bias=True):
             return nn.Conv2d(cin_, cout, k, padding=k // 2, bias=bias)
@@ -222,24 +242,43 @@ class RelationClassifier(nn.Module):
                                ) -> torch.Tensor:
         """(P, S/2, S/2, 4h) pooled+activated pair maps -> (P, 4096): conv3
         SAME, relu, 2x2 maxpool, NHWC flatten, fc1, relu, dropout (with a
-        generator)."""
+        generator).  Sharded (tp.shard_module): fc1 column-parallel, the
+        output this rank's (P, 4096 / model) columns."""
         dt = self.dtype
         s = torch.relu(_conv(self.conv3, s, dt))
         s = F.max_pool2d(s.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
         s = s.reshape(s.shape[0], -1)
-        s = torch.relu(_dense(self.fc1, s, dt))
-        return _dropout(s, self.dropout_rate, generator)
+        mesh = self.tp_mesh
+        if mesh is None:
+            return _dropout(torch.relu(_dense(self.fc1, s, dt)),
+                            self.dropout_rate, generator)
+        s = torch.relu(_dense(self.fc1, tp_lib.copy_to_model(s, mesh), dt))
+        return _dropout(s, self.dropout_rate, generator,
+                        shard=(mesh.model_index, mesh.model))
 
     def pair_head(self, h: torch.Tensor, c1: torch.Tensor, c2: torch.Tensor,
                   s1: Optional[torch.Tensor], s2: Optional[torch.Tensor],
                   generator: Optional[torch.Generator] = None
                   ) -> Dict[str, torch.Tensor]:
-        """Label-conditioned head.  h: (P, 4096); c1/c2: (P,) subject /
-        object classes; s1/s2: (P, num_super_classes) multi-hot or None;
-        dropout after fc2 with a generator."""
+        """Label-conditioned head.  h: (P, 4096), sharded (P, 4096 / model);
+        c1/c2: (P,) subject / object classes; s1/s2: (P, num_super_classes)
+        multi-hot or None; dropout after fc2 with a generator.  Sharded:
+        fc2_h row-parallel.  Each rank's partial product of the
+        compute-dtype operands is taken and summed over the model group in
+        at least float32, and the bias added once, after the sum, before
+        the one rounding to the compute dtype: the rounding of the
+        unsharded layer's float32 accumulation (partial products rounded to
+        bf16 each would flip the ReLU of sums near 0)."""
         dt = self.dtype
-        z = _dense(self.fc2_h, h, dt) + _embed(self.emb_c1, c1, dt) \
-            + _embed(self.emb_c2, c2, dt)
+        mesh = self.tp_mesh
+        if mesh is None:
+            z = _dense(self.fc2_h, h, dt)
+        else:
+            part = F.linear(_at_least_f32(h.to(dt)),
+                            _at_least_f32(self.fc2_h.weight.to(dt)))
+            z = (tp_lib.reduce_from_model(part, mesh)
+                 + _at_least_f32(self.fc2_h.bias.to(dt))).to(dt)
+        z = z + _embed(self.emb_c1, c1, dt) + _embed(self.emb_c2, c2, dt)
         if self.use_super and s1 is not None:
             z = z + _dense(self.fc2_s1, s1, dt) + _dense(self.fc2_s2, s2, dt)
         pred = _dropout(torch.relu(z), self.dropout_rate, generator)

@@ -17,6 +17,7 @@ import torch
 from scene_graph_commonsense_torch.models import flax_msgpack
 from scene_graph_commonsense_torch.models.relation_head import (
     module_from_cfg)
+from scene_graph_commonsense_torch.parallel import tp as tp_lib
 
 
 def _np(v) -> np.ndarray:
@@ -25,8 +26,10 @@ def _np(v) -> np.ndarray:
         else np.asarray(v)
 
 
-def from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
-    """Flax param tree ({"params": {...}} or the inner dict) -> state dict."""
+def from_flax(params: Mapping, mesh=None) -> Dict[str, torch.Tensor]:
+    """Flax param tree ({"params": {...}} or the inner dict) -> state dict;
+    with a mesh of model axis > 1, this rank's TP shards of it
+    (parallel/tp.shard_params), the state dict of a sharded module."""
     tree = params.get("params", params)
     sd: Dict[str, torch.Tensor] = {}
     for name, leaf in tree.items():
@@ -39,7 +42,7 @@ def from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
         sd[f"{name}.weight"] = torch.from_numpy(np.array(k))
         if "bias" in leaf:
             sd[f"{name}.bias"] = torch.from_numpy(np.array(leaf["bias"]))
-    return sd
+    return sd if mesh is None else tp_lib.shard_params(sd, mesh)
 
 
 def to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict:

@@ -1,2 +1,3 @@
-"""Data parallelism over torch.distributed (parallel/mesh.py) and the
-launch of a group's processes on one host (parallel/launch.py)."""
+"""Data and tensor parallelism over torch.distributed (parallel/mesh.py,
+parallel/tp.py) and the launch of a group's processes on one host
+(parallel/launch.py)."""

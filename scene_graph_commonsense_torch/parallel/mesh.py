@@ -1,22 +1,28 @@
-"""Data-parallel mesh over torch.distributed (torch port of
+"""The ('data', 'model') mesh over torch.distributed (torch port of
 scene_graph_commonsense_tpu/parallel/mesh.py).
 
 The JAX package lays one program over a ('data', 'model') device mesh and
 reduces gradients with `pmean` inside shard_map.  Here each process is one
-rank of an initialised process group (NCCL on the card, gloo on the CPU),
-holds one replica of the weights and takes its rows of every global batch:
+rank of an initialised process group (NCCL on the card, gloo on the CPU).
+Rank r sits at data index r // model and model index r % model, the order
+of the JAX package's reshape(data, model):
 
-  * axis 'data'  - batch sharding; the flagship train step averages the
-    gradients with one all-reduce over the group (train.engine.
-    make_train_step), the plug-and-play step sums the gradients of its
-    global losses (train.pnp_engine.make_pnp_train_step), and the eval
-    steps and the detector concatenate every rank's outputs;
-  * axis 'model' - tensor parallelism (the JAX package's parallel/tp.py),
-    not yet ported: make_mesh refuses model > 1.
+  * axis 'data'  - batch sharding: a rank takes the rows of its data index
+    of every global batch; the flagship train step averages the gradients
+    with one all-reduce over the data group, the ranks that share its model
+    index (train.engine.make_train_step), the plug-and-play step sums the
+    gradients of its global losses (train.pnp_engine.make_pnp_train_step),
+    and the eval steps and the detector concatenate the data group's
+    outputs;
+  * axis 'model' - tensor parallelism over the model group, the ranks that
+    share its data index: the relation head's fc1 and fc2_h are split over
+    it (parallel/tp.py) and everything else is replicated; the paths
+    without TP layers repeat the data shard's work on every rank of the
+    model group, as the JAX package's shard_map over 'data' does.
 
 One difference from the JAX package: a JAX mesh may leave spare devices out
-of its data axis, but a launched process cannot sit idle, so the data axis
-must fill the world.
+of its data axis, but a launched process cannot sit idle, so the mesh must
+fill the world.
 """
 
 from __future__ import annotations
@@ -34,19 +40,33 @@ from scene_graph_commonsense_torch.device import DeviceLike, resolve_device
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """This rank's place in the data-parallel group: the axis sizes, the
-    rank (its index on the data axis), the device its replica lives on and
-    the process group (None: the default group)."""
+    """This rank's place in the mesh: the axis sizes, the global rank, the
+    device its weights live on, the data group (the ranks that share its
+    model index; None: the default group, right where model == 1) and the
+    model group (the ranks that share its data index; None where
+    model == 1)."""
     data: int
     model: int
     rank: int
     device: torch.device
-    group: Optional[Any] = None
+    data_group: Optional[Any] = None
+    model_group: Optional[Any] = None
 
     @property
     def shape(self) -> Dict[str, int]:
         """The axis sizes by name, as jax.sharding.Mesh.shape reads."""
         return {"data": self.data, "model": self.model}
+
+    @property
+    def data_index(self) -> int:
+        """This rank's index on the data axis: its shard of a batch."""
+        return self.rank // self.model
+
+    @property
+    def model_index(self) -> int:
+        """This rank's index on the model axis: its shard of fc1 and
+        fc2_h."""
+        return self.rank % self.model
 
 
 def world_size() -> int:
@@ -68,11 +88,9 @@ def make_mesh(data: int = -1, model: int = 1,
               device: DeviceLike = None) -> Mesh:
     """The ('data', 'model') mesh over the initialised process group;
     data=-1 uses every process.  `device` (default cuda) is where this
-    rank's replica runs."""
-    if model > 1:
-        raise NotImplementedError(
-            "tensor parallelism (parallel/tp.py) is not yet ported; the "
-            "mesh's model axis must be 1")
+    rank's weights live.  With model > 1 every rank builds every data and
+    model group (dist.new_group, called in the same order on each rank)
+    and keeps its own two."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs an initialised process group: "
                            "call init_multihost (or launch with torchrun)")
@@ -89,7 +107,18 @@ def make_mesh(data: int = -1, model: int = 1,
             f"processes without a shard: a launched process cannot sit out "
             f"the data axis, so launch {data * model} processes")
     rank = dist.get_rank()
-    return Mesh(data, model, rank, _rank_device(device, rank))
+    data_group = model_group = None
+    if model > 1:
+        for i in range(data):
+            g = dist.new_group([i * model + j for j in range(model)])
+            if i == rank // model:
+                model_group = g
+        for j in range(model):
+            g = dist.new_group([i * model + j for i in range(data)])
+            if j == rank % model:
+                data_group = g
+    return Mesh(data, model, rank, _rank_device(device, rank), data_group,
+                model_group)
 
 
 def init_multihost(coordinator_address: Optional[str] = None,
@@ -129,9 +158,9 @@ def init_multihost(coordinator_address: Optional[str] = None,
 
 def shard_batch(mesh: Mesh, batch: Dict) -> Dict:
     """This rank's rows of a global batch: the contiguous block
-    [rank * b, (rank + 1) * b) of every array, tensor or list, b = rows /
-    data, which is what the JAX package's P('data') sharding places on the
-    rank-th device.  Other entries pass through.  Raises when the data axis
+    [i * b, (i + 1) * b) of every array, tensor or list, i the data index,
+    b = rows / data, which is what the JAX package's P('data') sharding
+    places on the devices of the i-th data index.  Other entries pass through.  Raises when the data axis
     does not divide an entry's rows."""
     out = {}
     for k, v in batch.items():
@@ -143,7 +172,8 @@ def shard_batch(mesh: Mesh, batch: Dict) -> Dict:
                     f"batch entry {k!r} has {rows} rows, which the data "
                     f"axis of {mesh.data} does not divide")
             b = rows // mesh.data
-            v = v[mesh.rank * b:(mesh.rank + 1) * b]
+            i = mesh.data_index
+            v = v[i * b:(i + 1) * b]
         out[k] = v
     return out
 
@@ -151,27 +181,35 @@ def shard_batch(mesh: Mesh, batch: Dict) -> Dict:
 @torch.no_grad()
 def replicate_tree(mesh: Mesh, tree: Dict[str, torch.Tensor]
                    ) -> Dict[str, torch.Tensor]:
-    """Broadcasts every tensor of `tree` from rank 0, in place, so that
-    every rank starts bit-identical; returns the tree."""
+    """Broadcasts every tensor of `tree` in place, so that every rank
+    starts bit-identical; returns the tree.  A tensor is rank 0's, over
+    every rank; a TP shard (a tensor with a `tp_dim`, parallel/tp.py) is
+    that of the rank at data index 0 with its model index, over its data
+    group."""
     for t in tree.values():
-        dist.broadcast(t.detach(), src=0, group=mesh.group)
+        if getattr(t, "tp_dim", None) is not None and mesh.model > 1:
+            dist.broadcast(t.detach(), src=mesh.model_index,
+                           group=mesh.data_group)
+        else:
+            dist.broadcast(t.detach(), src=0)
     return tree
 
 
 def all_sum_(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
-    """The sum over the group, in place: one all-reduce."""
-    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=mesh.group)
+    """The sum over the data group, in place: one all-reduce."""
+    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=mesh.data_group)
     return t
 
 
 def all_mean_(mesh: Mesh, flat: torch.Tensor) -> torch.Tensor:
-    """The mean over the group, in place: one all-reduce (sum), then the
-    division by the axis size, as jax.lax.pmean computes it."""
+    """The mean over the data group, in place: one all-reduce (sum), then
+    the division by the axis size, as jax.lax.pmean over 'data'
+    computes it."""
     return all_sum_(mesh, flat).div_(mesh.data)
 
 
 def global_total(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
-    """The group's sum of `t`, detached (a copy; `t` is left as it is): the
+    """The data group's sum of `t`, detached (a copy; `t` is left as it is): the
     global count, or sum, of a quantity of which each rank holds its rows'
     share."""
     return all_sum_(mesh, t.detach().clone())
@@ -180,20 +218,21 @@ def global_total(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
 def broadcast_object(mesh: Mesh, obj: Any) -> Any:
     """Rank 0's `obj` (anything picklable) on every rank."""
     box = [obj]
-    dist.broadcast_object_list(box, src=0, group=mesh.group)
+    dist.broadcast_object_list(box, src=0)
     return box[0]
 
 
 def all_gather_rows(mesh: Mesh, tree: Dict[str, Optional[torch.Tensor]]
                     ) -> Dict[str, Optional[torch.Tensor]]:
-    """Every rank's tensors of `tree` concatenated along the first axis in
-    rank order, each in its own dtype (the JAX package's out_specs=
-    P('data')); None entries pass through."""
+    """The data group's tensors of `tree` concatenated along the first
+    axis in data-index order, each in its own dtype (the JAX package's
+    out_specs=P('data')); None entries pass through."""
     out = {}
     for k, t in tree.items():
         if t is not None:
             parts = [torch.empty_like(t) for _ in range(mesh.data)]
-            dist.all_gather(parts, t.contiguous(), group=mesh.group)
+            dist.all_gather(parts, t.contiguous(),
+                            group=mesh.data_group)
             t = torch.cat(parts)
         out[k] = t
     return out

@@ -1,24 +1,27 @@
-"""One data-parallel train step and one sharded eval step over N processes
-on tiny shapes (the counterpart of the JAX package's
-__graft_entry__.dryrun_multichip):
+"""One data-parallel train step, one sharded eval step and one data x
+tensor parallel train step over N processes on tiny shapes (the
+counterpart of the JAX package's __graft_entry__.dryrun_multichip):
 
     python -m scene_graph_commonsense_torch.tools.dryrun_multichip \\
-        [--n 2] [--device cuda|cpu]
+        [--n 2] [--device cuda|cpu] [--backend nccl|gloo]
 
 Starts N processes that join one process group through a file store (NCCL
-on cards, one card per process, the default; gloo with --device cpu),
+on cards, one card per process, the default; gloo with --device cpu; with
+--backend gloo on cuda, gloo's CUDA path, which puts every process on the
+first card when there are fewer cards than processes),
 shard a synthetic batch of 2N images over the data axis, take one train
 step (gradients averaged over the group) and one sharded eval step, and
-check that the loss and the relation scores are finite; rank 0 prints a
-line for each.  The JAX package's third leg, data x tensor parallelism,
-needs parallel/tp.py, which is not yet ported: rank 0 says that it did not
-run.  Exits 1 if any process fails.
+check that the loss and the relation scores are finite; then, at an even
+N, one train step on a (N / 2, 2) mesh, fc1 and fc2_h split over its model
+axis (parallel/tp.py), on a fresh batch, as the JAX package's dp x tp leg
+runs it; rank 0 prints a line for each.  Exits 1 if any process fails.
 """
 
 import argparse
 import os
 import sys
 import tempfile
+from typing import Optional
 
 import numpy as np
 
@@ -26,7 +29,8 @@ PACKAGE_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
 
-def run_rank(rank: int, n: int, store: str, device: str) -> None:
+def run_rank(rank: int, n: int, store: str, device: str,
+             backend: Optional[str] = None) -> None:
     """The dry run of one process."""
     import torch.distributed as dist
 
@@ -39,7 +43,8 @@ def run_rank(rank: int, n: int, store: str, device: str) -> None:
         init_multihost, make_mesh, replicate_tree, shard_batch)
     from scene_graph_commonsense_torch.train import engine
 
-    init_multihost(f"file://{store}", n, rank, device=device)
+    init_multihost(f"file://{store}", n, rank, device=device,
+                   backend=backend)
     try:
         say = print if rank == 0 else (lambda *a, **k: None)
         batch_size = 2 * n
@@ -78,14 +83,33 @@ def run_rank(rank: int, n: int, store: str, device: str) -> None:
             raise RuntimeError(f"non-finite eval output {rel_max}")
         say(f"dryrun_multichip({n}) sharded eval ok: {int(live.sum())} "
             f"live pairs", flush=True)
-        say(f"dryrun_multichip({n}) dp x tp: not run, tensor "
-            f"parallelism (parallel/tp.py) is not yet ported", flush=True)
+
+        if n >= 2 and n % 2 == 0:
+            # dp x tp: fc1 column-parallel, fc2_h row-parallel over the
+            # model axis, the batch over the data axis
+            mesh2 = make_mesh(data=n // 2, model=2, device=device)
+            model2 = make_relation_classifier(cfg, device=mesh2.device)
+            replicate_tree(mesh2, dict(model2.named_parameters()))
+            step2 = engine.make_train_step(model2, cfg, opt,
+                                           class_weights("vg"), mesh=mesh2)
+            batch2 = synthetic_batch(
+                np.random.default_rng(1), batch_size=batch_size,
+                max_objects=cfg.data.max_objects,
+                feature_size=cfg.model.feature_size,
+                num_channels=cfg.model.num_img_feature)
+            _, m2 = step2(engine.init_train_state(model2, opt),
+                          shard_batch(mesh2, batch2))
+            loss2 = float(m2["loss"])
+            if not np.isfinite(loss2):
+                raise RuntimeError(f"non-finite tp loss {loss2}")
+            say(f"dryrun_multichip({n}) dp x tp ({n // 2}x2) ok: "
+                f"loss={loss2:.4f}", flush=True)
     finally:
         dist.destroy_process_group()
 
 
-def dryrun_multichip(n: int, device: str = "cuda",
-                     timeout: float = 600) -> int:
+def dryrun_multichip(n: int, device: str = "cuda", timeout: float = 600,
+                     backend: Optional[str] = None) -> int:
     """Runs the dry run in n processes; returns 1 if any failed, else 0."""
     from scene_graph_commonsense_torch.parallel.launch import run_processes
 
@@ -94,6 +118,8 @@ def dryrun_multichip(n: int, device: str = "cuda",
     with tempfile.TemporaryDirectory() as tmp:
         cmd = [sys.executable, "-m", __spec__.name, "--n", str(n),
                "--device", device, "--store", os.path.join(tmp, "store")]
+        if backend is not None:
+            cmd += ["--backend", backend]
         codes, _ = run_processes([cmd + ["--rank", str(r)]
                                   for r in range(n)], PACKAGE_ROOT, env,
                                  timeout=timeout)
@@ -104,12 +130,13 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--n", type=int, default=2)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--backend", default=None, choices=["nccl", "gloo"])
     ap.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--store", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.rank is None:
-        return dryrun_multichip(args.n, args.device)
-    run_rank(args.rank, args.n, args.store, args.device)
+        return dryrun_multichip(args.n, args.device, backend=args.backend)
+    run_rank(args.rank, args.n, args.store, args.device, args.backend)
     return 0
 
 

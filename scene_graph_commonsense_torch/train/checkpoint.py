@@ -18,9 +18,11 @@ def checkpoint_name(hierarchical: bool, run_mode: str, clustering: str,
     return f"{head}_{tag}_{clustering}{epoch}"
 
 
-def save(path: str, model: torch.nn.Module) -> None:
+def save(path: str, model) -> None:
+    """torch.save of a module's state dict, or of a state dict."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    torch.save(model.state_dict(), path)
+    torch.save(model.state_dict() if isinstance(model, torch.nn.Module)
+               else model, path)
 
 
 def load(path: str) -> Dict[str, torch.Tensor]:

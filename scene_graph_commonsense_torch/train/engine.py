@@ -1,8 +1,11 @@
 """Training and evaluation steps over the packed pair grid (torch port of
 scene_graph_commonsense_tpu/train/engine.py).  With a mesh
-(parallel/mesh.py) each rank steps on its rows of the global batch: the
-train step averages the gradients and metrics over the group before the
-update, the eval step concatenates every rank's outputs.
+(parallel/mesh.py) each rank steps on the rows of its data index of the
+global batch: the train step averages the gradients and metrics over the
+data group before the update, the eval step concatenates the data group's
+outputs.  A mesh with a model axis above 1 also splits the relation head's
+fc1 and fc2_h over the model group (parallel/tp.py), as the JAX package's
+parallel/tp.py lays them out.
 
 Batch dict (fixed shapes; B images, N = max_objects, S = feature_size):
   features:     (B, S, S, C)   frozen detector features
@@ -31,6 +34,7 @@ from scene_graph_commonsense_torch.ops import boxes as box_ops
 from scene_graph_commonsense_torch.ops import pairs as pair_ops
 from scene_graph_commonsense_torch.ops.pair_pool import pair_pool
 from scene_graph_commonsense_torch.parallel import mesh as mesh_lib
+from scene_graph_commonsense_torch.parallel import tp as tp_lib
 from scene_graph_commonsense_torch.train import losses as L
 
 # the batch entries the eval step reads
@@ -178,15 +182,19 @@ def make_eval_step(model: RelationClassifier, cfg, capacity: int = 0,
 
     With a mesh the step runs on the mesh's device and takes this rank's
     rows of the global batch (parallel.mesh.shard_batch).  Each rank packs
-    its own pair buffer at ceil(capacity / shards); pair_img is shifted to
-    global image indices and every output is gathered over the ranks in
-    rank order, so every rank returns the single-device contract of the
-    global batch, with pair_count and pair_capacity one entry per shard.
-    A shard truncates at its own bound, so below the worst-case capacity a
-    dense shard can drop pairs that one global buffer would keep."""
+    its own pair buffer at ceil(capacity / shards), shards the data axis;
+    pair_img is shifted to global image indices and every output is
+    gathered over the data group in data-index order, so every rank
+    returns the single-device contract of the global batch, with
+    pair_count and pair_capacity one entry per shard.  A shard truncates at
+    its own bound, so below the worst-case capacity a dense shard can drop
+    pairs that one global buffer would keep.  A model axis above 1 shards
+    the model (tp.shard_module, in place): the ranks of a model group step
+    on the same rows with their shards of fc1 and fc2_h."""
     dev = resolve_device(device if mesh is None else mesh.device)
     disable_tf32()
     model.to(dev).eval()
+    tp_lib.shard_module(model, mesh)
     cap = capacity or cfg.pair_capacity
     shards = 1 if mesh is None else mesh.shape["data"]
     local_cap = max(-(-cap // shards), 1)
@@ -217,7 +225,7 @@ def make_eval_step(model: RelationClassifier, cfg, capacity: int = 0,
         }
         if mesh is None:
             return res
-        res["pair_img"] = packed.img + mesh.rank * b
+        res["pair_img"] = packed.img + mesh.data_index * b
         return mesh_lib.all_gather_rows(mesh, res)
 
     return step
@@ -316,10 +324,13 @@ class SGD:
     @torch.no_grad()
     def update(self, grads: Dict[str, torch.Tensor], state: SGDState,
                params: Dict[str, torch.Tensor],
-               scale: Optional[torch.Tensor] = None) -> SGDState:
+               scale: Optional[torch.Tensor] = None,
+               mesh=None) -> SGDState:
         """One update; consumes (overwrites) `grads`.  `scale`, a 0-dim
         tensor, multiplies the update -lr * t after the momentum (the
-        faithful dynamic learning rate; the trace stays unscaled)."""
+        faithful dynamic learning rate; the trace stays unscaled).  `mesh`,
+        where `params` hold TP shards (parallel/tp.py): the clip's global
+        norm is the unsharded model's."""
         names = list(params)
         g = [grads[k] if grads.get(k) is not None
              else torch.zeros_like(params[k]) for k in names]
@@ -327,8 +338,12 @@ class SGD:
             # optax.global_norm: the square root of the sum of squares of
             # all leaves; the select keeps g bit-exact below the threshold,
             # without a host synchronisation
-            norm = torch.stack([torch.dot(x.reshape(-1), x.reshape(-1))
-                                for x in g]).sum().sqrt()
+            squares = [torch.dot(x.reshape(-1), x.reshape(-1)) for x in g]
+            if mesh is None or mesh.model <= 1:
+                norm = torch.stack(squares).sum().sqrt()
+            else:
+                norm = tp_lib.global_sum_squares(
+                    mesh, params, dict(zip(names, squares))).sqrt()
             keep = norm < self.grad_clip_norm
             one = torch.ones((), dtype=norm.dtype, device=norm.device)
             div = torch.where(keep, one, norm)
@@ -421,7 +436,7 @@ def aug_pair_capacity(cfg, shards: int = 1) -> int:
 def reduce_over_mesh(mesh, params: Dict[str, torch.Tensor],
                      metrics: Dict[str, torch.Tensor], allreduce_dtype,
                      reduce=mesh_lib.all_mean_):
-    """The gradients and the metrics reduced over the data axis by
+    """The gradients and the metrics reduced over the data group by
     `reduce` (in place on a flat buffer: all_mean_, the flagship's pmean,
     or all_sum_, the plug-and-play step's sum of its global losses' shares):
     one all-reduce of every gradient flattened into one buffer (in
@@ -526,21 +541,32 @@ def make_train_step(model: RelationClassifier, cfg, optimizer: SGD,
     chunk_size > 0 runs both views' pair trunks in chunks with
     recomputation (forward_pairs).
 
-    With a mesh (parallel/mesh.py; data parallel) the step runs on the
-    mesh's device and takes this rank's rows of the global batch
-    (parallel.mesh.shard_batch), packed at the shard's capacities
-    (train_pair_capacity / aug_pair_capacity of the data axis); dropout
-    draws the rank's streams.  After the backward the gradients and the
-    metrics are averaged over the group (an all-reduce each, the gradients
-    in training.grad_allreduce_dtype), so the clip, the momentum and
-    faithful mode's lr_scale act on the means and every rank applies the
-    same update to its replica."""
+    With a mesh (parallel/mesh.py) the step runs on the mesh's device and
+    takes this rank's rows of the global batch (parallel.mesh.shard_batch),
+    packed at the shard's capacities (train_pair_capacity /
+    aug_pair_capacity of the data axis); dropout draws the streams of the
+    rank's data index.  After the backward the gradients and the metrics
+    are averaged over the data group (an all-reduce each, the gradients in
+    training.grad_allreduce_dtype), so the clip, the momentum and faithful
+    mode's lr_scale act on the means and every rank applies the same
+    update to its replica: the JAX package's shard_map step over 'data'.
+
+    A model axis above 1 shards the model first (tp.shard_module, in place;
+    build the TrainState after this call, so that its momentum has the
+    shards' shapes): fc1 column-parallel and fc2_h row-parallel over the
+    model group, whose ranks step on the same rows.  The replicated
+    parameters' gradients are then averaged over the model group (one more
+    all-reduce, which keeps the replicas bit-identical) and the clip's
+    global norm is the unsharded model's.  The update equals the unsharded
+    data-parallel step's, to the rounding of the split sums."""
     dev = resolve_device(device if mesh is None else mesh.device)
     disable_tf32()
     model.to(dev)
+    tp_lib.shard_module(model, mesh)
+    tp = mesh is not None and mesh.model > 1
     faithful = cfg.training.faithful_dynamics
     shards = 1 if mesh is None else mesh.shape["data"]
-    rank = 0 if mesh is None else mesh.rank
+    rank = 0 if mesh is None else mesh.data_index
     capacity = train_pair_capacity(cfg, shards)
     aug_capacity = aug_pair_capacity(cfg, shards)
     allreduce_dtype = getattr(torch, cfg.training.grad_allreduce_dtype)
@@ -550,6 +576,10 @@ def make_train_step(model: RelationClassifier, cfg, optimizer: SGD,
                           for t in cs_tables)
 
     def step(state: TrainState, batch: Dict):
+        if tp and state.opt_state.trace["fc1.weight"].shape \
+                != model.fc1.weight.shape:
+            raise ValueError("the TrainState predates the model's TP "
+                             "sharding: build it after make_train_step")
         batch = {k: torch.as_tensor(batch[k], device=dev)
                  for k in TRAIN_KEYS if batch.get(k) is not None}
         gens = dropout_generators(cfg.training.seed, state.step, dev, rank)
@@ -565,11 +595,14 @@ def make_train_step(model: RelationClassifier, cfg, optimizer: SGD,
         else:
             grads, metrics = reduce_over_mesh(mesh, state.params, metrics,
                                               allreduce_dtype)
+            if tp:
+                tp_lib.mean_replicated_grads_(mesh, state.params, grads)
         # faithful: the dynamic learning rate of the reference's last
         # column (train_test.py:192) scales this step's update
         opt_state = optimizer.update(
             grads, state.opt_state, state.params,
-            scale=metrics["lr_scale"].detach() if faithful else None)
+            scale=metrics["lr_scale"].detach() if faithful else None,
+            mesh=mesh if tp else None)
         for p in state.params.values():
             p.grad = None
         metrics = {k: v.detach() for k, v in metrics.items()}

@@ -1,6 +1,6 @@
 """Epoch-level training loop and the frozen DETR featurizer (torch port of
-scene_graph_commonsense_tpu/train/loop.py; data parallel over a mesh,
-parallel/mesh.py).
+scene_graph_commonsense_tpu/train/loop.py; data and tensor parallel over a
+mesh, parallel/mesh.py and parallel/tp.py).
 
 The orchestration of reference train_test.py:31-330: per-epoch loop,
 step-decay learning rate (x0.1 at the scheduler epochs), per-epoch
@@ -30,6 +30,7 @@ from scene_graph_commonsense_torch.models.detr import (
     DETR, make_detr, module_from_cfg as detr_module)
 from scene_graph_commonsense_torch.models.weights import (
     detr_encode_half, detr_from_flax_bytes, detr_from_hub_state_dict)
+from scene_graph_commonsense_torch.parallel import tp as tp_lib
 from scene_graph_commonsense_torch.parallel.mesh import (
     replicate_tree, shard_batch)
 from scene_graph_commonsense_torch.train import checkpoint as ckpt_lib
@@ -60,8 +61,10 @@ def lr_schedule(cfg, steps_per_epoch: int) -> Callable[[int], float]:
 
 def eval_mesh(cfg, mesh):
     """The mesh to use for sharded evaluation, or None when the eval batch
-    cannot be evenly sharded or the data axis is 1 (the JAX package's rule:
-    single-device eval then)."""
+    cannot be evenly sharded or the data axis is 1 (the JAX package's rule,
+    which reads the data axis alone: single-device eval then; a model
+    sharded over the mesh's model axis still runs its TP layers, on every
+    rank, on the whole batch)."""
     if mesh is None:
         return None
     shards = mesh.shape["data"]
@@ -208,7 +211,11 @@ def fit(cfg, model, train_batches_fn: Callable[[int], Iterable],
     (make_eval_step(mesh=eval_mesh(cfg, mesh))), each rank encoding only
     its rows of a test batch too.  Rank 0 alone runs the evaluators and
     writes the checkpoints, the result files, the scalars, the trace and
-    the log lines."""
+    the log lines.  A model axis above 1 shards the model after the
+    broadcast (tp.shard_module, in place): the ranks of a model group take
+    the same rows, and each checkpoint holds the gathered, unsharded
+    weights (tp.full_state_dict), the file an unsharded run writes, which
+    a resume shards again."""
     tc = cfg.training
     dev = resolve_device(device if mesh is None else mesh.device)
     lead = mesh is None or mesh.rank == 0
@@ -233,12 +240,17 @@ def fit(cfg, model, train_batches_fn: Callable[[int], Iterable],
     if tc.continue_train and tc.start_epoch > 0:
         path = checkpoint_file(cfg, tc.start_epoch - 1)
         if os.path.exists(path):
-            model.load_state_dict(ckpt_lib.load(path))
+            tp_lib.load_full_state_dict(model, ckpt_lib.load(path))
             log_fn(f"Resumed relation weights from {path}")
         else:
             log_fn(f"WARNING: continue_train set but {path} not found — "
                    f"training from scratch")
 
+    if mesh is not None:
+        # rank 0's weights on every rank, before make_train_step shards
+        # them over the model axis
+        model.to(dev)
+        replicate_tree(mesh, dict(model.named_parameters()))
     step = engine.make_train_step(
         model, cfg, opt, class_weights(cfg.data.dataset,
                                        cfg.data.supcat_clustering,
@@ -248,8 +260,6 @@ def fit(cfg, model, train_batches_fn: Callable[[int], Iterable],
     # a scheduler epoch does not train at the undecayed rate
     state = engine.init_train_state(model, opt,
                                     step=tc.start_epoch * steps_per_epoch)
-    if mesh is not None:
-        replicate_tree(mesh, state.params)
 
     if lead:
         recorder = ResultRecorder(tc.result_path, "train_results",
@@ -351,11 +361,14 @@ def fit(cfg, model, train_batches_fn: Callable[[int], Iterable],
                 writer.scalars(timer.summary(tc.batch_size), host_step,
                                prefix="perf/")
 
-        # per-epoch checkpoint (reference train_test.py:311-322)
+        # per-epoch checkpoint (reference train_test.py:311-322); the
+        # gathered weights where sharded (every rank joins the gather)
+        weights_ = tp_lib.full_state_dict(model)
         if lead:
             path = checkpoint_file(cfg, epoch)
-            ckpt_lib.save(path, model)
+            ckpt_lib.save(path, weights_)
             log_fn(f"Saved checkpoint {path}")
+        del weights_
 
         if test_batches_fn is not None:
             max_batches = 100 if epoch < 2 else None  # train_test.py:347

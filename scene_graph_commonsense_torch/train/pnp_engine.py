@@ -131,6 +131,34 @@ def _device_batch(batch: Dict, dev: torch.device) -> Dict[str, torch.Tensor]:
     return {k: torch.as_tensor(batch[k], device=dev) for k in MODEL_KEYS}
 
 
+class _GlobalTotals:
+    """A step's `total` over a mesh: the data group's sums of every
+    denominator in one all-reduce.  A first pass over the losses (without
+    gradients) records each denominator and returns it as it is; reduce()
+    sums them all, stacked in their widest dtype; the second pass, whose
+    losses are back-propagated, reads the sums in the same order."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.seen = []
+        self.sums = None
+        self.read = 0
+
+    def __call__(self, t: torch.Tensor) -> torch.Tensor:
+        if self.sums is None:
+            self.seen.append(t.detach())
+            return t
+        self.read += 1
+        return self.sums[self.read - 1].to(t.dtype)
+
+    def reduce(self) -> None:
+        dtype = self.seen[0].dtype
+        for t in self.seen[1:]:
+            dtype = torch.promote_types(dtype, t.dtype)
+        self.sums = mesh_lib.all_sum_(
+            self.mesh, torch.stack([t.to(dtype) for t in self.seen]))
+
+
 def make_pnp_train_step(predictor: HierarchicalPredictor, cfg,
                         optimizer: engine.SGD, cs_tables=None, mesh=None,
                         device=None):
@@ -154,7 +182,9 @@ def make_pnp_train_step(predictor: HierarchicalPredictor, cfg,
     each denominator (a masked count or weight sum, detached: it depends on
     the batch and the argmax only) is the group's sum, each rank
     back-propagates its rows' numerators over it, and the gradients and the
-    metrics are summed over the group (not averaged).  The clip and the
+    metrics are summed over the group (not averaged).  The denominators
+    travel in one all-reduce a step (_GlobalTotals), their losses computed
+    once without gradients to collect them.  The clip and the
     momentum then act on the global gradient, and every rank applies the
     same update."""
     dev = resolve_device(device if mesh is None else mesh.device)
@@ -164,14 +194,10 @@ def make_pnp_train_step(predictor: HierarchicalPredictor, cfg,
     if cs_tables is not None:
         cs_tables = tuple(torch.as_tensor(np.asarray(t), device=dev)
                           for t in cs_tables)
-    total = None if mesh is None else (
-        lambda t: mesh_lib.global_total(mesh, t))
 
-    def step(state: engine.TrainState, batch: Dict):
-        batch = _device_batch(batch, dev)
-        for p in state.params.values():
-            p.grad = None
-        out = _forward(predictor, batch)
+    def losses(batch, out, total):
+        """(loss, metrics) of one forward's outputs; `total` maps each
+        denominator (L's `total`)."""
         targets = out["targets"]
         valid_p = out["pair_mask"]
         connected = (targets >= 0) & valid_p
@@ -217,9 +243,22 @@ def make_pnp_train_step(predictor: HierarchicalPredictor, cfg,
                 m.num_possessive, m.num_classes, tc.lambda_cs_weak,
                 tc.lambda_cs_strong, hierarchical=True, total=total)
             loss = loss + tc.lambda_commonsense * loss_cs
-        metrics = {"loss": loss, "loss_relationship": loss_rel,
-                   "loss_connectivity": conn.loss,
-                   "loss_commonsense": loss_cs, **extra}
+        return loss, {"loss": loss, "loss_relationship": loss_rel,
+                      "loss_connectivity": conn.loss,
+                      "loss_commonsense": loss_cs, **extra}
+
+    def step(state: engine.TrainState, batch: Dict):
+        batch = _device_batch(batch, dev)
+        for p in state.params.values():
+            p.grad = None
+        out = _forward(predictor, batch)
+        total = None
+        if mesh is not None:
+            total = _GlobalTotals(mesh)
+            with torch.no_grad():
+                losses(batch, out, total)
+            total.reduce()
+        loss, metrics = losses(batch, out, total)
         loss.backward()
         if mesh is None:
             grads = {k: p.grad for k, p in state.params.items()}
@@ -278,7 +317,7 @@ def make_pnp_eval_step(predictor: HierarchicalPredictor, cfg,
                 "pair_img", "pair_sub", "pair_obj", "pair_mask", "iou_ok")}
         if mesh is None:
             return res
-        res["pair_img"] = res["pair_img"] + mesh.rank * b
+        res["pair_img"] = res["pair_img"] + mesh.data_index * b
         return mesh_lib.all_gather_rows(mesh, res)
 
     return step

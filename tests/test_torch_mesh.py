@@ -620,9 +620,10 @@ def test_torch_cli_epochs_and_mesh_flags_match_main(monkeypatch):
 
 def test_torch_dryrun_multichip_two_processes(capfd):
     """The dryrun_multichip counterpart over 2 gloo processes: one
-    data-parallel train step and one sharded eval step, finite, and the
-    dp x tp leg reported as not yet ported."""
+    data-parallel train step, one sharded eval step and the dp x tp leg's
+    train step on a (1, 2) mesh, each finite."""
     assert dryrun_multichip(2, "cpu", timeout=240) == 0
     out = capfd.readouterr().out
     assert "dryrun_multichip(2) dp ok: loss=" in out
-    assert "sharded eval ok" in out and "not yet ported" in out
+    assert "sharded eval ok" in out
+    assert "dryrun_multichip(2) dp x tp (1x2) ok: loss=" in out

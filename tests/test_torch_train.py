@@ -384,9 +384,11 @@ def test_torch_unported_observability_raises(tmp_path, knob):
 
 def test_torch_mesh_unported_entry_points_raise():
     """Every data-parallel entry point takes a mesh
-    (tests/test_torch_mesh*.py); tensor parallelism (make_mesh(model=2))
-    is not yet ported and raises rather than run without it."""
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    (tests/test_torch_mesh*.py) and tensor parallelism is ported
+    (tests/test_torch_*tp.py): make_mesh takes model=2, and what is left to
+    raise is a call without a process group, or a mesh that does not fill
+    the world."""
+    with pytest.raises(RuntimeError, match="initialised process group"):
         mesh_lib.make_mesh(data=1, model=2, device="cpu")
 
 

@@ -1,12 +1,14 @@
-"""One rank of the port's data-parallel CPU tests (tests/test_torch_mesh.py,
-tests/test_torch_mesh_detect.py, tests/test_torch_mesh_pnp.py).
+"""One rank of the port's data- and tensor-parallel CPU tests
+(tests/test_torch_mesh.py, tests/test_torch_mesh_detect.py,
+tests/test_torch_mesh_pnp.py, tests/test_torch_tp.py,
+tests/test_torch_mesh_tp.py).
 
     python tests/torch_mesh_worker.py WORK_DIR RANK
 
 Joins a gloo group of the spec's world size through a file store in
-WORK_DIR, runs every scenario of WORK_DIR/spec.pt in order on its rows of
-the global batches and saves what each returns to
-WORK_DIR/<scenario>_rank<RANK>.pt.  A scenario's entries named *state_dict
+WORK_DIR, builds the mesh of the spec's model axis (default 1), runs every
+scenario of WORK_DIR/spec.pt in order on its rows of the global batches and
+saves what each returns to WORK_DIR/<scenario>_rank<RANK>.pt.  A scenario's entries named *state_dict
 name tensors of the spec's "tensors".  A failure writes the traceback to
 WORK_DIR/error_rank<RANK>.txt and exits 1.  Imports only the port (no JAX,
 no conftest)."""
@@ -37,7 +39,9 @@ from scene_graph_commonsense_torch.models.predictors import (  # noqa: E402
     HierarchicalPredictor)
 from scene_graph_commonsense_torch.models.relation_head import (  # noqa
     make_relation_classifier)
+from scene_graph_commonsense_torch.models import weights  # noqa: E402
 from scene_graph_commonsense_torch.parallel import mesh as mesh_lib  # noqa
+from scene_graph_commonsense_torch.parallel import tp  # noqa: E402
 from scene_graph_commonsense_torch.train import (  # noqa: E402
     engine, loop, pnp_engine)
 
@@ -268,10 +272,97 @@ def pnp_train(mesh, sc):
     return trail
 
 
+def _replicas_identical(mesh, model):
+    """Whether this rank holds the bits of rank 0's replicated parameters
+    and of its data group's first rank's TP shards."""
+    same = True
+    for p in model.parameters():
+        buf = p.detach().clone()
+        if tp.is_shard(p):
+            dist.broadcast(buf, src=mesh.model_index, group=mesh.data_group)
+        else:
+            dist.broadcast(buf, src=0)
+        same = same and torch.equal(buf, p.detach())
+    return same
+
+
+def _full(mesh, model):
+    """The gathered parameters on rank 0 (every rank joins the gather)."""
+    full = {k: v.clone() for k, v in tp.full_state_dict(model).items()}
+    return full if mesh.rank == 0 else None
+
+
+def tp_layout(mesh, sc):
+    """The state dict's TP shards: shard_params of the full state dict,
+    from_flax(mesh=) of the flax tree, the shapes shard_module leaves, and
+    the gather of the shards (gather_params) against the full dict."""
+    sd = sc["state_dict"]
+    shards = tp.shard_params(sd, mesh)
+    model = _model(sc["cfg"], sd, sc["dtype"])
+    tp.shard_module(model, mesh)
+    gathered = tp.gather_params(shards, mesh)
+    return {"shards": shards,
+            "from_flax": weights.from_flax(sc["flax"], mesh),
+            "module": _snapshot(model),
+            "round_trip": all(torch.equal(gathered[k], v)
+                              for k, v in sd.items())}
+
+
+def tp_train(mesh, sc):
+    """make_train_step(mesh=) with the model axis: the step shards the
+    model, the TrainState is built after it.  Per step: the gathered
+    parameters (rank 0), the metrics and whether the replicas agree."""
+    cfg = sc["cfg"]
+    model = _model(cfg, sc["state_dict"], sc["dtype"])
+    opt = engine.make_optimizer(1e-3, grad_clip_norm=sc["clip"])
+    step = engine.make_train_step(
+        model, cfg, opt, class_weights("vg", faithful=sc["faithful"]),
+        mesh=mesh, chunk_size=sc.get("chunk", 0))
+    state = engine.init_train_state(model, opt)
+    trail = []
+    for b in sc["batches"]:
+        state, met = step(state, mesh_lib.shard_batch(mesh, b))
+        trail.append((_full(mesh, model),
+                      {k: float(v) for k, v in met.items()},
+                      _replicas_identical(mesh, model)))
+    return trail
+
+
+def tp_eval(mesh, sc):
+    """The eval step over the mesh (the model sharded by it) on each
+    global batch, and run_eval_pc(mesh=)'s results."""
+    cfg = sc["cfg"]
+    model = _model(cfg, sc["state_dict"], sc["dtype"])
+    estep = engine.make_eval_step(model, cfg, mesh=mesh)
+    outs = [engines.to_numpy(estep(mesh_lib.shard_batch(mesh, b)))
+            for b in sc["batches"]]
+    return {"outs": outs, "sharded": tp.is_shard(model.fc1.weight),
+            "results": engines.run_eval_pc(cfg, model, sc["batches"],
+                                           mesh=mesh)}
+
+
+def tp_fit(mesh, sc):
+    """fit(mesh=) with the model axis: the gathered parameters (rank 0),
+    whether the replicas agree, the log lines and the step count."""
+    cfg = sc["cfg"]
+    model = _model(cfg, sc["state_dict"], sc["dtype"])
+    lines = []
+    state = loop.fit(cfg, model, lambda e: iter(sc["train"]),
+                     lambda e: iter(sc["test"]),
+                     steps_per_epoch=len(sc["train"]),
+                     artifacts=load_vg_artifacts(ARTIFACTS_DIR), mesh=mesh,
+                     log_fn=lines.append)
+    return {"state_dict": _full(mesh, model),
+            "replicas_identical": _replicas_identical(mesh, model),
+            "sharded": tp.is_shard(model.fc1.weight), "lines": lines,
+            "step": state.step}
+
+
 SCENARIOS = {"train": train_steps, "eval": eval_step, "fit": fit,
              "cli": cli_runs, "detect": detect, "sg_eval": sg_eval,
              "predictor": predictor, "pnp_eval": pnp_eval,
-             "pnp_train": pnp_train}
+             "pnp_train": pnp_train, "tp_layout": tp_layout,
+             "tp_train": tp_train, "tp_eval": tp_eval, "tp_fit": tp_fit}
 
 
 def main():
@@ -285,7 +376,7 @@ def main():
             "gloo", init_method=f"file://{os.path.join(work, 'rdv.store')}",
             world_size=spec["world"], rank=rank,
             timeout=timedelta(seconds=120))
-        mesh = mesh_lib.make_mesh(device="cpu")
+        mesh = mesh_lib.make_mesh(model=spec.get("model", 1), device="cpu")
         for name, sc in spec["scenarios"]:
             sc = {k: spec["tensors"][v] if k.endswith("state_dict")
                   and v is not None else v for k, v in sc.items()}
