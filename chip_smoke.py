@@ -236,6 +236,34 @@ Phases, each printing JSON lines:
               processes mid-kernel; every output must equal the same
               launch made alone, and the second process must still be
               running when the check ends.
+ 17. offline: the offline data and checkpoint tools at full width (the
+              VG head in bf16, DETR-101 on 1024^2 views, seeded weights),
+              run after real_data: a raw VG in VG's own files
+              (tools/make_raw_vg.py: 60 JPEGs at REAL_SIZES, 36 train / 24
+              test) through the four stages of tools/preprocess_vg.py
+              (instances through write_instances on the split indices: no
+              h5py on the card's machine; annotations with --with_depth,
+              which finds no MiDaS and writes zero maps; triplets under a
+              temporary artifacts_dir, the repo's file unchanged; SGRC
+              records, whose test batches equal the Python loader's image
+              by image); a DETR-101 state dict in detectron2's names
+              through tools/convert_checkpoints.py --remap, its encode
+              equal to the un-renamed dict's to the bit; fit for 3 steps
+              from the new records; a reference-format relation .pth of
+              seeded weights through the tool, the same tensors and eval
+              outputs as the seeded model; the IETrans pass of
+              tools/label_transfer.py from the images with both files
+              (an encode and 1 pair-pool launch a batch); its scoring and
+              both passes on the card against the CPU from the same cached
+              features (a float32 head at hidden OFFLINE_LT_HIDDEN): scores
+              within OFFLINE_LT_TOL, every differing relabel a marginal
+              one; a train step on the rewritten annotations (the cache
+              with the tool's files laid over it); a fabricated GloVe
+              file through tools/glove_embeddings.py into a Motifs
+              predictor's embeddings and one pnp train step.  Seconds and
+              launches per stage (each stage's launches checked exactly),
+              the annotation stage's images per second and the
+              label-transfer pass's seconds a batch.
 Phase `kernel` also holds the encoder kernels against their plain versions:
 attention at (B, 1024, 8, 32) for B = 12 and 24, with all keys valid, 80%
 of the keys masked, and one image's keys all masked; FFN + LayerNorm at
@@ -272,10 +300,14 @@ need all phases).
 import argparse
 import contextlib
 import dataclasses
+import glob
+import hashlib
+import io
 import itertools
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -294,7 +326,7 @@ from scene_graph_commonsense_torch.__main__ import synthetic_batches
 from scene_graph_commonsense_torch.commonsense.pipeline import (
     run_prepare_cs)
 from scene_graph_commonsense_torch.constants import (
-    OBJ_ALP2FRE, class_weights)
+    OBJ_ALP2FRE, VG_OBJECTS, class_weights)
 from scene_graph_commonsense_torch.data.artifacts import load_vg_artifacts
 from scene_graph_commonsense_torch.data.dataset import (
     VGDataset, batches_from_dataset, color_jitter_params)
@@ -329,6 +361,7 @@ from scene_graph_commonsense_torch.tools.make_mini_vg import make_mini_vg
 from scene_graph_commonsense_torch.tools.precompute_features import (
     precompute_features)
 from scene_graph_commonsense_torch.tools.sgrecords import write_sgrecords
+from scene_graph_commonsense_torch.train import checkpoint as ckpt_lib
 from scene_graph_commonsense_torch.train import engine
 from scene_graph_commonsense_torch.train import loop, pnp_engine
 
@@ -2709,6 +2742,570 @@ def phase_real_data():
                           for m, v in cli_out.items()}})
 
 
+# phase offline: the raw VG (tools/make_raw_vg.py) of OFFLINE_IMAGES JPEGs
+# at REAL_SIZES, split OFFLINE_TRAIN / the rest; the label-transfer check's
+# relation head on the CPU and the card (float32, hidden OFFLINE_LT_HIDDEN:
+# the full width's pair trunk takes minutes a batch on the CPU), its scores
+# held within OFFLINE_LT_TOL, and the GloVe file's vector width
+OFFLINE_IMAGES = 60
+OFFLINE_TRAIN = 36
+OFFLINE_LT_HIDDEN = 8
+OFFLINE_LT_TOL = 1e-4
+GLOVE_DIM = 100
+
+
+def reference_relation_state(sd, cfg):
+    """The reference's BayesianRelationClassifier state dict (torch layout,
+    reference model.py:105-186, DDP's 'module.' prefixes) holding the
+    port's weights `sd`: the inverse of weights.from_reference_state_dict
+    (conv2's two halves joined, fc1's columns back to (c, y, x) order,
+    fc2's column blocks joined, the embeddings as one-hot columns)."""
+    h, sp = cfg.model.hidden_dim, cfg.model.feature_size // 4
+    ref = {"conv1_1.weight": sd["conv1_sub.weight"],
+           "conv1_1.bias": sd["conv1_sub.bias"],
+           "conv1_2.weight": sd["conv1_obj.weight"],
+           "conv1_2.bias": sd["conv1_obj.bias"],
+           "conv2_1.weight": torch.cat([sd["conv2_sub.weight"],
+                                        sd["conv2_obj.weight"]], 1),
+           "conv2_1.bias": sd["conv2_obj.bias"],
+           "conv3_1.weight": sd["conv3.weight"],
+           "conv3_1.bias": sd["conv3.bias"],
+           "fc1.weight": sd["fc1.weight"].reshape(-1, sp, sp, 8 * h)
+           .permute(0, 3, 1, 2).reshape(sd["fc1.weight"].shape[0], -1),
+           "fc1.bias": sd["fc1.bias"],
+           "fc2.weight": torch.cat([sd["fc2_h.weight"],
+                                    sd["emb_c1.weight"].T,
+                                    sd["emb_c2.weight"].T,
+                                    sd["fc2_s1.weight"],
+                                    sd["fc2_s2.weight"]], 1),
+           "fc2.bias": sd["fc2_h.bias"]}
+    for name in ("fc4", "fc3_1", "fc3_2", "fc3_3", "fc5"):
+        ref[f"{name}.weight"] = sd[f"{name}.weight"]
+        ref[f"{name}.bias"] = sd[f"{name}.bias"]
+    return {"module." + k: v.contiguous() for k, v in ref.items()}
+
+
+def hub_detr_state(cfg, sd):
+    """The torch-hub DETR names of the port's detector state dict `sd`
+    (the inverse of weights.detr_from_hub_state_dict: each attention's
+    q/k/v rows joined into in_proj)."""
+    m = cfg.model
+    hub = {h: sd[p] for p, h in weights._hub_key_map(
+        m.detr_enc_layers, tuple(m.detr_blocks), m.detr_dec_layers).items()}
+    attns = [(f"encoder_{i}.self_attn",
+              f"transformer.encoder.layers.{i}.self_attn")
+             for i in range(m.detr_enc_layers)]
+    for i in range(m.detr_dec_layers):
+        layer = f"transformer.decoder.layers.{i}"
+        attns += [(f"decoder_{i}.self_attn", f"{layer}.self_attn"),
+                  (f"decoder_{i}.cross_attn", f"{layer}.multihead_attn")]
+    for port, name in attns:
+        for kind in ("weight", "bias"):
+            hub[f"{name}.in_proj_{kind}"] = torch.cat(
+                [sd[f"{port}.{p}.{kind}"] for p in ("q_proj", "k_proj",
+                                                    "v_proj")])
+    return hub
+
+
+def detectron2_name(key):
+    """The detectron2 name of a torch-hub DETR backbone key, as the
+    reference's VG-finetuned checkpoint names it (reference
+    utils.py:96-119): stem.conv1(.norm), res<stage+1>.<i>.conv<c>(.norm),
+    shortcut(.norm)."""
+    prefix = "backbone.0.body."
+    if not key.startswith(prefix):
+        return key
+    k = key[len(prefix):]
+    k = re.sub(r"^conv1\.", "stem.conv1.", k)
+    k = re.sub(r"^bn1\.", "stem.conv1.norm.", k)
+    k = re.sub(r"^layer(\d)\.", lambda g: f"res{int(g.group(1)) + 1}.", k)
+    k = re.sub(r"\.bn(\d)\.", r".conv\1.norm.", k)
+    k = k.replace(".downsample.0.", ".shortcut.")
+    return "backbone." + k.replace(".downsample.1.", ".shortcut.norm.")
+
+
+def print_fail(line):
+    """A log_fn for loads that must not warn (a missing weights file)."""
+    raise AssertionError(line)
+
+
+def quietly(fn, *args, **kwargs):
+    """fn's result and the lines it printed."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args, **kwargs)
+    return out, buf.getvalue().strip().splitlines()
+
+
+def marginal_pairs(recs, mode, num_relations, tol):
+    """The pairs whose label the transfer may set either way when the scores
+    move by up to `tol`: a predicate argmax within 2 tol of the runner-up,
+    a candidate margin within 2 tol of 0 or of the margin at a selection's
+    cutoff (lt.select_top_percent at the tool's default percents), a
+    relatedness within tol of the external gate."""
+    from scene_graph_commonsense_torch.data import label_transfer as lt
+    rels = {k: r["rel"] for k, r in recs.items()}
+    freq = lt.predicate_frequencies(rels.values(), num_relations)
+    near = set()
+    lists = {"internal": [], "external": [], "nice": []}
+    for k, r in recs.items():
+        s = np.sort(r["scores"], axis=-1)
+        with np.errstate(invalid="ignore"):        # unscored: -inf - -inf
+            tie = s[..., -1] - s[..., -2] <= 2 * tol
+        for i, j in zip(*np.nonzero(tie & np.isfinite(s).all(axis=-1))):
+            near.add((k, int(i), int(j)))
+        for i, j in zip(*np.nonzero(np.abs(r["conn"] - 0.5) <= tol)):
+            near.add((k, int(i), int(j)))
+        if mode == "ietrans":
+            lists["internal"] += lt.internal_candidates(k, r["rel"],
+                                                        r["scores"], freq)
+            lists["external"] += lt.external_candidates(
+                k, r["rel"], r["scores"], r["conn"], r["valid_pair"])
+        else:
+            lists["nice"] += lt.nice_candidates(k, r["rel"], r["scores"])
+    percents = {"internal": 70.0, "external": 100.0, "nice": 30.0}
+    for name, cands in lists.items():
+        if not cands:
+            continue
+        margins = sorted((c.margin for c in cands), reverse=True)
+        k = max(1, int(round(len(cands) * percents[name] / 100.0)))
+        edges = [0.0] + margins[max(k - 1, 0):k + 1]
+        for c in cands:
+            if min(abs(c.margin - e) for e in edges) <= 2 * tol:
+                near.add((c.image, c.sub, c.obj))
+    return near
+
+
+def offline_card_vs_cpu(data, feat_dir, gen):
+    """The label-transfer tool's scoring (collect_scores) and both passes
+    on the card and on the CPU from the same cached features and weights
+    (a float32 head at hidden OFFLINE_LT_HIDDEN, TF32 off): the scores
+    within OFFLINE_LT_TOL, and every relabel and summary count that differs
+    explained by a pair of marginal_pairs."""
+    from scene_graph_commonsense_torch.tools import label_transfer as ltool
+    cfg = config_lib.derive(
+        "vg", hierarchical_pred=True, run_mode="eval",
+        data={**data, "features_dir": feat_dir},
+        model={"hidden_dim": OFFLINE_LT_HIDDEN, "compute_dtype": "float32"},
+        training={"batch_size": 12})
+    with open(cfg.data.annotation_train) as f:
+        ann = {"images": [i for i in json.load(f)["images"]
+                          if os.path.exists(os.path.join(
+                              feat_dir, os.path.splitext(i["file_name"])[0]
+                              + "_features.npz"))]}
+    sd = weights.init_params(cfg, gen())
+    recs, launches, secs = {}, {}, {}
+    for dev, tag in (("cuda", "card"), ("cpu", "cpu")):
+        model = make_relation_classifier(cfg, device=dev, state_dict=sd)
+        estep = engine.make_eval_step(model, cfg, device=dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        recs[tag] = ltool.collect_scores(cfg, batches_from_dataset(
+            VGDataset(cfg, ann, training=False), 12, shuffle=False,
+            drop_last=False), estep)
+        launches[tag] = {k: v for k, v in read_counts().items() if v}
+        secs[tag] = time.perf_counter() - t0
+    if launches["cpu"]:
+        raise AssertionError(f"the CPU pass launched {launches['cpu']}")
+    if sorted(recs["card"]) != sorted(recs["cpu"]):
+        raise AssertionError("the card and the CPU scored other images")
+    err = 0.0
+    for k, r in recs["cpu"].items():
+        c = recs["card"][k]
+        fin = np.isfinite(r["scores"])
+        if not np.array_equal(fin, np.isfinite(c["scores"])):
+            raise AssertionError(f"image {k}: other scored pairs")
+        err = max(err, float(np.abs(c["scores"][fin]
+                                    - r["scores"][fin]).max(initial=0)),
+                  float(np.abs(c["conn"] - r["conn"]).max()))
+    if not err <= OFFLINE_LT_TOL:
+        raise AssertionError(f"card scores {err} off the CPU's")
+    out = {"max_abs_err": err, "launches_card": launches["card"],
+           "card_s": secs["card"], "cpu_s": secs["cpu"]}
+    for mode in ("ietrans", "nice"):
+        got = ltool.transfer(recs["card"], mode, cfg.model.num_relations)
+        want = ltool.transfer(recs["cpu"], mode, cfg.model.num_relations)
+        differ = {(k, int(i), int(j)) for k in want[1]
+                  for i, j in zip(*np.nonzero(got[1][k] != want[1][k]))}
+        near = marginal_pairs(recs["cpu"], mode, cfg.model.num_relations,
+                              err) | marginal_pairs(
+            recs["card"], mode, cfg.model.num_relations, err)
+        if not differ <= near or (not differ and got[2] != want[2]):
+            raise AssertionError(f"{mode}: the card relabels "
+                                 f"{sorted(differ - near)[:8]} unlike the "
+                                 f"CPU ({got[2]} against {want[2]})")
+        out[mode] = {"card": got[2], "cpu": want[2],
+                     "differing_pairs": len(differ),
+                     "marginal_pairs": len(near)}
+    return out
+
+
+def phase_offline():
+    """The offline data and checkpoint tools on the card, from raw files to
+    a relabelled training set and trained steps: a raw VG fabricated in a
+    temporary directory; the four stages of tools/preprocess_vg.py
+    (instances through its body, write_instances, on the split indices:
+    no h5py here); fit from the new SGRC records; a reference-format
+    relation .pth and a DETR-101 state dict in detectron2's names through
+    tools/convert_checkpoints.py; the IETrans pass of
+    tools/label_transfer.py from the images with both; its scoring on the
+    card against the CPU from the same features; a train step on the
+    rewritten annotations; a GloVe text file through
+    tools/glove_embeddings.py into a Motifs predictor and one pnp train
+    step.  Each stage's seconds and launches are printed."""
+    from scene_graph_commonsense_torch.data.dataset import load_annotation
+    from scene_graph_commonsense_torch.tools import (
+        convert_checkpoints, glove_embeddings, label_transfer,
+        preprocess_vg)
+    from scene_graph_commonsense_torch.tools.make_raw_vg import make_raw_vg
+    torch.cuda.empty_cache()
+    gen = lambda: torch.Generator().manual_seed(0)  # noqa: E731
+    stages = {}
+    phase_t0 = time.perf_counter()
+
+    def stage(name, fn, want=None):
+        """Runs fn with the counts set to 0 just before and read just
+        after; checks them against `want` (the launches of each kernel,
+        none where not named)."""
+        reset_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        stages[name] = {"s": time.perf_counter() - t0,
+                        "launches": {k: v for k, v in counts.items() if v}}
+        if counts != expected(**(want or {})):
+            raise AssertionError(f"offline {name} launched {counts}, "
+                                 f"expected {expected(**(want or {}))}")
+        return out
+
+    def per_encode(n, **extra):
+        return {**{k: v * n for k, v in PER_ENCODE.items()}, **extra}
+
+    repo_artifacts = os.path.join("datasets", "artifacts",
+                                  "vg_artifacts.npz")
+    with open(repo_artifacts, "rb") as f:
+        repo_digest = hashlib.sha256(f.read()).hexdigest()
+    with tempfile.TemporaryDirectory() as tmp:
+        raw = stage("fabricate", lambda: make_raw_vg(
+            os.path.join(tmp, "raw"), images=OFFLINE_IMAGES, seed=0,
+            sizes=REAL_SIZES))
+        data = {"image_dir": raw["image_dir"],
+                "annot_dir": os.path.join(tmp, "annot"),
+                "annotation_train": os.path.join(tmp, "train.json"),
+                "annotation_test": os.path.join(tmp, "test.json"),
+                "artifacts_dir": os.path.join(tmp, "artifacts")}
+        os.makedirs(data["artifacts_dir"])
+        shutil.copy(repo_artifacts, data["artifacts_dir"])
+        cfg = config_lib.derive("vg", hierarchical_pred=True,
+                                run_mode="eval", data=data,
+                                training={"batch_size": 12})
+        printed = {}
+
+        # the four stages of tools/preprocess_vg.py
+        (train, test, _), printed["instances"] = stage(
+            "instances", lambda: quietly(
+                preprocess_vg.write_instances, cfg, raw["raw_dir"],
+                range(OFFLINE_TRAIN), range(OFFLINE_TRAIN, OFFLINE_IMAGES),
+                vocab_dir=raw["vocab_dir"]))
+        if (len(train["images"]), len(test["images"])) != (
+                OFFLINE_TRAIN, OFFLINE_IMAGES - OFFLINE_TRAIN):
+            raise AssertionError("the instances stage split "
+                                 f"{len(train['images'])} / "
+                                 f"{len(test['images'])}")
+        if not any(a["relation_id"] == 12 for a in train["annotations"]):
+            raise AssertionError("no raw predicate 12 ('wears') left")
+        written = {}
+        for split in ("train", "test"):
+            args = argparse.Namespace(split=split, with_depth=True,
+                                      device="cuda")
+            written[split], printed[f"annotations_{split}"] = stage(
+                f"annotations_{split}", lambda: quietly(
+                    preprocess_vg.stage_annotations, args, cfg))
+        ann_s = stages["annotations_train"]["s"] \
+            + stages["annotations_test"]["s"]
+        for split, js in (("train", train), ("test", test)):
+            recs = [load_annotation(os.path.join(
+                data["annot_dir"], os.path.splitext(i["file_name"])[0]
+                + "_annotations.npz")) for i in js["images"]]
+            if sum(r is not None for r in recs) != written[split] \
+                    or not written[split]:
+                raise AssertionError(f"{split}: {written[split]} files")
+        path, printed["triplets"] = stage("triplets", lambda: quietly(
+            preprocess_vg.stage_triplets, argparse.Namespace(), cfg))
+        art = load_vg_artifacts(data["artifacts_dir"])
+        with np.load(path) as z:
+            if not len(z["train_rel"]) or not len(z["test_rel"]):
+                raise AssertionError("empty triplet tables")
+        sgrc = {s: os.path.join(tmp, f"sgrc_{s}") for s in ("train", "test")}
+        records = {}
+        for split in ("train", "test"):
+            args = argparse.Namespace(split=split, out=sgrc[split],
+                                      embed_images=split == "train")
+            records[split] = stage(f"sgrecords_{split}",
+                                   lambda: preprocess_vg.stage_sgrecords(
+                                       args, cfg, log_fn=lambda *a: None))
+        paths = {s: sorted(glob.glob(os.path.join(sgrc[s], "**",
+                                                  "*.sgrec"),
+                                     recursive=True)) for s in sgrc}
+        if any(len(paths[s]) != records[s] for s in sgrc):
+            raise AssertionError(f"records {records} on disk {paths}")
+
+        # the records' batches against the Python loader's, image by image
+        python_rows = {}
+        for b in batches_from_dataset(VGDataset(cfg, test, training=False,
+                                                load_images=False), 12,
+                                      shuffle=False, drop_last=False):
+            for i, name in enumerate(image_names(b["annot_path"])):
+                python_rows[name] = {k: v[i] for k, v in b.items()
+                                     if k != "annot_path"}
+        compared = 0
+        for b in NativeRecordPipeline(
+                paths["test"], 12, max_objects=cfg.data.max_objects,
+                feature_size=cfg.model.feature_size, shuffle=False,
+                num_threads=8).iter_epoch(0):
+            for i, name in enumerate(image_names(b["annot_path"])):
+                for k, v in b.items():
+                    if k == "annot_path":
+                        continue
+                    want = python_rows[name][k]
+                    if v[i].dtype != want.dtype or \
+                            not np.array_equal(v[i], want):
+                        raise AssertionError(f"record {name}: {k}")
+                compared += 1
+        if compared != records["test"] // 12 * 12 or not compared:
+            raise AssertionError(f"{compared} records compared")
+
+        # the DETR-101 in detectron2's names through convert_checkpoints;
+        # its encode against the un-renamed state dict's, bit for bit
+        hub = hub_detr_state(cfg, weights.init_detr_params(
+            cfg, gen(), detection=True))
+        remap = os.path.join(tmp, "remap")
+        os.makedirs(remap)
+        renamed = [k for k in hub if detectron2_name(k) != k]
+        for name, keys in (("before", [detectron2_name(k) for k in renamed]),
+                           ("after", renamed)):
+            with open(os.path.join(remap, f"detr101_key_{name}.txt"),
+                      "w") as f:
+                f.write("\n".join(keys) + "\n")
+        detr_src = os.path.join(tmp, "detr101_vg_ckpt.pth")
+        torch.save({"model": {detectron2_name(k): v for k, v in hub.items()},
+                    "args": argparse.Namespace(backbone="resnet101")},
+                   detr_src)
+        detr_plain = os.path.join(tmp, "detr101_hub.pth")
+        torch.save(hub, detr_plain)
+        detr_pt = os.path.join(tmp, "detr101_vg.pth")
+        _, printed["convert_detr"] = stage("convert_detr", lambda: quietly(
+            convert_checkpoints.main, ["--kind", "detr", "--src", detr_src,
+                                       "--out", detr_pt, "--remap", remap]))
+        del hub
+        images = torch.as_tensor(synthetic_images(
+            np.random.default_rng(5), 12, cfg.model.image_size,
+            with_aug=False)["image"])
+
+        def encode(path):
+            dcfg = config_lib.derive("vg", model={"detr_pretrained": path})
+            featurize, _ = loop.load_detr_featurizer(
+                dcfg, device="cuda", log_fn=print_fail)
+            return featurize, featurize({"image": images})["features"]
+
+        featurize, feats = stage("convert_detr_encode", lambda: encode(
+            detr_pt), per_encode(1))
+        _, plain_feats = encode(detr_plain)
+        if not torch.equal(feats, plain_feats):
+            raise AssertionError("the remapped DETR encodes otherwise")
+        del plain_feats, feats
+
+        # fit from the new SGRC records (v2: the plain view and the
+        # jittered view in one 2B encode a step)
+        tcfg = config_lib.derive(
+            "vg", hierarchical_pred=True, run_mode="train", data=data,
+            training={"batch_size": 12, "num_epoch": 1, "print_freq": 1,
+                      "eval_freq": 0,
+                      "checkpoint_path": os.path.join(tmp, "ck_fit"),
+                      "result_path": os.path.join(tmp, "res_fit")})
+        pipe = NativeRecordPipeline(
+            paths["train"], 12, max_objects=cfg.data.max_objects,
+            feature_size=cfg.model.feature_size,
+            num_threads=8, seed=0, training=True,
+            image_size=cfg.model.image_size, want_plain=True)
+        steps = records["train"] // 12
+        lines = []
+        stage("fit_from_records", lambda: loop.fit(
+            tcfg, make_relation_classifier(tcfg, device="cuda",
+                                           generator=gen()),
+            pipe.iter_epoch, None, steps_per_epoch=1000, artifacts=art,
+            device="cuda", featurize=featurize, log_fn=lines.append),
+            per_encode(steps, pair_pool_idx=2 * steps,
+                       pair_pool_bwd=2 * steps))
+        train_lines = [ln for ln in lines if ln.startswith("TRAIN")]
+        if steps < 2 or len(train_lines) != steps \
+                or "nan" in " ".join(train_lines):
+            raise AssertionError(f"fit from the new records: {lines}")
+
+        # the relation head's weights as a reference .pth through
+        # convert_checkpoints: the same tensors, the same eval outputs
+        sd = weights.init_params(cfg, gen())
+        rel_src = os.path.join(tmp, "HierRelationModel_ref.pth")
+        torch.save({"model": reference_relation_state(sd, cfg),
+                    "args": argparse.Namespace(hierar=True)}, rel_src)
+        rel_pt = os.path.join(tmp, "ck", "HierRelationModel_Baseline_"
+                                         "motif0.pt")
+        _, printed["convert_relation"] = stage(
+            "convert_relation", lambda: quietly(
+                convert_checkpoints.main, ["--kind", "relation", "--hierar",
+                                           "--src", rel_src, "--out",
+                                           rel_pt]))
+        converted = torch.load(rel_pt, map_location="cpu",
+                               weights_only=True)
+        if sorted(converted) != sorted(sd) or not all(
+                torch.equal(converted[k], sd[k]) for k in sd):
+            raise AssertionError("the converted relation weights differ")
+        batch = synthetic_batch(np.random.default_rng(6), batch_size=12,
+                                feature_size=cfg.model.feature_size,
+                                num_channels=cfg.model.num_img_feature,
+                                with_aug=False)
+
+        def eval_outputs(state_dict):
+            model = make_relation_classifier(cfg, device="cuda",
+                                             state_dict=state_dict)
+            return engine.make_eval_step(model, cfg, device="cuda")(batch)
+
+        want = eval_outputs(sd)
+        got = stage("convert_relation_eval",
+                    lambda: eval_outputs(ckpt_lib.load(rel_pt)),
+                    {"pair_pool": 1})
+        bad = [k for k in want if not torch.equal(got[k], want[k])]
+        if bad:
+            raise AssertionError(f"converted checkpoint's eval differs: {bad}")
+        del sd, converted, got, want, batch
+        torch.cuda.empty_cache()
+
+        # the IETrans pass from the images with both converted files
+        lt_out = os.path.join(tmp, "ietrans")
+        lt_yaml = os.path.join(tmp, "lt.yaml")
+        with open(lt_yaml, "w") as f:
+            json.dump({"data": data, "model": {"detr_pretrained": detr_pt}},
+                      f)
+        batches = -(-records["train"] // 12)
+        summary, printed["label_transfer"] = stage(
+            "label_transfer", lambda: quietly(label_transfer.main, [
+                "--mode", "ietrans", "--config", lt_yaml, "--checkpoint",
+                rel_pt, "--out_dir", lt_out, "--batch_size", "12"]),
+            per_encode(batches, pair_pool=batches))
+        if json.loads(printed["label_transfer"][-1]) != summary \
+                or summary["images"] != records["train"] \
+                or not summary["written"]:
+            raise AssertionError(f"label transfer: {summary}")
+
+        # the same scoring on the card and the CPU from the same features
+        feat_dir = os.path.join(tmp, "features")
+        stage("precompute_train", lambda: precompute_features(
+            cfg, "train", feat_dir, 12, featurize=featurize),
+            per_encode(batches))
+        card_vs_cpu = offline_card_vs_cpu(data, feat_dir, gen)
+        del featurize
+        torch.cuda.empty_cache()
+
+        # a train step on the rewritten annotations: the cache with the
+        # tool's files laid over it
+        overlay = os.path.join(tmp, "annot_ietrans")
+        shutil.copytree(data["annot_dir"], overlay)
+        shutil.copytree(lt_out, overlay, dirs_exist_ok=True)
+        ocfg = tcfg.replace(data=dataclasses.replace(tcfg.data,
+                                                     annot_dir=overlay))
+        changed = 0
+        for old, new in zip(
+                batches_from_dataset(VGDataset(tcfg, train, training=False,
+                                               load_images=False), 12,
+                                     shuffle=False, drop_last=False),
+                batches_from_dataset(VGDataset(ocfg, train, training=False,
+                                               load_images=False), 12,
+                                     shuffle=False, drop_last=False)):
+            changed += int(sum(not np.array_equal(a, b)
+                               for a, b in zip(old["rel"], new["rel"])))
+        if not 0 < changed <= summary["written"]:
+            raise AssertionError(f"{changed} images read relabelled, "
+                                 f"{summary['written']} written")
+        featurize, _ = loop.load_detr_featurizer(
+            cfg.replace(model=dataclasses.replace(
+                cfg.model, detr_pretrained=detr_pt)),
+            device="cuda", log_fn=print_fail)
+        first = next(batches_from_dataset(VGDataset(ocfg, train,
+                                                    training=True), 12))
+        first.pop("annot_path")
+        tmodel = make_relation_classifier(ocfg, device="cuda",
+                                          generator=gen())
+        opt = engine.make_optimizer(ocfg.training.learning_rate,
+                                    momentum=ocfg.training.momentum,
+                                    weight_decay=ocfg.training.weight_decay)
+        step = engine.make_train_step(tmodel, ocfg, opt, class_weights("vg"),
+                                      device="cuda")
+        _, metrics = stage("train_step_rewritten", lambda: step(
+            engine.init_train_state(tmodel, opt),
+            to_device(featurize(first), torch.device("cuda"))),
+            per_encode(1, pair_pool_idx=2, pair_pool_bwd=2))
+        if not math.isfinite(float(metrics["loss"])):
+            raise AssertionError(f"train step on rewritten labels: "
+                                 f"{metrics}")
+        del featurize, tmodel, step, opt, first
+
+        # a GloVe text file -> glove_embeddings -> a Motifs predictor
+        rng = np.random.default_rng(8)
+        tokens = sorted({t for n in VG_OBJECTS for t in n.split()})
+        glove_txt = os.path.join(tmp, "glove.100d.txt")
+        with open(glove_txt, "w", encoding="utf-8") as f:
+            for i, tok in enumerate(tokens):
+                if i % 5:              # some tokens out of the vocabulary
+                    f.write(tok + " " + " ".join(
+                        f"{v:.5f}" for v in rng.standard_normal(GLOVE_DIM))
+                        + "\n")
+        glove_npz = os.path.join(tmp, "glove_labels_vg.npz")
+        _, printed["glove"] = stage("glove", lambda: quietly(
+            glove_embeddings.main, ["--glove", glove_txt, "--out",
+                                    glove_npz]))
+        gcfg = config_lib.derive("vg", hierarchical_pred=True,
+                                 model={"glove_embeddings": glove_npz},
+                                 training={"batch_size": 12})
+        predictor = pnp_engine.make_predictor(gcfg, "motifs", device="cuda",
+                                              log_fn=lambda *a: None)
+        with np.load(glove_npz) as z:
+            vecs, found = z["vectors"], z["found"]
+        rows = np.nonzero(found)[0]
+        for key, tab in predictor.state_dict().items():
+            if key.endswith("label_embed.weight") and not np.array_equal(
+                    tab[torch.as_tensor(rows)].cpu().numpy(), vecs[rows]):
+                raise AssertionError(f"{key} is not the GloVe table")
+        opt, state = pnp_train_parts(predictor, gcfg)
+        pstep = pnp_engine.make_pnp_train_step(predictor, gcfg, opt,
+                                               device="cuda")
+        pbatch = to_device(synthetic_batch(
+            np.random.default_rng(9), batch_size=12,
+            feature_size=gcfg.model.feature_size,
+            num_channels=gcfg.model.num_img_feature, with_aug=False),
+            torch.device("cuda"))
+        _, pmetrics = stage("pnp_step_glove", lambda: pstep(state, pbatch))
+        if not math.isfinite(float(pmetrics["loss"])):
+            raise AssertionError(f"pnp step from GloVe: {pmetrics}")
+    with open(repo_artifacts, "rb") as f:
+        if hashlib.sha256(f.read()).hexdigest() != repo_digest:
+            raise AssertionError("the repo's vg_artifacts.npz changed")
+    emit({"phase": "offline", "card": bench.card_name(),
+          "phase_s": time.perf_counter() - phase_t0,
+          "images": {"train": OFFLINE_TRAIN,
+                     "test": OFFLINE_IMAGES - OFFLINE_TRAIN},
+          "sizes_hw": REAL_SIZES, "records": records,
+          "annotations_written": written,
+          "annotation_img_per_s": OFFLINE_IMAGES / ann_s,
+          "label_transfer": {"summary": summary, "batches": batches,
+                             "s_per_batch":
+                                 stages["label_transfer"]["s"] / batches},
+          "fit_steps": steps, "fit_lines": train_lines,
+          "records_equal_loader": compared,
+          "card_vs_cpu": card_vs_cpu, "stages": stages,
+          "printed": {k: v[-2:] for k, v in printed.items()}})
+
+
 def chunked_train_launches(capacities, chunk):
     """K2 launches of one train step whose views pack `capacities` pairs,
     at chunk_size `chunk` (engine._chunked_pair_trunk): a view split into
@@ -4649,7 +5246,8 @@ def main():
     ap.add_argument(
         "--phases",
         default="kernel,slice,profile,train,featurize,detect,parity,"
-                "real_data,commonsense,oiv6,pnp,mesh,tp,contention")
+                "real_data,offline,commonsense,oiv6,pnp,mesh,tp,"
+                "contention")
     # the entries of phase mesh's rank processes
     ap.add_argument("--mesh_rank", type=int, default=None,
                     help=argparse.SUPPRESS)
@@ -4702,6 +5300,8 @@ def main():
         launches["stem_pool"] = phase_parity()
     if "real_data" in phases:
         phase_real_data()
+    if "offline" in phases:
+        phase_offline()
     if "commonsense" in phases:
         phase_commonsense()
     if {"oiv6", "pnp"} & phases:

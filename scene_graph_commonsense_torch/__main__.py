@@ -209,7 +209,8 @@ def native_batches(cfg, training: bool = False):
         sys.exit("data.sgrc_dir eval requires data.features_dir: SGRC "
                  "records carry no plain view for PredCLS (python -m "
                  "scene_graph_commonsense_torch.tools.precompute_features)")
-    paths = sorted(glob.glob(os.path.join(cfg.data.sgrc_dir, "*.sgrec")))
+    paths = sorted(glob.glob(os.path.join(cfg.data.sgrc_dir, "**",
+                                          "*.sgrec"), recursive=True))
     if not paths:
         sys.exit(f"no .sgrec records under {cfg.data.sgrc_dir}; write them "
                  f"with python -m scene_graph_commonsense_torch.tools."

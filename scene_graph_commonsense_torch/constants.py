@@ -35,6 +35,26 @@ VG_OBJECTS = (
     "skier", "kid", "men",
 )
 
+# 17 object super-classes.  reference dataset_utils.py:576-583
+VG_OBJECT_SUPER_CLASSES = (
+    "vehicle", "animal", "part", "person", "clothes", "food", "artifact",
+    "location", "furniture", "flora", "building", "table", "structure",
+    "door", "perosn", "laptop", "phone",
+)
+
+# 50 predicates ordered by training-set frequency.  reference
+# dataset_utils.py:631-636
+VG_RELATIONS_BY_FREQ = (
+    "on", "has", "in", "of", "wearing", "near", "with", "above", "holding",
+    "behind", "under", "sitting on", "wears", "standing on", "in front of",
+    "attached to", "at", "hanging from", "over", "for", "riding", "carrying",
+    "eating", "walking on", "playing", "covering", "laying on", "along",
+    "watching", "and", "between", "belonging to", "painted on", "against",
+    "looking at", "from", "parked on", "to", "made of", "covered in",
+    "mounted on", "says", "part of", "across", "flying in", "using",
+    "on back of", "lying on", "growing on", "walking in",
+)
+
 # 50 predicates in the Motif super-category blocks
 # geometric(15) | possessive(11) | semantic(24).
 # reference dataset_utils.py:639-644

@@ -62,6 +62,36 @@ def to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
     return {"params": tree}
 
 
+def apply_key_remap(state: Mapping, before_path: str,
+                    after_path: str) -> Dict:
+    """Renames the keys listed in `before` to the parallel entry in `after`
+    (reference utils.py:96-112: the detectron2 names of the reference's
+    DETR-101 checkpoint -> torch-hub names); other keys stay."""
+    with open(before_path) as f:
+        before = [ln.rstrip("\n") for ln in f if ln.strip()]
+    with open(after_path) as f:
+        after = [ln.rstrip("\n") for ln in f if ln.strip()]
+    remap = dict(zip(before, after))
+    return {remap.get(k, k): v for k, v in state.items()}
+
+
+def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """The state dict of a reference torch checkpoint (.pth) on the CPU:
+    the file's dict, or its "model" entry.  Read with weights_only, so a
+    file that pickles anything but tensors, containers and the training
+    script's argparse.Namespace is refused, not run."""
+    import argparse
+    with torch.serialization.safe_globals([argparse.Namespace]):
+        ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    state = ckpt.get("model", ckpt)
+    return {k: torch.as_tensor(v) for k, v in state.items()}
+
+
+def strip_ddp_prefix(state: Mapping) -> Dict:
+    """Removes DDP's 'module.' prefixes (reference utils.py:207-214)."""
+    return {k.removeprefix("module."): v for k, v in state.items()}
+
+
 def from_reference_state_dict(state: Mapping, hierarchical: bool = True,
                               use_super: bool = True,
                               num_classes: int = 150,
@@ -83,8 +113,8 @@ def from_reference_state_dict(state: Mapping, hierarchical: bool = True,
         blocks) and fc2_s1 / fc2_s2 (super multi-hots);
       * fc3*, fc4, fc5 carry over.
     """
-    st = {k.removeprefix("module."): torch.as_tensor(_np(v))
-          for k, v in state.items()}
+    st = {k: torch.as_tensor(_np(v))
+          for k, v in strip_ddp_prefix(state).items()}
     h = hidden_dim
     sd: Dict[str, torch.Tensor] = {
         "conv1_sub.weight": st["conv1_1.weight"],

@@ -72,7 +72,11 @@ def write_sgrecords(cfg, split: str, out_dir: str,
             from PIL import Image
             with Image.open(img_path) as im:
                 image = np.asarray(im.convert("RGB"))
-        write_sgrec(os.path.join(out_dir, name + ".sgrec"),
+        # VG's file names carry their image folder (VG_100K/<id>.jpg): the
+        # record keeps it, as the annotation cache does
+        path = os.path.join(out_dir, name + ".sgrec")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        write_sgrec(path,
                     np.asarray(rec["categories"], np.int32),
                     np.asarray(rec["bbox"], np.float32),
                     super_mh, rels, rec["subj_or_obj"],

@@ -58,7 +58,10 @@ def test_torch_port_imports_nothing_of_jax():
                    "tools/make_mini_oiv6.py", "parallel/mesh.py",
                    "parallel/launch.py", "eval/visualization.py",
                    "tools/dryrun_multichip.py", "eval/engines.py",
-                   "inference.py", "__main__.py"):
+                   "inference.py", "__main__.py", "data/preprocess.py",
+                   "tools/preprocess_vg.py", "tools/make_raw_vg.py",
+                   "tools/convert_checkpoints.py",
+                   "tools/label_transfer.py", "tools/glove_embeddings.py"):
         assert f"scene_graph_commonsense_torch/{module}" in scanned, module
     for path in files:
         bad = _imported_roots(path) & FORBIDDEN
