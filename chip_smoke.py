@@ -106,14 +106,14 @@ Phases, each printing JSON lines:
               the train step from records and from features and the 2B
               encode by CUDA events, the step's busy share; the loaders
               alone on the host (the Python loader's training batches,
-              the packer at 1, 4 and 8 threads); the native path (v1
+              the packer at 1 and 8 threads); the native path (v1
               records + the cache) equal to the Python loader key by key;
               the CLI as a user runs it: train on v2 records, then eval
               pc (v1 records + cache) and eval sgd, each exiting 0.
  11. commonsense: the commonsense loop and the training leftovers at full
               VG width (bf16, batch 12, 20 objects, seeded weights): the
               faithful train step (every valid pair, 4560, the augmented
-              view at 1140; CUDA events over 6 steps after 2 warm-ups,
+              view at 1140; CUDA events over 3 steps after 1 warm-up,
               exactly 2 + 2 training-kernel launches a step, lr_scale in
               (0, 1], finite losses, fc1 changed) beside the ordinary step
               at the same capacities, with peak memory; the chunked path at
@@ -145,7 +145,11 @@ Phases, each printing JSON lines:
               steps from the training images, exactly one encode, 1
               pair-pool-with-index and 1 backward launch a step (OIv6
               batches carry no augmented view); the eval step by CUDA
-              events, in turns with the VG head's on the same features.
+              events, in turns with the VG head's on the same features;
+              the CLI's --dataset oiv6 --eval_mode sgd on the mini-OIv6,
+              which must exit non-zero with the refusal of
+              engines.check_detector_classes (VG's 151-entry class remap,
+              the 602-class detector) before it builds the detector.
  13. pnp:     the plug-and-play families (Motifs, Transformer, VCTree,
               VTransE) at the JAX package's widths (hidden 256, pair 512,
               float32, VG's 150 classes and 50 relations, 20 objects, 400
@@ -212,8 +216,7 @@ Phases, each printing JSON lines:
               steps with the ranks bit-identical after each.
  15. tp:      tensor parallelism (parallel/tp.py) at bench.py's configuration
               at the worst-case pair capacity (4560, the augmented view
-              1140): the unsharded run in this process (twice: the
-              run-to-run spread of the first update), then a (1, 2) mesh
+              1140): the unsharded run in this process, then a (1, 2) mesh
               as two processes of this script over gloo's CUDA path on the
               one card (`--tp_rank R --work DIR`; fc1 split 65536 x 2048 a
               rank, fc2_h 512 x 2048): the eval step's outputs within
@@ -224,9 +227,22 @@ Phases, each printing JSON lines:
               exactly 2 + 2 training-kernel launches a step and 1 forward
               launch an eval step per rank, each rank's peak memory below
               the unsharded process's; step times and the (P, 65536) bf16
-              all-reduce alone by the host clock; then the port's dryrun at
-              world size 4 over gloo on the card, its dp x tp leg on a
-              (2, 2) mesh.
+              all-reduce alone by the host clock; then the global-batch
+              step (make_train_step(global_batch=True), the JAX package's
+              GSPMD step) at TP_GLOBAL_MESH (2, 2) as four processes
+              (`--tp_global_rank R --work DIR`, 6 images a data shard, the
+              global capacities 4560 and 1140): its unclipped first update
+              within TP_UPDATE_TOL of the unsharded one's with the
+              per-image stage run per data shard (the same function; the
+              whole batch's convolutions round otherwise) and its float32
+              first update within TP_F32_TOL of the whole-batch float32
+              step's (no TF32: that rounding gone), TP_STEPS clipped
+              steps with the replicas bit-identical within every model and
+              data group after each and exactly 2 + 2 training-kernel
+              launches a step per rank, step times and peak memory per
+              rank; then the port's dryrun at world size 4 over gloo on the
+              card, its dp x tp leg on a (2, 2) mesh: the shard_map step
+              (fit's and the CLI's) and the global-batch step.
  16. contention: the stride-2 and stride-1 bottleneck kernels (K4 at its
               three transitions, K3 at its five block shapes, batch 12,
               bf16, seeded random blocks) launched back to back for
@@ -288,7 +304,8 @@ chunks of 64 columns, one block of 3 warpgroups per SM at most); each
 bottleneck record names the kernel's tile, its cluster size, the weight
 bytes it streams from L2 per call (`weight_l2_bytes`) and the scratch it
 takes (`scratch_bytes`: bf16 K4's conv1 output).
-Then a {"kernels": [...]} line, the nvidia-smi line, and as the last line
+Then a {"phase": "seconds"} line (each phase's wall seconds), a
+{"kernels": [...]} line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  Uses no JAX.
 
     python3 chip_smoke.py [--phases kernel,train,...]
@@ -446,7 +463,7 @@ K4_CANVAS_CASES = (("layer2_0", 250, 250, 256, 128),)
 REAL_IMAGES = 60
 REAL_TRAIN_FRAC = 0.6
 REAL_SIZES = ((600, 800), (800, 600), (375, 500), (333, 500), (768, 1024))
-PACKER_THREADS = (1, 4, 8)
+PACKER_THREADS = (1, 8)
 
 
 PAIR_POOL_KERNELS = ("pair_pool", "pair_pool_idx", "pair_pool_bwd")
@@ -3379,7 +3396,7 @@ def phase_commonsense():
     dev = torch.device("cuda")
     base = {"batch_size": 12, "grad_clip_norm": bench.GRAD_CLIP_NORM}
     batch = to_device(synthetic_batch(np.random.default_rng(7)), dev)
-    warmup, steps = 2, 6
+    warmup, steps = 1, 3
     result = {"phase": "commonsense", "card": bench.card_name()}
 
     # (a) the faithful step (every valid pair, B N (N - 1) = 4560; the
@@ -3753,7 +3770,8 @@ def phase_oiv6(data):
     encode and one pair-pool launch a batch); fit for 3 steps from the
     training images (one encode, one pair-pool-with-index and one backward
     launch a step: OIv6 batches carry no augmented view); the eval step
-    from features by CUDA events, in turns with the VG head's."""
+    from features by CUDA events, in turns with the VG head's; the CLI's
+    --eval_mode sgd refused (oiv6_detection_refused)."""
     torch.cuda.empty_cache()
     gen = lambda: torch.Generator().manual_seed(0)  # noqa: E731
     result = {"phase": "oiv6", "card": bench.card_name()}
@@ -3857,7 +3875,36 @@ def phase_oiv6(data):
                          "launches_per_step": {k: v // 3 for k, v in
                                                counts.items() if v},
                          "last_line": train_lines[-1]}
+        del featurize, model, estep, tmodel
+        result["sgd_refused"] = oiv6_detection_refused(data, tmp)
     emit(result)
+
+
+def oiv6_detection_refused(data, tmp):
+    """The CLI's OIv6 SGDET on the mini-OIv6, as a user runs it: it must
+    exit non-zero with engines.check_detector_classes' message (VG's
+    151-entry class remap, the 602-class detector) before it builds the
+    detector.  Returns the message and the seconds the run took."""
+    yaml_path = os.path.join(tmp, "sgd.yaml")
+    with open(yaml_path, "w") as f:
+        json.dump({"data": data, "training": {
+            "batch_size": 12, "test_epoch": 0,
+            "checkpoint_path": os.path.join(tmp, "sgd_ck"),
+            "result_path": os.path.join(tmp, "sgd_res")}}, f)
+    t0 = time.perf_counter()
+    proc = run_cli(os.path.dirname(os.path.abspath(__file__)), yaml_path,
+                   "--dataset", "oiv6", "--run_mode", "eval",
+                   "--eval_mode", "sgd")
+    out, err = proc.communicate(timeout=300)
+    message = next((ln for ln in err.splitlines()
+                    if "no class remap is defined" in ln), "")
+    if proc.returncode == 0 or "602 classes" not in message \
+            or "DETR" in out:
+        raise AssertionError(f"the CLI's OIv6 SGDET exited "
+                             f"{proc.returncode}: {out[-2000:]}\n"
+                             f"{err[-3000:]}")
+    return {"exit": proc.returncode, "message": message,
+            "seconds": time.perf_counter() - t0}
 
 
 def pnp_train_parts(predictor, cfg):
@@ -4095,8 +4142,9 @@ def phase_pnp(data):
 # the side of that process's bf16 products.  The two blocks of a K3/K4
 # cluster drift apart when the card switches processes mid-kernel; before
 # every ring release became one arrival a warp, that overflowed a barrier
-# and faulted K4 within a few seconds of such a run.
-CONTENTION_S = 20.0
+# and faulted K4 within a few seconds of such a run (5 s: about 150
+# cycles of the eight launches).
+CONTENTION_S = 5.0
 CONTENTION_SIDE = 8192
 
 
@@ -4321,12 +4369,16 @@ def mesh_world1(mesh, tmp):
 
 
 def ranks_identical(mesh, params):
-    """Whether every rank holds rank 0's bits of every tensor (broadcast
-    and compared on each rank, then agreed over the group)."""
+    """Whether every rank holds rank 0's bits of every tensor, and of a TP
+    shard its data group's first rank's bits (broadcast and compared on
+    each rank, then agreed over the group)."""
     same = True
     for p in params.values():
         buf = p.detach().clone()
-        dist.broadcast(buf, src=0)
+        if tp_lib.is_shard(p):
+            dist.broadcast(buf, src=mesh.model_index, group=mesh.data_group)
+        else:
+            dist.broadcast(buf, src=0)
         same = same and torch.equal(buf, p.detach())
     flag = torch.tensor([int(same)], device=mesh.device)
     dist.all_reduce(flag, op=dist.ReduceOp.MIN)
@@ -4508,7 +4560,7 @@ def differing_keys(got, want):
     return bad
 
 
-def in_turns(single, sharded, iters=3):
+def in_turns(single, sharded, iters=1):
     """Host-clock ms of single() and sharded() (each ending in a copy to
     the host or a synchronise) in turns single, sharded, sharded, single,
     `iters` calls each time after a warm-up."""
@@ -4886,16 +4938,16 @@ def nccl_duplicate_rank_main(rank, work):
     dist.destroy_process_group()
 
 
-def run_ranks(work, flag, timeout):
-    """MESH_WORLD processes of this script with --<flag> (the rank's
-    entry), their output in files under `work`; their exit codes and
-    output, killing any left at `timeout`."""
+def run_ranks(work, flag, timeout, world=MESH_WORLD):
+    """`world` processes of this script with --<flag> (the rank's entry),
+    their output in files under `work`; their exit codes and output,
+    killing any left at `timeout`."""
     here = os.path.dirname(os.path.abspath(__file__))
     env = {**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
-    logs = [os.path.join(work, f"{flag}{r}.log") for r in range(MESH_WORLD)]
+    logs = [os.path.join(work, f"{flag}{r}.log") for r in range(world)]
     codes, timed_out = run_processes(
         [[sys.executable, os.path.abspath(__file__), f"--{flag}", str(r),
-          "--work", work] for r in range(MESH_WORLD)], here, env, logs,
+          "--work", work] for r in range(world)], here, env, logs,
         timeout)
     outs = []
     for log in logs:
@@ -5016,9 +5068,16 @@ def phase_mesh():
 # below the unsharded process's
 TP_STEPS = 3
 TP_UPDATE_TOL = 2 ** -5
+# the global-batch leg's float32 first update against the whole-batch step
+TP_F32_TOL = 2 ** -10
+# ... whose pair trunk runs in chunks of 1140 pairs on both sides: four
+# float32 ranks at whole buffers do not fit on the one card together
+TP_F32_CHUNK = 1140
 TP_EVAL_TOL = 2 ** -5
 TP_TIMEOUT_S = 600
 TP_DRYRUN_WORLD = 4
+# the global-batch leg's (data, model) mesh
+TP_GLOBAL_MESH = (2, 2)
 
 
 def tp_config():
@@ -5026,14 +5085,16 @@ def tp_config():
     return bench.bench_config(pair_capacity=0)
 
 
-def tp_run(mesh=None):
-    """The sequence both sides of phase tp run, unsharded in this process
+def tp_run(mesh=None, global_batch=False):
+    """The sequence every side of phase tp runs, unsharded in this process
     (mesh None) or in a rank: the seeded model, the eval step on
-    eval_batch (its outputs, launches), one unclipped train step (the
-    weights before it, unsharded, and after it, gathered on rank 0), then
-    TP_STEPS clipped steps timed by the host clock (launches; after each,
-    whether the replicas agree) and their peak memory over the memory
-    allocated before the run."""
+    eval_batch (its outputs, launches; not in the global-batch leg, whose
+    sharded eval step is the data-parallel one), one unclipped train step
+    (the weights before it, unsharded, and after it, gathered on rank 0),
+    then TP_STEPS clipped steps timed by the host clock (launches; after
+    each, whether the replicas agree) and their peak memory over the
+    memory allocated before the run.  `global_batch`: the train steps are
+    make_train_step(global_batch=True)'s."""
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -5041,23 +5102,30 @@ def tp_run(mesh=None):
     dev = "cuda" if mesh is None else None
     _, model, step, state, batch = bench.setup(cfg, seed=0, device=dev,
                                                mesh=mesh)
+    if global_batch:
+        step = engine.make_train_step(model, cfg, bench.optimizer(cfg),
+                                      class_weights("vg"), mesh=mesh,
+                                      global_batch=True)
     if mesh is not None:
         batch = mesh_lib.shard_batch(mesh, batch)
-    ebatch = eval_batch(cfg)
-    if mesh is not None:
-        ebatch = mesh_lib.shard_batch(mesh, ebatch)
-    estep = engine.make_eval_step(model, cfg, device=dev, mesh=mesh)
-    reset_counts()
-    out = estep(ebatch)
-    torch.cuda.synchronize()
-    res = {"eval_launches": read_counts(),
-           "eval": {k: v.cpu() for k, v in out.items() if v is not None}}
-    del out
+    res = {}
+    if not global_batch:
+        ebatch = eval_batch(cfg)
+        if mesh is not None:
+            ebatch = mesh_lib.shard_batch(mesh, ebatch)
+        estep = engine.make_eval_step(model, cfg, device=dev, mesh=mesh)
+        reset_counts()
+        out = estep(ebatch)
+        torch.cuda.synchronize()
+        res.update(eval_launches=read_counts(),
+                   eval={k: v.cpu() for k, v in out.items()
+                         if v is not None})
+        del out, estep
     cfg0 = dataclasses.replace(cfg, training=dataclasses.replace(
         cfg.training, grad_clip_norm=0.0))
     step0 = engine.make_train_step(model, cfg0, bench.optimizer(cfg0),
                                    class_weights("vg"), device=dev,
-                                   mesh=mesh)
+                                   mesh=mesh, global_batch=global_batch)
     if mesh is None:
         res["before"] = {k: v.to("cpu", copy=True)
                          for k, v in model.state_dict().items()}
@@ -5081,15 +5149,13 @@ def tp_run(mesh=None):
         if not all(np.isfinite(float(v)) for v in met.values()):
             raise AssertionError(f"non-finite metrics {met}")
         if mesh is not None:
-            same.append(ranks_identical(mesh, {
-                k: p for k, p in state.params.items()
-                if not tp_lib.is_shard(p)}))
+            same.append(ranks_identical(mesh, state.params))
     torch.cuda.synchronize()
     res.update(train_launches=read_counts(), step_s=step_s,
                ranks_bitwise_identical=same, loss_last=float(met["loss"]),
                peak_bytes=torch.cuda.max_memory_allocated() - base,
                sharded=tp_lib.is_shard(model.fc1.weight))
-    if mesh is not None:
+    if mesh is not None and not global_batch:
         # the fc1 input gradient's all-reduce alone: the main view's
         # (P, 65536) bf16 through gloo (device to host, the exchange, host
         # to device)
@@ -5102,7 +5168,7 @@ def tp_run(mesh=None):
         res.update(fc1_grad_allreduce_s=time.perf_counter() - t0,
                    fc1_grad_allreduce_bytes=g.numel() * g.element_size())
         del g
-    del model, step, step0, state, estep
+    del model, step, step0, state
     torch.cuda.empty_cache()
     return res
 
@@ -5118,6 +5184,82 @@ def tp_rank_main(rank, work):
     finally:
         dist.destroy_process_group()
     torch.save(res, os.path.join(work, f"tp_rank{rank}.pt"))
+
+
+def tp_global_rank_main(rank, work):
+    """One rank of phase tp's global-batch leg: gloo's CUDA path, the four
+    ranks on the one card, mesh TP_GLOBAL_MESH.  Each rank saves its run
+    to <work>/tp_global_rank<rank>.pt."""
+    data, model = TP_GLOBAL_MESH
+    mesh_lib.init_multihost(f"file://{work}/tpg.store", data * model, rank,
+                            device="cuda", backend="gloo")
+    try:
+        mesh = mesh_lib.make_mesh(data=data, model=model, device="cuda")
+        res = tp_run(mesh, global_batch=True)
+        res["f32"] = tp_first_update(mesh, compute_dtype="float32",
+                                     chunk_size=TP_F32_CHUNK)
+    finally:
+        dist.destroy_process_group()
+    torch.save(res, os.path.join(work, f"tp_global_rank{rank}.pt"))
+
+
+def per_shard_image_stage(model, shards):
+    """Makes the model run its per-image stage (object_streams_from_image:
+    conv1 and conv2 of each object's map) on `shards` equal blocks of a
+    batch's images, as the data shards of a mesh run it, and concatenate
+    the blocks' streams.  The same function; but the convolutions' bf16
+    roundings can follow the batch they run at (cuDNN chooses its
+    algorithms by the shapes)."""
+    whole = model.object_streams_from_image
+
+    def blocks(features, depth, masks):
+        n = features.shape[0] // shards
+        outs = [whole(features[i * n:(i + 1) * n], depth[i * n:(i + 1) * n],
+                      masks[i * n:(i + 1) * n]) for i in range(shards)]
+        return tuple(torch.cat(x) for x in zip(*outs))
+
+    model.object_streams_from_image = blocks
+
+
+def tp_first_update(mesh=None, compute_dtype=None, image_shards=1,
+                    chunk_size=0):
+    """tp_run's unclipped first update alone, on the same weights and batch:
+    unsharded in this process (mesh None; `image_shards` > 1 runs the
+    per-image stage per data shard, per_shard_image_stage) or the
+    global-batch step in a rank; `compute_dtype` overrides the model's;
+    chunk_size > 0 runs the pair trunk in chunks (its dropout masks drawn
+    a chunk of the global buffer at a time on every side).  Returns the weights after it (gathered, on rank 0 only), before it
+    (unsharded) and the loss."""
+    cfg = tp_config()
+    cfg0 = dataclasses.replace(cfg, training=dataclasses.replace(
+        cfg.training, grad_clip_norm=0.0))
+    if compute_dtype is not None:
+        cfg0 = dataclasses.replace(cfg0, model=dataclasses.replace(
+            cfg0.model, compute_dtype=compute_dtype))
+    dev = "cuda" if mesh is None else None
+    _, model, _, state, batch = bench.setup(cfg0, seed=0, device=dev,
+                                            mesh=mesh)
+    if image_shards > 1:
+        per_shard_image_stage(model, image_shards)
+    res = {}
+    if mesh is None:
+        res["before"] = {k: v.to("cpu", copy=True)
+                         for k, v in model.state_dict().items()}
+    else:
+        batch = mesh_lib.shard_batch(mesh, batch)
+    step0 = engine.make_train_step(model, cfg0, bench.optimizer(cfg0),
+                                   class_weights("vg"), device=dev,
+                                   mesh=mesh, global_batch=mesh is not None,
+                                   chunk_size=chunk_size)
+    _, met = step0(state, batch)
+    res.update(after={k: v.to("cpu", copy=True) for k, v in
+                      tp_lib.full_state_dict(model).items()},
+               first_loss=float(met["loss"]))
+    if mesh is not None and mesh.rank:
+        del res["after"]
+    del model, step0, state, batch
+    torch.cuda.empty_cache()
+    return res
 
 
 def tp_update_errors(ref, got):
@@ -5150,22 +5292,108 @@ def tp_eval_errors(ref, got):
     return errs, differ
 
 
+def tp_global_leg(ref, tmp):
+    """Phase tp's global-batch leg: TP_GLOBAL_MESH as four processes of
+    this script over gloo's CUDA path on the one card, each running
+    tp_run(global_batch=True) on its rows of the unsharded run's batch,
+    then its first update again in float32 (tp_first_update).  The bf16
+    reference is the unsharded first update with the per-image stage run
+    per data shard (tp_first_update(image_shards=2)): that stage run at
+    the whole batch instead moves some bf16 first updates, the embeddings'
+    most, by up to ~0.05 of their largest, with no collective involved
+    (`image_stage_spread`, recorded beside the leg with its error against
+    the whole-batch run).  In float32 (no TF32) the leg is held against
+    the whole-batch step itself, where that rounding is far smaller (its
+    split is recorded: the per-image stage's batch alone, and the leg
+    against the per-shard float32 reference).
+    Returns (the leg's record, the failures of its rules: every
+    parameter's bf16 first update within TP_UPDATE_TOL of its largest
+    update in the reference and its float32 one within TP_F32_TOL of the
+    whole-batch float32 step's, the replicas bit-identical within each
+    model and each data group after every step, 2 + 2 training-kernel
+    launches a step per rank)."""
+    data, model = TP_GLOBAL_MESH
+    shard_ref = tp_first_update(image_shards=data)
+    spread = tp_update_errors(ref, shard_ref)
+    whole_f32 = tp_first_update(compute_dtype="float32",
+                                chunk_size=TP_F32_CHUNK)
+    shard_f32 = tp_first_update(compute_dtype="float32", image_shards=data,
+                                chunk_size=TP_F32_CHUNK)
+    t0 = time.perf_counter()
+    codes, outs, timed_out = run_ranks(tmp, "tp_global_rank", TP_TIMEOUT_S,
+                                       world=data * model)
+    if any(codes) or timed_out:
+        raise AssertionError(f"tp global ranks: exit codes {codes}, timed "
+                             f"out {timed_out}:\n"
+                             + "\n".join(o[-4000:] for o in outs))
+    wall_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(tmp, f"tp_global_rank{r}.pt"),
+                        weights_only=False) for r in range(data * model)]
+    upd = tp_update_errors(shard_ref, ranks[0])
+    ratio = {k: e / sc if sc > 0 else math.inf for k, (e, sc) in upd.items()}
+    failures = [f"global first update of {k}: {upd[k][0]} off of "
+                f"{upd[k][1]}" for k, r in ratio.items()
+                if not r <= TP_UPDATE_TOL]
+    upd32 = tp_update_errors(whole_f32, ranks[0]["f32"])
+    ratio32 = {k: e / sc if sc > 0 else math.inf
+               for k, (e, sc) in upd32.items()}
+    failures += [f"global float32 first update of {k}: {upd32[k][0]} off "
+                 f"of {upd32[k][1]}" for k, r in ratio32.items()
+                 if not r <= TP_F32_TOL]
+
+    def worst_ratio(errors):
+        k = max(errors, key=lambda k: errors[k][0] / max(errors[k][1],
+                                                         1e-30))
+        return {"param": k, "ratio": errors[k][0] / max(errors[k][1], 1e-30)}
+    want = expected(pair_pool_idx=2 * TP_STEPS, pair_pool_bwd=2 * TP_STEPS)
+    for r, rk in enumerate(ranks):
+        if not rk["sharded"] or not all(rk["ranks_bitwise_identical"]) \
+                or rk["train_launches"] != want:
+            failures.append(
+                f"global rank {r}: sharded {rk['sharded']}, replicas "
+                f"{rk['ranks_bitwise_identical']}, launches "
+                f"{rk['train_launches']}")
+    worst = max(ratio, key=ratio.get)
+    return {"mesh": list(TP_GLOBAL_MESH), "ranks_wall_s": wall_s,
+            "ranks": [{k: rk[k] for k in (
+                "step_s", "peak_bytes", "loss_last", "first_loss",
+                "train_launches", "ranks_bitwise_identical")}
+                for rk in ranks],
+            "unsharded_first_loss": ref["first_loss"],
+            "image_shards_first_loss": shard_ref["first_loss"],
+            "update_ratio": {k: round(v, 6) for k, v in ratio.items()},
+            "worst_update": {"param": worst, "max_abs_err": upd[worst][0],
+                             "max_abs_update": upd[worst][1]},
+            "against_whole_batch_image_stage": worst_ratio(
+                tp_update_errors(ref, ranks[0])),
+            "image_stage_spread": worst_ratio(spread),
+            "f32_first_loss": ranks[0]["f32"]["first_loss"],
+            "f32_unsharded_first_loss": whole_f32["first_loss"],
+            "f32_update_ratio": {k: float(f"{v:.6g}")
+                                 for k, v in ratio32.items()},
+            "f32_worst_update": worst_ratio(upd32),
+            # the float32 error's split: the per-image stage's batch alone,
+            # and the leg against the per-shard float32 reference
+            "f32_image_stage_spread": worst_ratio(
+                tp_update_errors(whole_f32, shard_f32)),
+            "f32_against_image_shards": worst_ratio(
+                tp_update_errors(shard_f32, ranks[0]["f32"]))}, failures
+
+
 def phase_tp(info):
     """Tensor parallelism on the card (parallel/tp.py): the unsharded run
-    in this process twice (the second gives the run-to-run spread of the
-    first update), then the (1, 2) mesh as two processes of this script
+    in this process, then the (1, 2) mesh as two processes of this script
     over gloo's CUDA path on the one card (NCCL refuses two ranks on one
-    card), the rules above; then the port's dryrun at world size
-    TP_DRYRUN_WORLD over gloo on the card, its dp x tp leg at (2, 2).  The
-    phase's line is printed before any rule fails."""
+    card), the rules above; the global-batch leg at TP_GLOBAL_MESH as four
+    processes (tp_global_leg); then the port's dryrun at world size
+    TP_DRYRUN_WORLD over gloo on the card, its dp x tp leg at (2, 2) both
+    the shard_map step and the global-batch step.  The phase's line is
+    printed before any rule fails."""
     torch.cuda.empty_cache()
     result = {"phase": "tp", "card": info["nvidia_smi"],
               "capacity": engine.train_pair_capacity(tp_config()),
               "aug_capacity": engine.aug_pair_capacity(tp_config())}
     ref = tp_run()
-    again = tp_run()
-    spread = tp_update_errors(ref, again)
-    del again
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         codes, outs, timed_out = run_ranks(tmp, "tp_rank", TP_TIMEOUT_S)
@@ -5216,10 +5444,12 @@ def phase_tp(info):
         update_ratio={k: round(v, 6) for k, v in ratio.items()},
         worst_update={"param": worst, "max_abs_err": upd[worst][0],
                       "max_abs_update": upd[worst][1]},
-        unsharded_spread_ratio_max=max(
-            e / sc if sc > 0 else 0.0 for e, sc in spread.values()),
         eval_rel_err=eval_rel[0], ranks_wall_s=wall_s)
-    del ref, ranks
+    del ranks
+    with tempfile.TemporaryDirectory() as tmp:
+        result["global_batch"], fails = tp_global_leg(ref, tmp)
+    failures += fails
+    del ref
     if not failures:
         # the port's dryrun at world size 4: both legs over gloo on the
         # card
@@ -5230,8 +5460,10 @@ def phase_tp(info):
              str(TP_DRYRUN_WORLD), "--device", "cuda", "--backend", "gloo"],
             capture_output=True, text=True, timeout=TP_TIMEOUT_S,
             cwd=os.path.dirname(os.path.abspath(__file__)))
-        tp_line = [ln for ln in proc.stdout.splitlines() if "dp x tp" in ln]
-        if proc.returncode or not tp_line or "nan" in tp_line[0]:
+        # two dp x tp lines: the shard_map step's, the global batch's
+        tp_lines = [ln for ln in proc.stdout.splitlines() if "dp x tp" in ln]
+        if proc.returncode or len(tp_lines) != 2 \
+                or any("nan" in ln for ln in tp_lines):
             failures.append(f"dryrun_multichip({TP_DRYRUN_WORLD}): "
                             f"{proc.returncode}\n{proc.stdout[-2000:]}"
                             f"\n{proc.stderr[-4000:]}")
@@ -5242,6 +5474,7 @@ def phase_tp(info):
         raise AssertionError("phase tp: " + "; ".join(failures))
 
 def main():
+    started = time.perf_counter()
     ap = argparse.ArgumentParser(description="chip smoke of the port")
     ap.add_argument(
         "--phases",
@@ -5254,6 +5487,8 @@ def main():
     ap.add_argument("--nccl_duplicate", type=int, default=None,
                     help=argparse.SUPPRESS)
     ap.add_argument("--tp_rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--tp_global_rank", type=int, default=None,
                     help=argparse.SUPPRESS)
     ap.add_argument("--contend", type=float, default=None,
                     help=argparse.SUPPRESS)
@@ -5268,55 +5503,83 @@ def main():
     if args.tp_rank is not None:
         tp_rank_main(args.tp_rank, args.work)
         return 0
+    if args.tp_global_rank is not None:
+        tp_global_rank_main(args.tp_global_rank, args.work)
+        return 0
     if args.contend is not None:
         contend_main(args.contend)
         return 0
     phases = set(args.phases.split(","))
-    info = phase_device()
-    phase_build()
+    seconds = {}
+
+    @contextlib.contextmanager
+    def timed_phase(name):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            seconds[name] = round(time.perf_counter() - t0, 3)
+
+    with timed_phase("device"):
+        info = phase_device()
+    with timed_phase("build"):
+        phase_build()
     kernel = {}
     if "kernel" in phases:
-        kernel.update(phase_kernel())
-        kernel.update(phase_kernel_encoder(info["exp_per_s"]))
-        kernel.update(phase_kernel_trunk())
+        with timed_phase("kernel"):
+            kernel.update(phase_kernel())
+            kernel.update(phase_kernel_encoder(info["exp_per_s"]))
+            kernel.update(phase_kernel_trunk())
     launches = {}
     if {"slice", "profile"} & phases:
-        slice_launches, slice_state = phase_slice()
-        launches["pair_pool"] = slice_launches["pair_pool"]
-        if "profile" in phases:
-            phase_profile(*slice_state)
-        del slice_state
+        with timed_phase("slice,profile"):
+            slice_launches, slice_state = phase_slice()
+            launches["pair_pool"] = slice_launches["pair_pool"]
+            if "profile" in phases:
+                phase_profile(*slice_state)
+            del slice_state
     if "train" in phases:
-        train_launches = phase_train()
+        with timed_phase("train"):
+            train_launches = phase_train()
         launches["pair_pool_idx"] = train_launches["pair_pool_idx"]
         launches["pair_pool_bwd"] = train_launches["pair_pool_bwd"]
     if "featurize" in phases:
-        launches.update(phase_featurize())
+        with timed_phase("featurize"):
+            launches.update(phase_featurize())
     if "detect" in phases:
-        phase_detect(info["exp_per_s"])
+        with timed_phase("detect"):
+            phase_detect(info["exp_per_s"])
     if "parity" in phases:
         # K6 runs on the fallback for images that are even but not
         # divisible by 8, not at 1024^2: its count is the parity run's
-        launches["stem_pool"] = phase_parity()
-    if "real_data" in phases:
-        phase_real_data()
-    if "offline" in phases:
-        phase_offline()
-    if "commonsense" in phases:
-        phase_commonsense()
+        with timed_phase("parity"):
+            launches["stem_pool"] = phase_parity()
+    for name, fn in (("real_data", phase_real_data),
+                     ("offline", phase_offline),
+                     ("commonsense", phase_commonsense)):
+        if name in phases:
+            with timed_phase(name):
+                fn()
     if {"oiv6", "pnp"} & phases:
         with tempfile.TemporaryDirectory() as tmp:
-            data = mini_oiv6(tmp)
-            if "oiv6" in phases:
-                phase_oiv6(data)
-            if "pnp" in phases:
-                phase_pnp(data)
+            with timed_phase("mini_oiv6"):
+                data = mini_oiv6(tmp)
+            for name, fn in (("oiv6", phase_oiv6), ("pnp", phase_pnp)):
+                if name in phases:
+                    with timed_phase(name):
+                        fn(data)
     if "mesh" in phases:
-        phase_mesh()
+        with timed_phase("mesh"):
+            phase_mesh()
     if "tp" in phases:
-        phase_tp(info)
+        with timed_phase("tp"):
+            phase_tp(info)
     if "contention" in phases:
-        phase_contention()
+        with timed_phase("contention"):
+            phase_contention()
+    # the wall seconds of each phase, and of the run since main started
+    emit({"phase": "seconds", "seconds": seconds,
+          "total_s": round(time.perf_counter() - started, 3)})
     if len(kernel) != len(KERNELS) or len(launches) != len(KERNELS):
         return 0                                # a partial run: no summary
     rows = [{"name": name, "route": "cuda", "source": source,

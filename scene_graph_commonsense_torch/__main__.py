@@ -396,6 +396,13 @@ def run(args, cfg, mesh):
     if args.synthetic and detect:
         sys.exit("sgc/sgd need detector outputs; run on real data with a "
                  "converted DETR checkpoint")
+    if detect:
+        from scene_graph_commonsense_torch.eval.engines import (
+            check_detector_classes)
+        try:
+            check_detector_classes(cfg)
+        except ValueError as e:           # OIv6: no class remap defined
+            sys.exit(str(e))
 
     from scene_graph_commonsense_torch.data.artifacts import (
         load_vg_artifacts)

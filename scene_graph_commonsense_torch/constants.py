@@ -210,3 +210,91 @@ def class_weights(dataset: str = "vg", clustering: str = "motif",
     else:
         counts = OIV6_REL_COUNTS.astype(np.float64)
     return (1.0 - counts / counts.sum()).astype(np.float32)
+
+
+def triplet_id(sub: np.ndarray, rel: np.ndarray, obj: np.ndarray,
+               num_classes: int = 150, num_relations: int = 50) -> np.ndarray:
+    """Dense integer id of a (subject_cat, relation, object_cat) triplet for
+    O(1) table lookups (replaces the reference's per-row Python dict probes,
+    reference evaluator.py:151-152)."""
+    return (np.asarray(sub) * num_relations + np.asarray(rel)) * num_classes \
+        + np.asarray(obj)
+
+
+NUM_TRIPLET_IDS_VG = 150 * 50 * 150
+
+
+# ---------------------------------------------------------------------------
+# GQA label space (reference dataset_utils.py:708-747).
+# ---------------------------------------------------------------------------
+GQA_OBJECTS = (
+    "window", "man", "shirt", "tree", "wall", "person", "sky", "building",
+    "ground", "sign", "head", "pole", "hand", "grass", "hair", "leg", "car",
+    "woman", "trees", "table", "leaves", "ear", "eye", "people", "pants",
+    "water", "door", "fence", "nose", "wheel", "arm", "shoe", "clouds",
+    "hat", "floor", "jacket", "chair", "leaf", "tail", "plate", "letter",
+    "flower", "face", "road", "number", "windows", "cloud", "shorts",
+    "sidewalk", "snow", "bag", "rock", "glass", "roof", "umbrella", "tire",
+    "helmet", "boy", "logo", "jeans", "foot", "street", "cap", "boat",
+    "bush", "mouth", "post", "girl", "flowers", "picture", "legs", "shoes",
+    "bottle", "bus", "bench", "field", "pillow", "glasses", "mirror",
+    "clock", "neck", "bowl", "dirt", "kite", "box", "train", "letters",
+    "airplane", "bird", "food", "house", "lamp", "trunk", "cup", "coat",
+    "horse", "street light", "shelf", "wing", "sheep", "paper", "book",
+    "plant", "elephant", "branch", "dog", "giraffe", "counter",
+    "motorcycle", "seat", "glove", "zebra", "skateboard", "banana", "eyes",
+    "racket", "frame", "ceiling", "rocks", "surfboard", "truck", "bike",
+    "wheels", "cabinet", "sink", "sand", "cow", "flag", "traffic light",
+    "ball", "hands", "bushes", "feet", "child", "cat", "windshield", "bed",
+    "finger", "stone", "hill", "word", "backpack", "basket", "player",
+    "tie", "container", "paw", "vase", "buildings", "sock",
+)
+
+GQA_RELATIONS = (
+    "to the left of", "to the right of", "on", "near", "in", "behind",
+    "in front of", "holding", "on top of", "above", "next to", "below",
+    "under", "on the side of", "beside", "inside", "at", "around",
+    "on the front of", "on the back of", "wearing", "of", "with", "by",
+    "contain", "filled with", "full of", "sitting on", "standing on",
+    "carrying", "walking on", "riding", "standing in", "hanging on",
+    "looking at", "covered by", "lying on", "watching", "eating",
+    "covering", "hanging from", "riding on", "sitting in", "using",
+    "parked on", "covered in", "walking in", "flying in", "crossing",
+    "swinging",
+)
+
+# object label -> super-category ids (reference dataset_utils.py:725-740)
+GQA_LABEL2SUPER = {
+    0: (5,), 1: (0,), 2: (14,), 3: (2,), 4: (5,), 5: (0,), 6: (6,), 7: (5,),
+    8: (5, 15), 9: (13,), 10: (0, 3, 11), 11: (13,), 12: (0, 3, 11),
+    13: (6,), 14: (0, 11), 15: (0, 3, 11), 16: (4,), 17: (0,), 18: (2,),
+    19: (12,), 20: (2, 11), 21: (0, 3, 11), 22: (0, 3, 11), 23: (0,),
+    24: (14,), 25: (6,), 26: (5, 11), 27: (13,), 28: (0, 3, 11),
+    29: (4, 11), 30: (0, 3, 11), 31: (14,), 32: (6,), 33: (14,), 34: (5,),
+    35: (14,), 36: (12,), 37: (2, 11, 15), 38: (3, 11), 39: (9, 13),
+    40: (13,), 41: (15,), 42: (0, 3, 11), 43: (6,), 44: (13,), 45: (5, 11),
+    46: (6,), 47: (14,), 48: (6,), 49: (6,), 50: (13,), 51: (7,),
+    52: (5, 13), 53: (5, 11), 54: (13,), 55: (4, 11), 56: (14,), 57: (0,),
+    58: (13,), 59: (14,), 60: (0, 3, 11), 61: (6,), 62: (14,), 63: (4,),
+    64: (14,), 65: (0, 3, 11), 66: (13,), 67: (0,), 68: (15,), 69: (13,),
+    70: (0, 3, 11), 71: (14,), 72: (13,), 73: (4,), 74: (12,), 75: (6,),
+    76: (12,), 77: (14,), 78: (12,), 79: (12, 13), 80: (0, 3, 11),
+    81: (10, 13), 82: (7,), 83: (13,), 84: (13,), 85: (4,), 86: (13,),
+    87: (4,), 88: (3,), 89: (1,), 90: (5,), 91: (12, 13), 92: (4,),
+    93: (9, 10, 13), 94: (14,), 95: (3, 4), 96: (13,), 97: (12,),
+    98: (3, 11), 99: (3,), 100: (13,), 101: (13,), 102: (2,), 103: (1, 7),
+    104: (2, 11), 105: (3,), 106: (3,), 107: (12,), 108: (4,), 109: (12,),
+    110: (13,), 111: (3,), 112: (13,), 113: (1, 8), 114: (0, 3, 11),
+    115: (13,), 116: (12, 13), 117: (5,), 118: (7,), 119: (4, 13),
+    120: (4,), 121: (4,), 122: (4, 11), 123: (12,), 124: (13,), 125: (7,),
+    126: (3,), 127: (13,), 128: (13,), 129: (13,), 130: (0, 3, 11),
+    131: (14,), 132: (0, 3, 11), 133: (0,), 134: (3,), 135: (4, 11),
+    136: (12,), 137: (0, 3, 11), 138: (7,), 139: (6,), 140: (13,),
+    141: (9, 13), 142: (9, 13), 143: (0,), 144: (14,), 145: (9,),
+    146: (3, 11), 147: (9, 13), 148: (5,), 149: (14,),
+}
+
+# 3DSSG CLIP clustering (reference dataset_utils.py:790-796)
+REL_3DSSG_CLIP_INDEX = np.array(
+    [0, 5, 20, 21, 22, 6, 7, 23, 8, 9, 10, 11, 12, 24, 13, 14, 0, 1,
+     15, 2, 16, 17, 18, 19, 25, 3, 4], dtype=np.int32)

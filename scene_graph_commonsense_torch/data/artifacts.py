@@ -10,6 +10,7 @@ empty bundle (None tables).
 from __future__ import annotations
 
 import os
+from typing import Dict
 
 import numpy as np
 
@@ -53,6 +54,20 @@ def super_multi_hot(super_lists, num_super: int = NUM_SUPER,
     return mh
 
 
+def parse_triplet_strings(keys) -> Dict[str, np.ndarray]:
+    """'sub_rel_obj' string keys -> id arrays (the reference keys its
+    train/test/zero-shot dicts this way, reference dataset_utils.py:251)."""
+    subs, rels, objs = [], [], []
+    for k in keys:
+        s, r, o = k.split("_")
+        subs.append(int(s))
+        rels.append(int(r))
+        objs.append(int(o))
+    return {"sub": np.asarray(subs, np.int32),
+            "rel": np.asarray(rels, np.int32),
+            "obj": np.asarray(objs, np.int32)}
+
+
 class VGArtifacts:
     """Loaded artifact bundle for Visual Genome."""
 
@@ -94,3 +109,12 @@ def load_vg_artifacts(artifacts_dir: str) -> VGArtifacts:
         test_table=table(data, "test"),
         sub2super=data["sub2super"] if "sub2super" in data else None,
         cs_aligned=cs_aligned, cs_violated=cs_violated)
+
+
+def default_sub2super(num_obj: int = NUM_OBJ,
+                      num_super: int = NUM_SUPER) -> np.ndarray:
+    """Fallback multi-hot map when the converted artifact is unavailable
+    (used by synthetic tests only)."""
+    mh = np.zeros((num_obj, num_super), dtype=bool)
+    mh[np.arange(num_obj), np.arange(num_obj) % num_super] = True
+    return mh

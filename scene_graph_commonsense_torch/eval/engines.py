@@ -418,6 +418,24 @@ def run_eval_sgd(cfg, model, batches: Iterable[Dict],
     return res if mesh is None else broadcast_object(mesh, res)
 
 
+def check_detector_classes(cfg) -> None:
+    """Raises ValueError unless the detector's classes (cfg.model.
+    num_classes plus the no-object slot) are the ones OBJ_ALP2FRE remaps:
+    the reference's remap (evaluate.py:318-322) is VG's permutation of
+    151 classes and no dataset defines another, so an OIv6 detector (602
+    logits) has no class order to map to.  The JAX package gathers past
+    the table's end, which clamps every OIv6 class from 150 on to class
+    150; torch's indexing would fail (an IndexError on the CPU, a device
+    assert on the card)."""
+    classes = cfg.model.num_classes + 1
+    if classes != len(OBJ_ALP2FRE):
+        raise ValueError(
+            f"SGCLS / SGDET remap the detector's classes through VG's "
+            f"{len(OBJ_ALP2FRE)}-entry OBJ_ALP2FRE (reference "
+            f"evaluate.py:318-322), but the {cfg.data.dataset} detector has "
+            f"{classes} classes: no class remap is defined for it")
+
+
 def make_detr_detect_fn(cfg, detr_model, mesh=None):
     """Returns detect_fn(batch) -> the detection dict (numpy): the full DETR
     forward of the detection view batch["image_nonsq"] under
@@ -431,7 +449,11 @@ def make_detr_detect_fn(cfg, detr_model, mesh=None):
     data axis does not divide them; a batch sharded ahead by
     shard_eval_batch gives its "shard" rows) and gathers every field in
     rank order, in its dtype: every rank returns the global detections,
-    as the JAX package's GSPMD-sharded detector does."""
+    as the JAX package's GSPMD-sharded detector does.
+
+    Raises ValueError (check_detector_classes) for a detector whose
+    classes OBJ_ALP2FRE does not remap, such as OIv6's."""
+    check_detector_classes(cfg)
     dev = next(detr_model.parameters()).device
     alp2fre = torch.as_tensor(OBJ_ALP2FRE, device=dev)
     m = cfg.model

@@ -31,6 +31,10 @@ from scene_graph_commonsense_torch.models.context import (
 from scene_graph_commonsense_torch.models.relation_head import (
     BayesianHead, _dense)
 
+# The hierarchical head with optional frequency bias IS the standalone
+# BayesianHead (models/relation_head.py), as in the JAX package.
+BiasedBayesHead = BayesianHead
+
 CONTEXTS = {"motifs": MotifsContext, "transformer": TransformerContext,
             "vctree": VCTreeContext, "vtranse": VTransEContext}
 

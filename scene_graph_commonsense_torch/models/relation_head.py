@@ -22,8 +22,9 @@ least float32.
 
 Dropout is functional, like flax's `deterministic` flag: the two dropout
 sites (after fc1, after fc2) drop only when the caller passes a
-torch.Generator for that site, and never otherwise, whatever the module's
-train()/eval() mode.  The masks are not JAX's masks.
+DropoutStream for that site (train/engine.py's RowBlock), and never
+otherwise, whatever the module's train()/eval() mode.  The masks are not
+JAX's masks.
 
 Tensor parallelism (parallel/tp.py) runs inside the module, so that every
 caller of the pair trunk and the head gets it: after tp.shard_module the
@@ -37,7 +38,7 @@ mask after fc2.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Protocol, Tuple
 
 import torch
 import torch.nn as nn
@@ -60,6 +61,14 @@ def _conv(layer: nn.Conv2d, x: torch.Tensor,
     return y.permute(0, 2, 3, 1)
 
 
+class DropoutStream(Protocol):
+    """A dropout site's stream: draw_keep returns a keep mask of `shape`,
+    True with probability keep_prob."""
+
+    def draw_keep(self, shape, keep_prob: float,
+                  device) -> torch.Tensor: ...
+
+
 def _dense(layer: nn.Module, x: torch.Tensor,
            dtype: torch.dtype) -> torch.Tensor:
     bias = None if layer.bias is None else layer.bias.to(dtype)
@@ -67,20 +76,19 @@ def _dense(layer: nn.Module, x: torch.Tensor,
 
 
 def _dropout(x: torch.Tensor, rate: float,
-             generator: Optional[torch.Generator],
+             generator: Optional[DropoutStream],
              shard: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """flax nn.Dropout: keep each element with probability 1 - rate and
     scale it by 1 / (1 - rate); the identity without a generator or at
     rate 0.  `shard` = (index, count): x is the index-th of count equal
     column blocks of the activation, whose full-width mask is drawn and
-    sliced."""
+    sliced.  `generator` is the site's DropoutStream."""
     if generator is None or rate == 0.0:
         return x
     keep_prob = 1.0 - rate
     shape = x.shape if shard is None \
         else x.shape[:-1] + (x.shape[-1] * shard[1],)
-    keep = torch.empty(shape, device=x.device).bernoulli_(
-        keep_prob, generator=generator) > 0
+    keep = generator.draw_keep(shape, keep_prob, x.device)
     if shard is not None:
         w = x.shape[-1]
         keep = keep[..., shard[0] * w:(shard[0] + 1) * w]
@@ -230,7 +238,7 @@ class RelationClassifier(nn.Module):
     # ---------------- per-pair stage ----------------
 
     def pair_trunk(self, a_sub: torch.Tensor, b_obj: torch.Tensor,
-                   generator: Optional[torch.Generator] = None
+                   generator: Optional[DropoutStream] = None
                    ) -> torch.Tensor:
         """(P, S, S, 4h) gathered streams -> (P, 4096) pair hidden."""
         s = F.max_pool2d((a_sub + b_obj).permute(0, 3, 1, 2), 2)
@@ -238,7 +246,7 @@ class RelationClassifier(nn.Module):
                                            generator)
 
     def pair_trunk_from_pooled(self, s: torch.Tensor,
-                               generator: Optional[torch.Generator] = None
+                               generator: Optional[DropoutStream] = None
                                ) -> torch.Tensor:
         """(P, S/2, S/2, 4h) pooled+activated pair maps -> (P, 4096): conv3
         SAME, relu, 2x2 maxpool, NHWC flatten, fc1, relu, dropout (with a
@@ -258,7 +266,7 @@ class RelationClassifier(nn.Module):
 
     def pair_head(self, h: torch.Tensor, c1: torch.Tensor, c2: torch.Tensor,
                   s1: Optional[torch.Tensor], s2: Optional[torch.Tensor],
-                  generator: Optional[torch.Generator] = None
+                  generator: Optional[DropoutStream] = None
                   ) -> Dict[str, torch.Tensor]:
         """Label-conditioned head.  h: (P, 4096), sharded (P, 4096 / model);
         c1/c2: (P,) subject / object classes; s1/s2: (P, num_super_classes)
@@ -312,6 +320,21 @@ class RelationClassifier(nn.Module):
         a, _ = self.object_streams(x_sub)
         _, b = self.object_streams(x_obj)
         return self.pair_head(self.pair_trunk(a, b), c1, c2, s1, s2)
+
+
+def assemble_object_stack(features: torch.Tensor, depth: torch.Tensor,
+                          masks: torch.Tensor) -> torch.Tensor:
+    """Builds the per-object masked input stack.
+
+    features: (B, S, S, C) frozen detector features; depth: (B, S, S, 1)
+    estimated depth; masks: (B, N, S, S) object occupancy.  Returns
+    (B, N, S, S, C + 1) = [features * mask ++ depth * mask] per object
+    (reference train_test.py:195-204): the input of the reference-shaped
+    forward, which RelationClassifier._masked_entity_maps never builds."""
+    m = masks[..., None].to(features.dtype)
+    feat = features[:, None] * m
+    dep = depth[:, None].to(features.dtype) * m
+    return torch.cat([feat, dep], dim=-1)
 
 
 def module_from_cfg(cfg) -> RelationClassifier:

@@ -9,6 +9,7 @@ intersection are computed in closed form on the integer rectangles.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -29,6 +30,12 @@ def _int_rect(boxes: torch.Tensor, size: int):
     grid (coordinates are non-negative by construction)."""
     r = torch.clamp(boxes.to(torch.int32), 0, size)
     return r[..., 0], r[..., 1], r[..., 2], r[..., 3]
+
+
+def box_area(boxes: torch.Tensor, size: int = 32) -> torch.Tensor:
+    """Number of grid cells the box mask covers."""
+    x0, x1, y0, y1 = _int_rect(boxes, size)
+    return (x1 - x0).clamp_min(0) * (y1 - y0).clamp_min(0)
 
 
 def mask_iou(boxes_a: torch.Tensor, boxes_b: torch.Tensor,
@@ -110,3 +117,16 @@ def boxes_to_masks(boxes: torch.Tensor, size: int = 32,
     inside_y = (ys >= y0[..., None, None]) & (ys < y1[..., None, None])
     inside_x = (xs >= x0[..., None, None]) & (xs < x1[..., None, None])
     return (inside_y & inside_x).to(dtype)
+
+
+def reference_mask_iou_numpy(box_a, box_b, size: int = 32) -> float:
+    """Literal mask-materializing IoU (numpy), kept as the test oracle for
+    mask_iou's closed form."""
+    ma = np.zeros((size, size), dtype=bool)
+    mb = np.zeros((size, size), dtype=bool)
+    ma[int(box_a[2]):int(box_a[3]), int(box_a[0]):int(box_a[1])] = True
+    mb[int(box_b[2]):int(box_b[3]), int(box_b[0]):int(box_b[1])] = True
+    union = np.logical_or(ma, mb).sum()
+    if union == 0:
+        return 0.0
+    return float(np.logical_and(ma, mb).sum()) / float(union)

@@ -86,6 +86,16 @@ def align_packings(base: PackedPairs, subset: PackedPairs):
     return pos.to(torch.int32), found
 
 
+def gather_pair(values: torch.Tensor, pairs: PackedPairs,
+                which: str) -> torch.Tensor:
+    """Gathers per-object values (B, N, ...) for each packed pair endpoint
+    ("sub" or "obj")."""
+    b, n = values.shape[:2]
+    flat = values.reshape((b * n,) + tuple(values.shape[2:]))
+    idx = pairs.flat_sub if which == "sub" else pairs.flat_obj
+    return flat[idx.long()]
+
+
 def eval_pair_filter(boxes: torch.Tensor, size: int = 32) -> torch.Tensor:
     """(B, N, 4) boxes -> (B, N, N) bool: a pair is kept iff the two object
     masks overlap in at least one grid cell (reference

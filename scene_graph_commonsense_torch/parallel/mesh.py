@@ -10,8 +10,9 @@ of the JAX package's reshape(data, model):
   * axis 'data'  - batch sharding: a rank takes the rows of its data index
     of every global batch; the flagship train step averages the gradients
     with one all-reduce over the data group, the ranks that share its model
-    index (train.engine.make_train_step), the plug-and-play step sums the
-    gradients of its global losses (train.pnp_engine.make_pnp_train_step),
+    index (train.engine.make_train_step), or, as its global-batch step and
+    the plug-and-play step (train.pnp_engine.make_pnp_train_step) do, sums
+    the gradients of its share of the global batch's losses (global_losses),
     and the eval steps and the detector concatenate the data group's
     outputs;
   * axis 'model' - tensor parallelism over the model group, the ranks that
@@ -29,7 +30,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -236,3 +237,87 @@ def all_gather_rows(mesh: Mesh, tree: Dict[str, Optional[torch.Tensor]]
             t = torch.cat(parts)
         out[k] = t
     return out
+
+
+def exclusive_prefix(mesh: Mesh, counts: torch.Tensor) -> List[int]:
+    """From one all-gather of `counts` (a 1-D integer tensor, this rank's
+    count of each of a few things) over the data group: per entry, the sum
+    of the counts of the ranks before this one in data-index order (its
+    offset in the global enumeration), on the host."""
+    parts = [torch.empty_like(counts) for _ in range(mesh.data)]
+    dist.all_gather(parts, counts.contiguous(), group=mesh.data_group)
+    return torch.stack(parts[:mesh.data_index] + [torch.zeros_like(counts)]) \
+        .sum(0).tolist()
+
+
+class _GatherRows(torch.autograd.Function):
+    """all_gather_rows of one tensor with a gradient: the forward
+    concatenates the data group's blocks in data-index order; the backward
+    is the reduce-scatter of the gathered rows' gradient, every rank's
+    gradient of this rank's block summed (one all-reduce of the whole
+    gradient, then this rank's block: a collective that gloo runs on CUDA
+    tensors too, and the rows are few)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh):
+        ctx.mesh = mesh
+        parts = [torch.empty_like(t) for _ in range(mesh.data)]
+        dist.all_gather(parts, t.contiguous(), group=mesh.data_group)
+        return torch.cat(parts)
+
+    @staticmethod
+    def backward(ctx, grad):
+        mesh = ctx.mesh
+        grad = all_sum_(mesh, grad.contiguous().clone())
+        return grad.chunk(mesh.data)[mesh.data_index], None
+
+
+def gather_rows(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
+    """The data group's blocks of `t` (equal shapes) concatenated along the
+    first axis in data-index order, differentiable: this rank's block sits
+    at rows [data_index * len(t), (data_index + 1) * len(t))."""
+    return _GatherRows.apply(t, mesh)
+
+
+class GlobalTotals:
+    """A step's `total` (train/losses.py) over a mesh: the data group's
+    sums of every denominator of its losses in one all-reduce.  A first
+    pass over the losses (without gradients) records each denominator and
+    returns it as it is; reduce() sums them all, flattened into one buffer
+    in their widest dtype; the second pass reads the sums in the same
+    order, each in its shape and dtype."""
+
+    def __init__(self, mesh: Mesh):
+        self.mesh = mesh
+        self.seen: List[torch.Tensor] = []
+        self.sums: Optional[List[torch.Tensor]] = None
+        self.read = 0
+
+    def __call__(self, t: torch.Tensor) -> torch.Tensor:
+        if self.sums is None:
+            self.seen.append(t.detach())
+            return t
+        self.read += 1
+        return self.sums[self.read - 1].to(t.dtype)
+
+    def reduce(self) -> None:
+        dtype = self.seen[0].dtype
+        for t in self.seen[1:]:
+            dtype = torch.promote_types(dtype, t.dtype)
+        flat = all_sum_(self.mesh, torch.cat(
+            [t.reshape(-1).to(dtype) for t in self.seen]))
+        self.sums = [s.view_as(t) for s, t in zip(
+            flat.split([t.numel() for t in self.seen]), self.seen)]
+
+
+def global_losses(mesh: Mesh, losses: Callable[[GlobalTotals], Any]) -> Any:
+    """`losses(total)` with every denominator the data group's sum, so that
+    what it returns is this rank's share of the global batch's losses
+    (shares that sum to them): computed once without gradients to collect
+    the denominators, which travel in one all-reduce, then again, with
+    gradients, over their sums."""
+    totals = GlobalTotals(mesh)
+    with torch.no_grad():
+        losses(totals)
+    totals.reduce()
+    return losses(totals)

@@ -22,6 +22,17 @@ the split dims are the transposes of the JAX package's PartitionSpecs.
 the module, whose forward then runs the collectives
 (models/relation_head.py); `shard_params` and `gather_params` map a state
 dict to this rank's shards and back.
+
+Two recipes for a (data, model) mesh, as in the JAX package:
+  * make_train_step(mesh=) shards the model in place (build the TrainState
+    after it) and steps on each rank's rows of the global batch with the
+    losses of those rows, the gradients averaged over 'data': the JAX
+    package's shard_map step, which its fit and CLI run;
+  * make_train_step(mesh=, global_batch=True) computes the losses of the
+    whole global batch, each rank its share, the gradients summed over
+    'data': the JAX package's parallel/tp.py recipe, shard_params and the
+    mesh-less step on a P('data') batch (the GSPMD step), equal to the
+    unsharded step on the global batch.
 """
 
 from __future__ import annotations

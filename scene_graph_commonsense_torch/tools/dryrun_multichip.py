@@ -12,9 +12,12 @@ first card when there are fewer cards than processes),
 shard a synthetic batch of 2N images over the data axis, take one train
 step (gradients averaged over the group) and one sharded eval step, and
 check that the loss and the relation scores are finite; then, at an even
-N, one train step on a (N / 2, 2) mesh, fc1 and fc2_h split over its model
-axis (parallel/tp.py), on a fresh batch, as the JAX package's dp x tp leg
-runs it; rank 0 prints a line for each.  Exits 1 if any process fails.
+N, two train steps on a (N / 2, 2) mesh, fc1 and fc2_h split over its
+model axis (parallel/tp.py), on a fresh batch: the shard_map step that fit
+and the CLI run at parallel.model_axis 2 (each data shard's own losses),
+then the global-batch step (make_train_step(global_batch=True), the losses
+of the whole global batch), as the JAX package's dp x tp leg runs its GSPMD
+step; rank 0 prints a line for each.  Exits 1 if any process fails.
 """
 
 import argparse
@@ -86,24 +89,27 @@ def run_rank(rank: int, n: int, store: str, device: str,
 
         if n >= 2 and n % 2 == 0:
             # dp x tp: fc1 column-parallel, fc2_h row-parallel over the
-            # model axis, the batch over the data axis
+            # model axis, the batch over the data axis; the shard_map step,
+            # then the global batch's losses (the JAX package's GSPMD step)
             mesh2 = make_mesh(data=n // 2, model=2, device=device)
-            model2 = make_relation_classifier(cfg, device=mesh2.device)
-            replicate_tree(mesh2, dict(model2.named_parameters()))
-            step2 = engine.make_train_step(model2, cfg, opt,
-                                           class_weights("vg"), mesh=mesh2)
-            batch2 = synthetic_batch(
+            batch2 = shard_batch(mesh2, synthetic_batch(
                 np.random.default_rng(1), batch_size=batch_size,
                 max_objects=cfg.data.max_objects,
                 feature_size=cfg.model.feature_size,
-                num_channels=cfg.model.num_img_feature)
-            _, m2 = step2(engine.init_train_state(model2, opt),
-                          shard_batch(mesh2, batch2))
-            loss2 = float(m2["loss"])
-            if not np.isfinite(loss2):
-                raise RuntimeError(f"non-finite tp loss {loss2}")
-            say(f"dryrun_multichip({n}) dp x tp ({n // 2}x2) ok: "
-                f"loss={loss2:.4f}", flush=True)
+                num_channels=cfg.model.num_img_feature))
+            for global_batch, name in ((False, "dp x tp"),
+                                       (True, "dp x tp global batch")):
+                model2 = make_relation_classifier(cfg, device=mesh2.device)
+                replicate_tree(mesh2, dict(model2.named_parameters()))
+                step2 = engine.make_train_step(
+                    model2, cfg, opt, class_weights("vg"), mesh=mesh2,
+                    global_batch=global_batch)
+                _, m2 = step2(engine.init_train_state(model2, opt), batch2)
+                loss2 = float(m2["loss"])
+                if not np.isfinite(loss2):
+                    raise RuntimeError(f"non-finite {name} loss {loss2}")
+                say(f"dryrun_multichip({n}) {name} ({n // 2}x2) ok: "
+                    f"loss={loss2:.4f}", flush=True)
     finally:
         dist.destroy_process_group()
 

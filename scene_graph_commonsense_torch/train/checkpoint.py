@@ -1,6 +1,8 @@
 """Relation-head checkpoints: the reference-compatible name and a torch.save
 of the state dict (the JAX package writes orbax directories under the same
-name; the port adds a ".pt" suffix so the two never collide)."""
+name; the port adds a ".pt" suffix so the two never collide).  `load` is
+the counterpart of the JAX package's `restore`: a state dict needs no
+template (the shapes and dtypes orbax restores into), so it takes none."""
 
 from __future__ import annotations
 
@@ -29,3 +31,4 @@ def load(path: str) -> Dict[str, torch.Tensor]:
     """State dict on the CPU (load_state_dict copies it to the model's
     device)."""
     return torch.load(path, map_location="cpu", weights_only=True)
+

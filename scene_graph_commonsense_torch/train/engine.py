@@ -2,7 +2,8 @@
 scene_graph_commonsense_tpu/train/engine.py).  With a mesh
 (parallel/mesh.py) each rank steps on the rows of its data index of the
 global batch: the train step averages the gradients and metrics over the
-data group before the update, the eval step concatenates the data group's
+data group before the update (or, with global_batch, sums its share of the
+global batch's losses), the eval step concatenates the data group's
 outputs.  A mesh with a model axis above 1 also splits the relation head's
 fc1 and fc2_h over the model group (parallel/tp.py), as the JAX package's
 parallel/tp.py lays them out.
@@ -53,10 +54,66 @@ def _chunk_generator(seed: int, chunk: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(int(s[0]) >> 1)
 
 
+def _rows_at(keep: torch.Tensor, offset: int, rows: int) -> torch.Tensor:
+    """Rows [offset, offset + rows) of a drawn keep mask; rows past its end
+    keep everything (they are padding slots of the buffer)."""
+    block = keep[offset:offset + rows]
+    if block.shape[0] < rows:
+        block = torch.cat([block, block.new_ones(
+            (rows - block.shape[0],) + tuple(keep.shape[1:]))])
+    return block
+
+
+class RowBlock:
+    """A dropout stream (models/relation_head.DropoutStream): rows
+    [offset, offset + n) of the keep mask of a pair buffer of `rows` rows.
+    chunk 0: the buffer's mask is drawn at once from `generator`; chunk >
+    0: chunk k of `chunk` rows from _chunk_generator(generator's seed, k),
+    as the chunked trunk draws it.  The unsharded step's streams start at
+    offset 0; the global-batch step's, on a rank, where its pairs sit in
+    the global packing."""
+
+    def __init__(self, generator: torch.Generator, rows: int,
+                 offset: int = 0, chunk: int = 0):
+        self.generator = generator
+        self.rows = rows
+        self.offset = offset
+        self.chunk = chunk
+
+    def at(self, offset: int) -> "RowBlock":
+        """The stream of this one's rows from `offset` on."""
+        return RowBlock(self.generator, self.rows, self.offset + offset,
+                        self.chunk)
+
+    def draw_keep(self, shape, keep_prob: float, device) -> torch.Tensor:
+        rows, width = shape[0], tuple(shape[1:])
+        if self.chunk <= 0:
+            keep = torch.empty((self.rows,) + width, device=device) \
+                .bernoulli_(keep_prob, generator=self.generator) > 0
+            return _rows_at(keep, self.offset, rows)
+        first = self.offset // self.chunk
+        last = (self.offset + rows - 1) // self.chunk
+        seed = self.generator.initial_seed()
+        keep = torch.cat([
+            torch.empty((self.chunk,) + width, device=device).bernoulli_(
+                keep_prob, generator=_chunk_generator(seed, k, device)) > 0
+            for k in range(first, last + 1)])
+        return _rows_at(keep, self.offset - first * self.chunk, rows)
+
+
+def _stream(generator: torch.Generator, rows: int, offset: int,
+            chunk_size: int) -> RowBlock:
+    """The RowBlock of a buffer of `rows` rows whose trunk runs in chunks of
+    chunk_size (_chunked_pair_trunk's rule: chunked iff 0 < chunk_size <
+    rows)."""
+    return RowBlock(generator, rows, offset,
+                    chunk_size if 0 < chunk_size < rows else 0)
+
+
 def _chunked_pair_trunk(model: RelationClassifier, a: torch.Tensor,
                         b: torch.Tensor, packed: pair_ops.PackedPairs,
                         chunk_size: int,
-                        generator: Optional[torch.Generator] = None
+                        generator: Optional[RowBlock] = None
                         ) -> torch.Tensor:
     """The pair trunk (pair_pool, then pair_trunk_from_pooled) over the
     packed pairs, in chunks of `chunk_size` pairs, so that the (P, S/2,
@@ -67,7 +124,8 @@ def _chunked_pair_trunk(model: RelationClassifier, a: torch.Tensor,
     each chunk runs under torch.utils.checkpoint (its activations are
     recomputed in the backward: the pair pool's forward with index runs
     twice a chunk, its backward once).  chunk_size <= 0 or >= the capacity
-    runs the whole buffer at once."""
+    runs the whole buffer at once.  `generator`, a RowBlock, gives chunk k
+    its rows from k * chunk_size on."""
     p_cap = packed.flat_sub.shape[0]
     if chunk_size <= 0 or chunk_size >= p_cap:
         pooled = pair_pool(a, b, packed.flat_sub, packed.flat_obj)
@@ -76,10 +134,9 @@ def _chunked_pair_trunk(model: RelationClassifier, a: torch.Tensor,
     pad = packed.flat_sub.new_zeros(n_chunks * chunk_size - p_cap)
     flat_sub = torch.cat([packed.flat_sub, pad])
     flat_obj = torch.cat([packed.flat_obj, pad])
-    seed = None if generator is None else generator.initial_seed()
 
     def one_chunk(a_, b_, sub, obj, k):
-        gen = None if seed is None else _chunk_generator(seed, k, a_.device)
+        gen = None if generator is None else generator.at(k * chunk_size)
         return model.pair_trunk_from_pooled(pair_pool(a_, b_, sub, obj), gen)
 
     hs = []
@@ -97,7 +154,7 @@ def _chunked_pair_trunk(model: RelationClassifier, a: torch.Tensor,
 
 def forward_pairs(model: RelationClassifier, batch: Dict[str, torch.Tensor],
                   capacity: int, *, view: str = "features",
-                  generators: Optional[Sequence[torch.Generator]] = None,
+                  generators: Optional[Sequence[RowBlock]] = None,
                   packed: Optional[pair_ops.PackedPairs] = None,
                   chunk_size: int = 0
                   ) -> Tuple[Dict[str, torch.Tensor], pair_ops.PackedPairs]:
@@ -107,8 +164,8 @@ def forward_pairs(model: RelationClassifier, batch: Dict[str, torch.Tensor],
     contrastive view) -> fused pair assembly (ops/pair_pool.py: the CUDA
     kernels on CUDA tensors, the plain versions on CPU tensors; with
     gradient when the weights require it) -> trunk -> label-conditioned
-    head.  `generators` = (trunk, head) turns dropout on at the two sites
-    with independent streams; None runs deterministically.  chunk_size > 0
+    head.  `generators` = (trunk, head) RowBlocks turn dropout on at the
+    two sites with independent streams; None runs deterministically.  chunk_size > 0
     runs the pair assembly and trunk in chunks (_chunked_pair_trunk)."""
     b, n = batch["cats"].shape
     s = batch["features"].shape[1]
@@ -236,10 +293,12 @@ def make_eval_step(model: RelationClassifier, cfg, capacity: int = 0,
 # ---------------------------------------------------------------------------
 
 def compute_losses(model_cfg, train_cfg, out, packed, targets,
-                   class_weights, cs_tables=None, loss_contrast=None):
+                   class_weights, cs_tables=None, loss_contrast=None,
+                   total=None):
     """All loss terms and scalar metrics for one batch (the contrastive term
     is computed by the caller over the connected-pairs buffer).  Returns
-    (total, metrics); metrics are 0-dim tensors on the device."""
+    (total, metrics); metrics are 0-dim tensors on the device.  `total`:
+    the losses' denominator hook (train/losses.py)."""
     m = model_cfg
     valid = packed.mask
     connected = (targets >= 0) & valid
@@ -249,22 +308,22 @@ def compute_losses(model_cfg, train_cfg, out, packed, targets,
     loss_rel = L.relation_loss(
         out["relation"], out["super_relation"], targets, connected,
         class_weights, m.num_geometric, m.num_possessive,
-        m.hierarchical_pred)
+        m.hierarchical_pred, total)
     conn = L.connectivity_loss(out["connectivity"], connected, valid,
-                               train_cfg.lambda_not_connected)
+                               train_cfg.lambda_not_connected, total)
     loss_cs = f32_zero
     if cs_tables is not None:
         loss_cs = L.commonsense_loss(
             out["relation"], out["sub_cat"], out["obj_cat"], valid,
             cs_tables[0], cs_tables[1], m.num_geometric, m.num_possessive,
             m.num_classes, train_cfg.lambda_cs_weak,
-            train_cfg.lambda_cs_strong, m.hierarchical_pred)
-    total = loss_rel \
+            train_cfg.lambda_cs_strong, m.hierarchical_pred, total)
+    loss = loss_rel \
         + train_cfg.lambda_connectivity * conn.loss \
         + train_cfg.lambda_commonsense * loss_cs \
         + train_cfg.lambda_contrast * loss_contrast
     metrics = {
-        "loss": total, "loss_relationship": loss_rel,
+        "loss": loss, "loss_relationship": loss_rel,
         "loss_connectivity": conn.loss, "loss_commonsense": loss_cs,
         "loss_contrast": loss_contrast,
         "num_connected": conn.num_connected,
@@ -274,7 +333,7 @@ def compute_losses(model_cfg, train_cfg, out, packed, targets,
         "connectivity_recall_hits": conn.recall_hits,
         "num_pairs": packed.count,
     }
-    return total, metrics
+    return loss, metrics
 
 
 Schedule = Union[float, Callable[[int], float]]
@@ -458,70 +517,130 @@ def reduce_over_mesh(mesh, params: Dict[str, torch.Tensor],
     return grads, metrics
 
 
+def _cut(packed: pair_ops.PackedPairs, keep: int) -> pair_ops.PackedPairs:
+    """The packing with its slots from `keep` on turned into padding
+    (pack_pairs' parking slot, pair (0, 0, 1) of image 0, masked); the
+    count is left as it is."""
+    live = packed.mask & (torch.arange(packed.mask.shape[0],
+                                       device=packed.mask.device) < keep)
+    zero = torch.zeros_like(packed.img)
+    return pair_ops.PackedPairs(
+        img=torch.where(live, packed.img, zero),
+        sub=torch.where(live, packed.sub, zero),
+        obj=torch.where(live, packed.obj, zero + 1),
+        flat_sub=torch.where(live, packed.flat_sub, zero),
+        flat_obj=torch.where(live, packed.flat_obj, zero + 1),
+        mask=live, count=packed.count,
+        flat_id=torch.where(live, packed.flat_id, zero - 1))
+
+
 def train_losses(model: RelationClassifier, cfg,
                  batch: Dict[str, torch.Tensor], capacity: int,
                  aug_capacity: int,
                  gens: Sequence[torch.Generator], weights: torch.Tensor,
-                 cs_tables=None, chunk_size: int = 0):
+                 cs_tables=None, chunk_size: int = 0, mesh=None):
     """The train step's forward and losses on one batch of tensors (a
     rank's rows under a mesh): the main view packed at `capacity` and,
     when the batch has features_aug, the augmented view's connected pairs
     at `aug_capacity` feeding the hierarchical SupCon term; faithful_losses
     over the scattered grid with training.faithful_dynamics, compute_losses
     otherwise.  `gens` are dropout_generators' four streams.  Returns
-    (total, metrics) with the pair-overflow metrics."""
+    (total, metrics) with the pair-overflow metrics (the valid, and the
+    connected, pairs left out of the buffers).
+
+    With `mesh` the batch is this rank's rows of a global batch and the
+    losses are its share of the global batch's (the global-batch step):
+    the valid and the connected pairs are numbered over the global batch
+    in pack_pairs' image-major order (this rank's offsets from one
+    all-gather of its counts, parallel.mesh.exclusive_prefix), and a pair
+    is kept iff its number is below the global `capacity` (`aug_capacity`);
+    a rank's buffers hold min(capacity, its images' b * n * (n - 1) pairs),
+    as many on every rank, and every kept pair of its own; every rank draws
+    `gens`' masks of the global buffers and keeps its rows (RowBlock); the
+    SupCon term contrasts this rank's
+    anchors with every rank's connected pairs (parallel.mesh.gather_rows);
+    every denominator is the group's (parallel.mesh.global_losses).  Every
+    metric but lr_scale is then this rank's share, which the group's sum
+    makes global."""
     m = cfg.model
     faithful = cfg.training.faithful_dynamics
-    out, packed = forward_pairs(model, batch, capacity,
-                                view="features", generators=gens[:2],
-                                chunk_size=chunk_size)
+    b, n = batch["cats"].shape
+    valid_grid = pair_ops.pair_validity(batch["valid"])
+    conn_grid = valid_grid & (batch["rel"] >= 0)
+    off = off_c = 0
+    buf, buf_c = capacity, aug_capacity
+    if mesh is not None:
+        off, off_c = mesh_lib.exclusive_prefix(
+            mesh, torch.stack([valid_grid.sum(), conn_grid.sum()]))
+        buf = min(capacity, b * n * (n - 1))
+        buf_c = min(aug_capacity, b * n * (n - 1))
+    gens = [_stream(g, capacity, off, chunk_size) for g in gens[:2]] \
+        + [_stream(g, aug_capacity, off_c, chunk_size) for g in gens[2:]]
+    packed = pair_ops.pack_pairs(valid_grid, buf)
+    if mesh is not None:
+        packed = _cut(packed, capacity - off)
+    out, _ = forward_pairs(model, batch, buf, view="features",
+                           generators=gens[:2], packed=packed,
+                           chunk_size=chunk_size)
     targets = pair_targets(batch, packed)
-    loss_contrast = None
     aug_overflow = torch.zeros((), dtype=torch.int32,
                                device=batch["cats"].device)
+    supcon = None
     if "features_aug" in batch:
         # the SupCon loss reads only CONNECTED pairs' hidden states
         # (reference train_utils.py:96-99)
-        conn_grid = pair_ops.pair_validity(batch["valid"]) \
-            & (batch["rel"] >= 0)
-        packed_c = pair_ops.pack_pairs(conn_grid, aug_capacity)
-        aug_overflow = torch.clamp(packed_c.count - aug_capacity, min=0)
+        packed_c = pair_ops.pack_pairs(conn_grid, buf_c)
+        if mesh is not None:
+            packed_c = _cut(packed_c, aug_capacity - off_c)
+        aug_overflow = packed_c.count - packed_c.mask.sum()
         out_aug, _ = forward_pairs(
-            model, batch, aug_capacity, view="features_aug",
+            model, batch, buf_c, view="features_aug",
             generators=gens[2:], packed=packed_c, chunk_size=chunk_size)
         pos, found = pair_ops.align_packings(packed, packed_c)
         feats = torch.stack([out["hidden"][pos.long()],
                              out_aug["hidden"]], dim=1)
+        feats = feats.to(torch.promote_types(feats.dtype, torch.float32))
         labels = torch.clamp(pair_targets(batch, packed_c), min=0)
-        loss_contrast = L.supcon_hierar_loss(
-            feats.to(torch.promote_types(feats.dtype, torch.float32)),
-            labels, found, m.num_geometric, m.num_possessive)
+        supcon = {"features": feats, "labels": labels, "valid": found}
+        if mesh is not None:
+            peers = mesh_lib.all_gather_rows(mesh, {"labels": labels,
+                                                    "valid": found})
+            supcon.update(contrast=(mesh_lib.gather_rows(mesh, feats),
+                                    peers["labels"], peers["valid"]),
+                          offset=mesh.data_index * feats.shape[0])
     if faithful:
-        b, n = batch["cats"].shape
         sup_grid = None
         if m.hierarchical_pred:
             sup_grid = _scatter_grid(out["super_relation"], packed, b, n)
-        total, metrics = L.faithful_losses(
-            m, cfg.training, _scatter_grid(out["relation"], packed, b, n),
-            sup_grid, _scatter_grid(out["connectivity"], packed, b, n),
-            batch["rel"], batch["valid"], weights,
-            sub_cats=batch["cats"], obj_cats=batch["cats"],
-            cs_tables=cs_tables, loss_contrast=loss_contrast)
-    else:
-        total, metrics = compute_losses(m, cfg.training, out, packed,
-                                        targets, weights, cs_tables,
-                                        loss_contrast)
+        grids = (_scatter_grid(out["relation"], packed, b, n), sup_grid,
+                 _scatter_grid(out["connectivity"], packed, b, n))
+
+    def losses(total):
+        loss_contrast = None if supcon is None else L.supcon_hierar_loss(
+            num_geometric=m.num_geometric, num_possessive=m.num_possessive,
+            total=total, **supcon)
+        if faithful:
+            return L.faithful_losses(
+                m, cfg.training, *grids, batch["rel"], batch["valid"],
+                weights, sub_cats=batch["cats"], obj_cats=batch["cats"],
+                cs_tables=cs_tables, loss_contrast=loss_contrast,
+                total=total)
+        return compute_losses(m, cfg.training, out, packed, targets,
+                              weights, cs_tables, loss_contrast, total)
+
+    total, metrics = losses(None) if mesh is None \
+        else mesh_lib.global_losses(mesh, losses)
     # silent pair-dropping is where the static capacity can change
     # results: reported, and warned about by the loop
-    metrics["pair_overflow"] = torch.clamp(
-        packed.count - capacity, min=0).to(torch.float32)
+    metrics["pair_overflow"] = (packed.count
+                                - packed.mask.sum()).to(torch.float32)
     metrics["aug_pair_overflow"] = aug_overflow.to(torch.float32)
     return total, metrics
 
 
 def make_train_step(model: RelationClassifier, cfg, optimizer: SGD,
                     class_weights, cs_tables=None, mesh=None, device=None,
-                    chunk_size: int = 0):
+                    chunk_size: int = 0, global_batch: bool = False):
     """The train step: forward of the main view over all
     valid pairs and, when the batch has features_aug, of the augmented view
     over the connected pairs only (packed at aug_pair_capacity) feeding the
@@ -558,15 +677,28 @@ def make_train_step(model: RelationClassifier, cfg, optimizer: SGD,
     parameters' gradients are then averaged over the model group (one more
     all-reduce, which keeps the replicas bit-identical) and the clip's
     global norm is the unsharded model's.  The update equals the unsharded
-    data-parallel step's, to the rounding of the split sums."""
+    data-parallel step's, to the rounding of the split sums.
+
+    global_batch=True (with a mesh) is the counterpart of the JAX
+    package's GSPMD step (its parallel/tp.py recipe: shard_params, then the
+    mesh-less step on a P('data') batch): the losses are the whole global
+    batch's, so that a step at any (data, model) equals the unsharded step
+    on the global batch, to the rounding of the split sums.  Each rank
+    takes its segment of the global packing at the global capacities
+    (in buffers of its own images' length), draws rank 0's dropout streams at the global width and keeps its rows,
+    and computes its share of every loss over the group's denominators
+    (train_losses(mesh=)); the gradients and the metrics are then summed
+    over the data group, not averaged.  The default, False, is the JAX
+    package's shard_map step, which its fit and CLI run."""
     dev = resolve_device(device if mesh is None else mesh.device)
     disable_tf32()
     model.to(dev)
     tp_lib.shard_module(model, mesh)
     tp = mesh is not None and mesh.model > 1
     faithful = cfg.training.faithful_dynamics
-    shards = 1 if mesh is None else mesh.shape["data"]
-    rank = 0 if mesh is None else mesh.data_index
+    glob = mesh is not None and global_batch
+    shards = 1 if mesh is None or glob else mesh.shape["data"]
+    rank = 0 if mesh is None or glob else mesh.data_index
     capacity = train_pair_capacity(cfg, shards)
     aug_capacity = aug_pair_capacity(cfg, shards)
     allreduce_dtype = getattr(torch, cfg.training.grad_allreduce_dtype)
@@ -588,13 +720,18 @@ def make_train_step(model: RelationClassifier, cfg, optimizer: SGD,
             p.grad = None
         total, metrics = train_losses(
             model, cfg, batch, capacity, aug_capacity, gens, weights,
-            cs_tables, chunk_size)
+            cs_tables, chunk_size, mesh if glob else None)
         total.backward()
         if mesh is None:
             grads = {k: p.grad for k, p in state.params.items()}
         else:
-            grads, metrics = reduce_over_mesh(mesh, state.params, metrics,
-                                              allreduce_dtype)
+            # the global step's lr_scale is the group's already
+            lr_scale = metrics.pop("lr_scale", None) if glob else None
+            grads, metrics = reduce_over_mesh(
+                mesh, state.params, metrics, allreduce_dtype,
+                reduce=mesh_lib.all_sum_ if glob else mesh_lib.all_mean_)
+            if lr_scale is not None:
+                metrics["lr_scale"] = lr_scale
             if tp:
                 tp_lib.mean_replicated_grads_(mesh, state.params, grads)
         # faithful: the dynamic learning rate of the reference's last

@@ -9,15 +9,16 @@ reference's connectivity rebinding and column re-accumulation;
 `faithful_losses` keeps those loop artifacts (training.faithful_dynamics).
 
 `total`, where a loss takes it, maps each detached denominator (a masked
-count or a weight sum of this batch) to the one the mean divides by: the
-data-parallel plug-and-play step passes the group's sum, so that each
-rank's loss is its rows' share of the global batch's loss
-(train/pnp_engine.py); None divides by this batch's own.
+count or a weight sum of this batch, or a grid of them) to the one the mean
+divides by: the data-parallel plug-and-play step and the flagship's
+global-batch step pass the group's sum (parallel.mesh.global_losses), so
+that each rank's loss is its rows' share of the global batch's loss
+(train/pnp_engine.py, train/engine.py); None divides by this batch's own.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -187,7 +188,8 @@ def faithful_losses(model_cfg, train_cfg, relation: torch.Tensor,
                     sub_cats: Optional[torch.Tensor] = None,
                     obj_cats: Optional[torch.Tensor] = None,
                     cs_tables=None,
-                    loss_contrast: Optional[torch.Tensor] = None):
+                    loss_contrast: Optional[torch.Tensor] = None,
+                    total: Total = None):
     """Reference-faithful training dynamics, as masked grid math.
 
     The reference's triangular Python loop computes every loss term as a
@@ -210,7 +212,10 @@ def faithful_losses(model_cfg, train_cfg, relation: torch.Tensor,
     package.  Returns (total, metrics): the plain per-term column sums and
     `lr_scale`, the dynamic-LR factor sqrt(#images at the batch-max object
     count / B) in effect at the reference's optimizer.step()
-    (train_test.py:192)."""
+    (train_test.py:192).  With `total` every per-cell count and weight sum
+    is the group's, and so are a column's connected rows (the rebinding),
+    the batch-max object count and its share of the images (the weights,
+    lr_scale)."""
     m = model_cfg
     b, n = valid.shape
     dt = relation.dtype
@@ -223,9 +228,13 @@ def faithful_losses(model_cfg, train_cfg, relation: torch.Tensor,
     rv = valid[:, :, None] & valid[:, None, :] & ~eye[None]
     connected = rv & (rel_targets >= 0)
 
-    def cell_mean(v, mask):
+    def tot(t):
+        return t if total is None else total(t)
+
+    def cell_mean(v, mask, cnt=None):
         mk = mask.to(dt)
-        cnt = mk.sum(0)
+        if cnt is None:
+            cnt = tot(mk.sum(0))
         return torch.where(cnt > 0, (v * mk).sum(0) / torch.clamp(cnt, min=1),
                            zero)
 
@@ -233,14 +242,15 @@ def faithful_losses(model_cfg, train_cfg, relation: torch.Tensor,
         safe = torch.clamp(tgt, 0, logp.shape[-1] - 1).long()
         nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
         ww = w[safe] * mask.to(dt)
-        wsum = ww.sum(0)
+        wsum = tot(ww.sum(0))
         return torch.where(wsum > 0, (nll * ww).sum(0)
                            / torch.clamp(wsum, min=1e-12), zero)
 
     # connectivity with the rebinding quirk
-    pos_cell = cell_mean(_softplus(-conn_logits), connected)
+    conn_cnt = tot(connected.to(dt).sum(0))
+    pos_cell = cell_mean(_softplus(-conn_logits), connected, conn_cnt)
     neg_cell = cell_mean(_softplus(conn_logits), rv & ~connected)
-    conn_cell = torch.where(connected.any(0), pos_cell,
+    conn_cell = torch.where(conn_cnt > 0, pos_cell,
                             train_cfg.lambda_not_connected * neg_cell)
 
     # relationship per column
@@ -287,8 +297,9 @@ def faithful_losses(model_cfg, train_cfg, relation: torch.Tensor,
             + train_cfg.lambda_cs_strong * cell_mean(probs2, strong)
 
     # triangular re-accumulation weights
-    n_per = valid.sum(1)
-    n_max = n_per.max()
+    # the images by valid-object count (the group's with `total`)
+    hist = tot(F.one_hot(valid.sum(1), n + 1).sum(0).to(dt))
+    n_max = torch.where(hist > 0, torch.arange(n + 1, device=dev), 0).max()
     e_total = (n_max * (n_max - 1)).to(dt)
     i = torch.arange(n, device=dev)[:, None]
     j = torch.arange(n, device=dev)[None, :]
@@ -321,41 +332,67 @@ def faithful_losses(model_cfg, train_cfg, relation: torch.Tensor,
         "num_connected_pred": count(pred_pos),
         "connectivity_precision_hits": count(pred_pos & connected),
         "connectivity_recall_hits": count((prob >= 0.5) & connected),
-        "lr_scale": torch.sqrt((n_per == n_max).to(dt).mean()),
+        "lr_scale": torch.sqrt(hist[n_max] / hist.sum()),
     }
     return total, metrics
+
+
+def _parent(labels: torch.Tensor, num_geometric: int,
+            num_possessive: int) -> torch.Tensor:
+    return torch.where(labels < num_geometric, 0,
+                       torch.where(labels < num_geometric + num_possessive,
+                                   1, 2))
 
 
 def supcon_hierar_loss(features: torch.Tensor, labels: torch.Tensor,
                        valid: torch.Tensor, num_geometric: int,
                        num_possessive: int, temperature: float = 0.07,
-                       base_temperature: float = 0.07) -> torch.Tensor:
+                       base_temperature: float = 0.07, total: Total = None,
+                       contrast: Optional[Tuple[torch.Tensor, torch.Tensor,
+                                                torch.Tensor]] = None,
+                       offset: int = 0) -> torch.Tensor:
     """Hierarchical supervised-contrastive loss (reference
     sup_contrast/losses.py:85-181) with padding masks.
 
     features: (M, 2, D) two views (plain and augmented) of each connected
     pair's hidden state; labels: (M,) relation id; valid: (M,) bool.  Each
     anchor's softmax denominator is restricted to samples whose relation
-    has the same super-category parent."""
-    m, n_views, _ = features.shape
-    parent = torch.where(labels < num_geometric, 0,
-                         torch.where(labels < num_geometric + num_possessive,
-                                     1, 2))
-    feats = torch.where(valid[:, None, None], features, _zero(features))
-    # contrast_feature = cat(unbind(features, dim=1)): view-major
-    z = torch.cat([feats[:, i, :] for i in range(n_views)], dim=0)
-    big_valid = valid.repeat(n_views)
-    big_labels = labels.repeat(n_views)
-    big_parent = parent.repeat(n_views)
+    has the same super-category parent.
 
-    logits = (z @ z.T) / temperature
+    `contrast` (with `total`): (features, labels, valid) of every rank's
+    samples, this batch's at rows [offset, offset + M) (gathered over the
+    data group, the features by parallel.mesh.gather_rows).  The anchors
+    are then this batch's, the samples they contrast with every rank's, and
+    the mean is over the group's valid anchors: the rank's share of the
+    global batch's loss.  Without, the samples are this batch's."""
+    m, n_views, _ = features.shape
+
+    def view_major(features, labels, valid):
+        # contrast_feature = cat(unbind(features, dim=1)): view-major
+        feats = torch.where(valid[:, None, None], features, _zero(features))
+        labels = labels.repeat(n_views)
+        return (torch.cat([feats[:, i, :] for i in range(n_views)], dim=0),
+                labels, _parent(labels, num_geometric, num_possessive),
+                valid.repeat(n_views))
+
+    z, big_labels, big_parent, big_valid = view_major(features, labels,
+                                                      valid)
+    if contrast is None:
+        contrast = (features, labels, valid)
+    mc = contrast[0].shape[0]
+    zc, labels_c, parent_c, valid_c = view_major(*contrast)
+    self_col = torch.cat([torch.arange(m, device=z.device) + v * mc + offset
+                          for v in range(n_views)])
+    not_self = torch.arange(mc * n_views, device=z.device)[None, :] \
+        != self_col[:, None]
+
+    logits = (z @ zc.T) / temperature
     logits = logits - logits.max(dim=1, keepdim=True).values.detach()
 
-    not_self = ~torch.eye(m * n_views, dtype=torch.bool, device=z.device)
-    both_valid = big_valid[:, None] & big_valid[None, :]
-    pos_mask = ((big_labels[:, None] == big_labels[None, :]) & not_self
+    both_valid = big_valid[:, None] & valid_c[None, :]
+    pos_mask = ((big_labels[:, None] == labels_c[None, :]) & not_self
                 & both_valid).to(logits.dtype)
-    den_mask = ((big_parent[:, None] == big_parent[None, :]) & not_self
+    den_mask = ((big_parent[:, None] == parent_c[None, :]) & not_self
                 & both_valid).to(logits.dtype)
 
     exp_logits = torch.exp(logits) * den_mask
@@ -364,4 +401,4 @@ def supcon_hierar_loss(features: torch.Tensor, labels: torch.Tensor,
     mean_log_prob_pos = (pos_mask * log_prob).sum(dim=1) \
         / (pos_mask.sum(dim=1) + 1e-7)
     per_anchor = -(temperature / base_temperature) * mean_log_prob_pos
-    return _masked_mean(per_anchor, big_valid)
+    return _masked_mean(per_anchor, big_valid, total)

@@ -131,34 +131,6 @@ def _device_batch(batch: Dict, dev: torch.device) -> Dict[str, torch.Tensor]:
     return {k: torch.as_tensor(batch[k], device=dev) for k in MODEL_KEYS}
 
 
-class _GlobalTotals:
-    """A step's `total` over a mesh: the data group's sums of every
-    denominator in one all-reduce.  A first pass over the losses (without
-    gradients) records each denominator and returns it as it is; reduce()
-    sums them all, stacked in their widest dtype; the second pass, whose
-    losses are back-propagated, reads the sums in the same order."""
-
-    def __init__(self, mesh):
-        self.mesh = mesh
-        self.seen = []
-        self.sums = None
-        self.read = 0
-
-    def __call__(self, t: torch.Tensor) -> torch.Tensor:
-        if self.sums is None:
-            self.seen.append(t.detach())
-            return t
-        self.read += 1
-        return self.sums[self.read - 1].to(t.dtype)
-
-    def reduce(self) -> None:
-        dtype = self.seen[0].dtype
-        for t in self.seen[1:]:
-            dtype = torch.promote_types(dtype, t.dtype)
-        self.sums = mesh_lib.all_sum_(
-            self.mesh, torch.stack([t.to(dtype) for t in self.seen]))
-
-
 def make_pnp_train_step(predictor: HierarchicalPredictor, cfg,
                         optimizer: engine.SGD, cs_tables=None, mesh=None,
                         device=None):
@@ -183,8 +155,8 @@ def make_pnp_train_step(predictor: HierarchicalPredictor, cfg,
     the batch and the argmax only) is the group's sum, each rank
     back-propagates its rows' numerators over it, and the gradients and the
     metrics are summed over the group (not averaged).  The denominators
-    travel in one all-reduce a step (_GlobalTotals), their losses computed
-    once without gradients to collect them.  The clip and the
+    travel in one all-reduce a step (parallel.mesh.global_losses), their
+    losses computed once without gradients to collect them.  The clip and the
     momentum then act on the global gradient, and every rank applies the
     same update."""
     dev = resolve_device(device if mesh is None else mesh.device)
@@ -252,13 +224,11 @@ def make_pnp_train_step(predictor: HierarchicalPredictor, cfg,
         for p in state.params.values():
             p.grad = None
         out = _forward(predictor, batch)
-        total = None
-        if mesh is not None:
-            total = _GlobalTotals(mesh)
-            with torch.no_grad():
-                losses(batch, out, total)
-            total.reduce()
-        loss, metrics = losses(batch, out, total)
+        if mesh is None:
+            loss, metrics = losses(batch, out, None)
+        else:
+            loss, metrics = mesh_lib.global_losses(
+                mesh, lambda total: losses(batch, out, total))
         loss.backward()
         if mesh is None:
             grads = {k: p.grad for k, p in state.params.items()}

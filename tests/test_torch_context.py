@@ -23,6 +23,7 @@ import torch
 
 from scene_graph_commonsense_tpu.models import context as jctx
 from scene_graph_commonsense_tpu.models.predictors import (
+    BiasedBayesHead as JaxBiasedBayesHead,
     FrequencyBias as JaxFrequencyBias,
     HierarchicalPredictor as JaxPredictor)
 from scene_graph_commonsense_tpu.models.relation_head import (
@@ -30,7 +31,7 @@ from scene_graph_commonsense_tpu.models.relation_head import (
 from scene_graph_commonsense_torch.models import context
 from scene_graph_commonsense_torch.models import weights
 from scene_graph_commonsense_torch.models.predictors import (
-    FrequencyBias, HierarchicalPredictor)
+    BiasedBayesHead, FrequencyBias, HierarchicalPredictor)
 from scene_graph_commonsense_torch.models.relation_head import BayesianHead
 
 B, N, D, C, DU, H, PD = 3, 6, 16, 10, 12, 8, 16
@@ -265,3 +266,12 @@ def test_torch_bayesian_head_and_frequency_bias_match_jax():
     tf.double()
     tf.load_state_dict(weights.predictor_from_flax(fp))
     _close(tf(*_t(sub, obj)), want, 0.0)
+
+
+def test_torch_biased_bayes_head_is_the_bayesian_head():
+    """models/predictors.BiasedBayesHead is the standalone BayesianHead in
+    both packages (one implementation, the frequency bias its optional
+    `bias`), so test_torch_bayesian_head_and_frequency_bias_match_jax holds
+    it against JAX's."""
+    assert JaxBiasedBayesHead is JaxBayesianHead
+    assert BiasedBayesHead is BayesianHead

@@ -8,7 +8,9 @@ twice with its top-2 classes, as the post-process gives them).
 Tolerances: float64 (JAX with x64 on) on the same flax weights; R@k, mR@k
 and zsR@k equal; matched labels, slot grids and keep masks exact, matched
 confidences within 1e-7 (float32).  Also the CLI's --eval_mode sgd
---synthetic exit, main.py's."""
+--synthetic exit, main.py's; and OIv6 SGCLS / SGDET, which the port refuses
+(VG's 151-entry class remap has no OIv6 counterpart; JAX's gather clamps
+every OIv6 class from 150 on to 150)."""
 
 import dataclasses
 import sys
@@ -17,6 +19,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 sys.path.insert(0, "tests")
 from test_engine import init_params  # noqa: E402
@@ -31,10 +34,14 @@ from scene_graph_commonsense_tpu.eval import builders as jax_builders  # noqa
 from scene_graph_commonsense_tpu.eval import engines as jax_engines  # noqa
 from scene_graph_commonsense_tpu.models.relation_head import (  # noqa: E402
     make_relation_classifier)
+from scene_graph_commonsense_tpu.ops import detection as jax_detection  # noqa
+from scene_graph_commonsense_torch import config as torch_config  # noqa
+from scene_graph_commonsense_torch.constants import OBJ_ALP2FRE  # noqa: E402
 from scene_graph_commonsense_torch.data.artifacts import (  # noqa: E402
     load_vg_artifacts)
 from scene_graph_commonsense_torch.eval import builders  # noqa: E402
 from scene_graph_commonsense_torch.eval import engines  # noqa: E402
+from scene_graph_commonsense_torch.ops import detection  # noqa: E402
 
 
 def _detections(rng, batch, num_classes):
@@ -160,3 +167,55 @@ def test_torch_cli_sgd_synthetic_exits_as_main(tmp_path):
                    "--synthetic", "2", "--device", "cpu")
         assert res.returncode != 0
         assert "sgc/sgd need detector outputs" in res.stderr
+
+
+def test_torch_oiv6_detection_remap_is_refused():
+    """An OIv6 detector has 602 logits, VG's class remap 151 entries: JAX's
+    gather clamps the index, so every OIv6 class from 150 on becomes class
+    150 (the classes below go through VG's permutation); torch's indexing
+    raises.  The port refuses OIv6 SGCLS / SGDET before it detects:
+    make_detr_detect_fn (which run_eval_sgc / run_eval_sgd take their
+    detections from) raises the ValueError naming the remap and the
+    detector's class count, and the CLI exits with it before it builds the
+    detector."""
+    oiv6 = torch_config.derive("oiv6")
+    classes = oiv6.model.num_classes + 1
+    assert classes == 602 and len(OBJ_ALP2FRE) == 151
+    top = np.array([3, 149, 150, 151, 400, 601])
+    logits = np.full((1, len(top), classes), -10.0, np.float32)
+    logits[0, np.arange(len(top)), top] = 10.0
+    logits[0, np.arange(len(top)), (top + 1) % classes] = 9.0
+    # apart, so that the class-aware NMS keeps every query's classes
+    boxes = np.array([[[0.1 + 0.15 * i, 0.5, 0.1, 0.1]
+                       for i in range(len(top))]], np.float32)
+    with jax.default_device(jax.devices("cpu")[0]):
+        jax_cats = jnp.asarray(OBJ_ALP2FRE)[jnp.asarray(top)]
+        det = jax_detection.postprocess_detections(
+            jnp.asarray(logits), jnp.asarray(boxes), OBJ_ALP2FRE,
+            num_classes=classes - 1, max_objects=2 * len(top))
+    np.testing.assert_array_equal(
+        np.asarray(jax_cats), [OBJ_ALP2FRE[3], OBJ_ALP2FRE[149], 150, 150,
+                               150, 150])
+    got = np.asarray(det["cats"])[np.asarray(det["valid"])]
+    assert set(got) <= set(OBJ_ALP2FRE.tolist())
+    # the top-1 of the queries at 150, 151 and 400 (601 is no object)
+    assert (got == 150).sum() >= 3
+    with pytest.raises(IndexError):
+        detection.postprocess_detections(
+            torch.as_tensor(logits), torch.as_tensor(boxes), OBJ_ALP2FRE,
+            num_classes=classes - 1, max_objects=2 * len(top))
+    for cfg in (oiv6, oiv6.replace(training=dataclasses.replace(
+            oiv6.training, eval_mode="sgc"))):
+        with pytest.raises(ValueError, match="151-entry OBJ_ALP2FRE.*602"):
+            engines.make_detr_detect_fn(cfg, None)
+    engines.check_detector_classes(torch_config.derive("vg"))
+
+
+@pytest.mark.parametrize("mode", ["sgd", "sgc"])
+def test_torch_cli_oiv6_detection_exits(tmp_path, mode):
+    res = _cli(tmp_path, "--dataset", "oiv6", "--run_mode", "eval",
+               "--eval_mode", mode, "--device", "cpu")
+    assert res.returncode != 0
+    assert "no class remap is defined" in res.stderr
+    assert "602 classes" in res.stderr
+    assert "DETR" not in res.stdout

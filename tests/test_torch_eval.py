@@ -20,6 +20,8 @@ import torch
 sys.path.insert(0, "tests")
 from test_engine import tiny_cfg, init_params  # noqa: E402
 
+from scene_graph_commonsense_tpu import constants as jax_constants  # noqa
+from scene_graph_commonsense_tpu.data import artifacts as jax_artifacts  # noqa
 from scene_graph_commonsense_tpu.data.artifacts import (  # noqa: E402
     load_vg_artifacts as jax_load_artifacts)
 from scene_graph_commonsense_tpu.data.synthetic import (  # noqa: E402
@@ -31,6 +33,8 @@ from scene_graph_commonsense_tpu.models.relation_head import (  # noqa: E402
     make_relation_classifier)
 from scene_graph_commonsense_tpu.train import engine as jax_engine  # noqa
 from scene_graph_commonsense_torch import config as torch_config  # noqa
+from scene_graph_commonsense_torch import constants  # noqa: E402
+from scene_graph_commonsense_torch.data import artifacts  # noqa: E402
 from scene_graph_commonsense_torch.__main__ import (  # noqa: E402
     _result_view, synthetic_batches)
 from scene_graph_commonsense_torch.data.artifacts import (  # noqa: E402
@@ -222,3 +226,47 @@ def test_torch_cli_refuses_unported_modes(tmp_path):
         res = _cli(tmp_path, *args, "--device", "cpu")
         assert res.returncode != 0
         assert msg in res.stderr
+
+
+def test_torch_triplet_ids_and_label_spaces_match_jax():
+    """constants.triplet_id and NUM_TRIPLET_IDS_VG, the GQA label space
+    (GQA_OBJECTS, GQA_RELATIONS, GQA_LABEL2SUPER) and the 3DSSG CLIP
+    clustering (REL_3DSSG_CLIP_INDEX) equal the JAX package's;
+    triplet_id numbers the table triplet_table_from_ids fills."""
+    rng = np.random.default_rng(5)
+    sub, obj = rng.integers(0, 150, (2, 40))
+    rel = rng.integers(0, 50, 40)
+    got = constants.triplet_id(sub, rel, obj)
+    np.testing.assert_array_equal(got, jax_constants.triplet_id(sub, rel,
+                                                                obj))
+    np.testing.assert_array_equal(
+        constants.triplet_id(sub, rel, obj, 10, 7),
+        jax_constants.triplet_id(sub, rel, obj, 10, 7))
+    assert constants.NUM_TRIPLET_IDS_VG == jax_constants.NUM_TRIPLET_IDS_VG
+    table = artifacts.triplet_table_from_ids(sub, rel, obj)
+    assert table.shape == (constants.NUM_TRIPLET_IDS_VG,)
+    assert set(np.flatnonzero(table)) == set(got.tolist())
+    assert constants.GQA_OBJECTS == jax_constants.GQA_OBJECTS
+    assert constants.GQA_RELATIONS == jax_constants.GQA_RELATIONS
+    assert constants.GQA_LABEL2SUPER == jax_constants.GQA_LABEL2SUPER
+    assert len(constants.GQA_OBJECTS) == len(constants.GQA_LABEL2SUPER)
+    np.testing.assert_array_equal(constants.REL_3DSSG_CLIP_INDEX,
+                                  jax_constants.REL_3DSSG_CLIP_INDEX)
+    assert constants.REL_3DSSG_CLIP_INDEX.dtype == np.int32
+
+
+def test_torch_triplet_strings_and_default_sub2super_match_jax():
+    """data/artifacts.parse_triplet_strings (the reference's 'sub_rel_obj'
+    keys) and default_sub2super equal the JAX package's."""
+    keys = ["0_0_0", "149_49_149", "12_3_7", "5_10_5"]
+    got = artifacts.parse_triplet_strings(keys)
+    want = jax_artifacts.parse_triplet_strings(keys)
+    assert got.keys() == want.keys() == {"sub", "rel", "obj"}
+    for k in want:
+        assert got[k].dtype == want[k].dtype
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    for args in ((), (10, 4)):
+        g = artifacts.default_sub2super(*args)
+        w = jax_artifacts.default_sub2super(*args)
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)

@@ -621,9 +621,11 @@ def test_torch_cli_epochs_and_mesh_flags_match_main(monkeypatch):
 def test_torch_dryrun_multichip_two_processes(capfd):
     """The dryrun_multichip counterpart over 2 gloo processes: one
     data-parallel train step, one sharded eval step and the dp x tp leg's
-    train step on a (1, 2) mesh, each finite."""
+    two train steps on a (1, 2) mesh (the shard_map step and the
+    global-batch step), each finite."""
     assert dryrun_multichip(2, "cpu", timeout=240) == 0
     out = capfd.readouterr().out
     assert "dryrun_multichip(2) dp ok: loss=" in out
     assert "sharded eval ok" in out
     assert "dryrun_multichip(2) dp x tp (1x2) ok: loss=" in out
+    assert "dryrun_multichip(2) dp x tp global batch (1x2) ok: loss=" in out

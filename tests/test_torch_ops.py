@@ -95,3 +95,34 @@ def test_torch_config_and_synthetic_copies_match_jax():
     assert bj.keys() == bt.keys()
     for k in bj:
         np.testing.assert_array_equal(bt[k], bj[k], err_msg=k)
+
+
+def test_torch_gather_pair_box_area_and_mask_iou_oracle_match_jax(rng):
+    """ops/pairs.gather_pair (both endpoints, per-object values of two
+    ranks), ops/boxes.box_area and reference_mask_iou_numpy equal the JAX
+    package's; the oracle agrees with the closed-form mask_iou."""
+    b, n, size = 4, 6, 16
+    ok = _valid(rng, b, n)
+    pj = jpairs.pack_pairs(jpairs.pair_validity(jnp.asarray(ok)), 50)
+    pt = tpairs.pack_pairs(tpairs.pair_validity(torch.from_numpy(ok)), 50)
+    for values in (rng.standard_normal((b, n)).astype(np.float32),
+                   rng.standard_normal((b, n, 3)).astype(np.float32)):
+        for which in ("sub", "obj"):
+            np.testing.assert_array_equal(
+                tpairs.gather_pair(torch.from_numpy(values), pt,
+                                   which).numpy(),
+                np.asarray(jpairs.gather_pair(jnp.asarray(values), pj,
+                                              which)), err_msg=which)
+    boxes = _boxes(rng, (5, 7), size)
+    np.testing.assert_array_equal(
+        tbox.box_area(torch.from_numpy(boxes), size).numpy(),
+        np.asarray(jbox.box_area(boxes, size)))
+    a, c = boxes[0], boxes[1]
+    iou = tbox.mask_iou(torch.from_numpy(a), torch.from_numpy(c),
+                        size).numpy()
+    for i in range(len(a)):
+        got = tbox.reference_mask_iou_numpy(np.clip(a[i], 0, None),
+                                            np.clip(c[i], 0, None), size)
+        assert got == jbox.reference_mask_iou_numpy(
+            np.clip(a[i], 0, None), np.clip(c[i], 0, None), size)
+        np.testing.assert_allclose(got, iou[i], atol=1e-6)

@@ -18,11 +18,13 @@ from test_engine import tiny_cfg, init_params  # noqa: E402
 from scene_graph_commonsense_tpu.data.synthetic import (  # noqa: E402
     synthetic_batch)
 from scene_graph_commonsense_tpu.models.relation_head import (  # noqa: E402
-    RelationClassifier as JaxRelationClassifier, make_relation_classifier)
+    RelationClassifier as JaxRelationClassifier, assemble_object_stack,
+    make_relation_classifier)
 from scene_graph_commonsense_tpu.models.weights import (  # noqa: E402
     convert_relation_state_dict)
 from scene_graph_commonsense_tpu.ops import boxes as jbox  # noqa: E402
 from scene_graph_commonsense_torch import config as torch_config  # noqa: E402
+from scene_graph_commonsense_torch.models import relation_head  # noqa
 from scene_graph_commonsense_torch.models import weights  # noqa: E402
 from scene_graph_commonsense_torch.models.relation_head import (  # noqa: E402
     make_relation_classifier as make_torch_classifier)
@@ -187,3 +189,20 @@ def test_torch_init_params_matches_flax_layout(flax_params):
     assert abs(float(sd["emb_c1.weight"].std()) * np.sqrt(512) - 1) < 0.05
     again = weights.init_params(tc, torch.Generator().manual_seed(1))
     assert all(torch.equal(sd[k], again[k]) for k in sd)
+
+
+def test_torch_assemble_object_stack_matches_jax(rng):
+    """assemble_object_stack: each object's masked features and depth, as
+    the JAX package stacks them (reference train_test.py:195-204)."""
+    b, n, s_, c = 2, 3, 8, 5
+    features = rng.standard_normal((b, s_, s_, c))
+    depth = rng.random((b, s_, s_, 1))
+    masks = (rng.random((b, n, s_, s_)) < 0.4).astype(np.float64)
+    with jax.enable_x64():
+        want = np.asarray(assemble_object_stack(
+            jnp.asarray(features), jnp.asarray(depth), jnp.asarray(masks)))
+    got = relation_head.assemble_object_stack(
+        torch.from_numpy(features), torch.from_numpy(depth),
+        torch.from_numpy(masks)).numpy()
+    assert got.shape == want.shape == (b, n, s_, s_, c + 1)
+    np.testing.assert_array_equal(got, want)

@@ -1,7 +1,7 @@
 """One rank of the port's data- and tensor-parallel CPU tests
 (tests/test_torch_mesh.py, tests/test_torch_mesh_detect.py,
 tests/test_torch_mesh_pnp.py, tests/test_torch_tp.py,
-tests/test_torch_mesh_tp.py).
+tests/test_torch_mesh_tp.py, tests/test_torch_tp_global.py).
 
     python tests/torch_mesh_worker.py WORK_DIR RANK
 
@@ -310,14 +310,16 @@ def tp_layout(mesh, sc):
 
 def tp_train(mesh, sc):
     """make_train_step(mesh=) with the model axis: the step shards the
-    model, the TrainState is built after it.  Per step: the gathered
-    parameters (rank 0), the metrics and whether the replicas agree."""
+    model, the TrainState is built after it; sc["global_batch"] picks the
+    global-batch step.  Per step: the gathered parameters (rank 0), the
+    metrics and whether the replicas agree."""
     cfg = sc["cfg"]
     model = _model(cfg, sc["state_dict"], sc["dtype"])
     opt = engine.make_optimizer(1e-3, grad_clip_norm=sc["clip"])
     step = engine.make_train_step(
         model, cfg, opt, class_weights("vg", faithful=sc["faithful"]),
-        mesh=mesh, chunk_size=sc.get("chunk", 0))
+        mesh=mesh, chunk_size=sc.get("chunk", 0),
+        global_batch=sc.get("global_batch", False))
     state = engine.init_train_state(model, opt)
     trail = []
     for b in sc["batches"]:
@@ -358,11 +360,35 @@ def tp_fit(mesh, sc):
             "step": state.step}
 
 
+def collectives(mesh, sc):
+    """parallel.mesh's global-batch collectives on rank-dependent inputs:
+    exclusive_prefix of the counts (data index + 1, 10 * (data index + 1)),
+    gather_rows of a (2, 3) block of float64 with its gradient under the
+    loss sum(gathered * weights), and global_losses of a ratio whose
+    denominator is the group's."""
+    i = mesh.data_index
+    offsets = mesh_lib.exclusive_prefix(
+        mesh, torch.tensor([i + 1, 10 * (i + 1)]))
+    t = (torch.arange(6, dtype=torch.float64).reshape(2, 3) + 100 * i) \
+        .requires_grad_()
+    gathered = mesh_lib.gather_rows(mesh, t)
+    weights_ = torch.arange(gathered.numel(), dtype=torch.float64) \
+        .reshape(gathered.shape)
+    (gathered * weights_).sum().backward()
+    x = torch.tensor([1.0, 2.0, 3.0], dtype=torch.float64) * (i + 1)
+    share = mesh_lib.global_losses(
+        mesh, lambda total: x.sum() / total(torch.tensor(
+            float(x.numel()), dtype=torch.float64)))
+    return {"offsets": offsets,
+            "gathered": gathered.detach(), "grad": t.grad, "share": share}
+
+
 SCENARIOS = {"train": train_steps, "eval": eval_step, "fit": fit,
              "cli": cli_runs, "detect": detect, "sg_eval": sg_eval,
              "predictor": predictor, "pnp_eval": pnp_eval,
              "pnp_train": pnp_train, "tp_layout": tp_layout,
-             "tp_train": tp_train, "tp_eval": tp_eval, "tp_fit": tp_fit}
+             "tp_train": tp_train, "tp_eval": tp_eval, "tp_fit": tp_fit,
+             "collectives": collectives}
 
 
 def main():
