@@ -48,7 +48,15 @@ Phases, each printing JSON lines:
               trunks, the encoder, the kernels (each kernel group must
               hold device time) and the relation head, and
               the fused trunk's per-stage split (CUDA events over chained
-              prefixes, `upto`).
+              prefixes, `upto`).  Then model.image_size 1020 (even, not
+              divisible by 8) with the same DETR: encode_12 of 12 seeded
+              1020^2 images (CUDA events over 3, features (12, 32, 32,
+              256) finite, its device split) and predict from them, each
+              encode exactly 1 stem-pool kernel (K6, after the plain stem
+              conv), 30 stride-1 and 2 stride-2 bottleneck kernels (the
+              odd 255^2 layer2 transition runs the plain block) and 6 of
+              each encoder kernel; K6's launches in the summary are this
+              predict's.
   8. detect:  SGDET/SGCLS detection at full width (the featurizer's DETR-101
               plus 6 decoder layers, 100 queries, 151 classes, bf16, seeded
               random weights, the default config) through load_detr
@@ -441,6 +449,14 @@ KERNELS = {
 # one attention and one FFN per encoder layer
 PER_ENCODE = {"stem_conv_pool": 1, "bottleneck": 30, "bottleneck_s2": 3,
               "ffn_ln": 6, "attention": 6}
+# model.image_size 1020 (even, not divisible by 8; 32^2 features as at
+# 1024): models/resnet_fused.py runs the plain 7x7/2 conv, then K6 (510^2
+# -> 255^2); layer2_0 takes the odd 255^2 map and runs the plain block, so
+# one stride-2 kernel fewer (layer3_0 at 128^2, layer4_0 at 64^2); 30
+# stride-1 blocks and the encoder as at 1024
+SIZE_K6 = 1020
+PER_ENCODE_K6 = {"stem_pool": 1, "bottleneck": 30, "bottleneck_s2": 2,
+                 "ffn_ln": 6, "attention": 6}
 # the detection canvas (data.nonsq_canvas) and the launches per detect
 # dispatch of 12 canvases: the stem (1000 % 8 == 0), 30 stride-1 blocks at
 # 250^2, 125^2, 63^2 and 32^2, K4 at layer2_0 only (layer3_0 and layer4_0
@@ -1300,11 +1316,18 @@ def phase_kernel_trunk():
         got = stem.stem_pool_kernel(conv, fold)
         want = stem.stem_pool_plain(conv, fold)
         torch.cuda.synchronize()
+        if stem.last_pool_kernel != "stem_pool_hopper":
+            raise AssertionError(f"stem_pool ran {stem.last_pool_kernel} at "
+                                 f"{tuple(conv.shape)} {dtype}")
         if not torch.equal(got, want):
             raise AssertionError(f"stem_pool kernel != plain ({dtype}): "
                                  f"{(got.float() - want.float()).abs().max()}")
         nchw = conv.permute(0, 3, 1, 2)
         rec = {"shape": list(conv.shape), "dtype": str(dtype)[6:],
+               "kernel": stem.last_pool_kernel,
+               "tile": [stem.POOL_ROWS, stem.POOL_COLS,
+                        min(conv.shape[3],
+                            stem.POOL_CHUNK_BYTES // conv.element_size())],
                "max_abs_err": 0.0, "exact": True,
                **trunk_timing(
                    lambda: stem.stem_pool_kernel(conv, fold),
@@ -1428,9 +1451,11 @@ def device_profile(fn, n, top_ops=16, groups=None):
     fn runs twice with the tracer on, a warm-up and the call that counts,
     marked by a record_function range: only what starts inside it is
     counted.  A trace at times lacked the first kernel of its window or of
-    such a range (the fused trunk's stem kernel, an encode's first), as if
-    the device's clock ran behind the host's: the warm-up and a pause after
-    the mark keep that kernel in."""
+    such a range (the fused trunk's stem kernel, an encode's first): the
+    trace's device times drift from its host times by milliseconds, so
+    device events are counted from the range's own device span (its first
+    kernel's start, on the device's clock) where the trace holds one; the
+    warm-up and the pause keep the warm-up's kernels apart."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -1438,22 +1463,26 @@ def device_profile(fn, n, top_ops=16, groups=None):
         fn()
         torch.cuda.synchronize()
         with record_function(PROFILED):
-            # the trace's host and device clocks agree to some tens of
-            # microseconds: a pause keeps the first kernel after the mark
+            # a pause keeps the warm-up's kernels apart from the range's
             time.sleep(0.005)
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
     events = prof.events()
-    # the range's host event (on the card the profiler adds its device
-    # span under the same name)
+    # the range's host event, and the device span the profiler adds under
+    # the same name (its kernels' first start); 1 ms of margin before the
+    # span, which the 5 ms pause keeps clear of the warm-up's kernels
     marks = [e.time_range.start for e in events
              if e.name == PROFILED and e.device_type == DeviceType.CPU]
     if len(marks) != 1:
         raise AssertionError(f"the trace holds {len(marks)} marked ranges")
-    events = [e for e in events
-              if e.time_range.start >= marks[0] and e.name != PROFILED]
+    spans = [e.time_range.start for e in events
+             if e.name == PROFILED and e.device_type == DeviceType.CUDA]
+    device_start = min(spans) - 1000 if spans else marks[0]
+    events = [e for e in events if e.name != PROFILED and e.time_range.start
+              >= (device_start if e.device_type == DeviceType.CUDA
+                  else marks[0])]
     kernels = {}
     for e in events:
         if e.device_type == DeviceType.CUDA:
@@ -1629,8 +1658,9 @@ def image_batches(rng, n, batch_size, image_size, with_aug):
 def phase_featurize():
     """The live DETR-101 featurizer at full width through the port's entry
     points, with the default config (fused trunk and encoder kernels on the
-    card).  Returns the trunk and encoder kernels' launches over one
-    serving call (predict from 12 images)."""
+    card), at model.image_size 1024 and SIZE_K6.  Returns the trunk and
+    encoder kernels' launches over one serving call (predict from 12
+    images; K6's at SIZE_K6, the others' at 1024)."""
     torch.cuda.empty_cache()
     cfg = config_lib.derive("vg", hierarchical_pred=True, run_mode="eval",
                             training={"batch_size": 12})
@@ -1772,6 +1802,73 @@ def phase_featurize():
     del features, head_batch, predictor
     torch.cuda.empty_cache()
 
+    # model.image_size 1020: encode_12 and predict from the same 12 images,
+    # through the plain stem conv and K6 (PER_ENCODE_K6)
+    cfg_k6 = config_lib.derive("vg", hierarchical_pred=True, run_mode="eval",
+                               training={"batch_size": 12},
+                               model={"image_size": SIZE_K6})
+    request = next(image_batches(rng, 1, 12, SIZE_K6, with_aug=False))
+    x_k6 = torch.from_numpy(request["image"]).cuda()
+    feats = encode(x_k6)                                # warm-up
+    torch.cuda.synchronize()
+    if feats.shape != (12, 32, 32, 256) \
+            or not bool(torch.isfinite(feats).all()):
+        raise AssertionError(f"encode_12 at {SIZE_K6}^2: features "
+                             f"{tuple(feats.shape)}, finite "
+                             f"{bool(torch.isfinite(feats).all())}")
+    del feats
+    reps = 3
+    reset_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        encode(x_k6)
+    end.record()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = expected(**{k: v * reps for k, v in PER_ENCODE_K6.items()})
+    if counts != want:
+        raise AssertionError(f"encode_12 at {SIZE_K6}^2: launches over "
+                             f"{reps} encodes {counts}, expected {want}")
+    ms = start.elapsed_time(end) / reps
+    # beside the 1024^2 encode_12, in turns 1024, 1020, 1020, 1024 (CUDA
+    # events over 3 after 2 warm-ups each)
+    turns = {1024: [], SIZE_K6: []}
+    for side, x in ((1024, x12), (SIZE_K6, x_k6), (SIZE_K6, x_k6),
+                    (1024, x12)):
+        turns[side].append(cuda_ms(lambda x=x: encode(x), 3))
+    k6_groups = {**kernel_groups, "stem_pool": ("stem_pool_hopper",
+                                                "stem_pool_kernel")}
+    prof_k6 = device_profile(lambda: encode(x_k6), 1, groups=k6_groups)
+    timing_k6 = {"image_size": SIZE_K6, "ms": ms, "ms_per_image": ms / 12,
+                 "launches": counts, "stem_pool_kernel": stem.last_pool_kernel,
+                 "encode_12_ms_in_turns": {str(k): v for k, v in turns.items()},
+                 "device_ms": prof_k6["device_ms_per_call"],
+                 "group_ms": prof_k6["group_ms_per_call"]}
+    predictor = SceneGraphPredictor(cfg_k6, model, detr_model=detr,
+                                    device="cuda")
+    predictor.predict(request, top_k=50)                # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    graphs_k6 = predictor.predict(request, top_k=50)
+    torch.cuda.synchronize()
+    timing_k6["predict_s"] = time.perf_counter() - t0
+    predict_k6 = read_counts()
+    if predict_k6 != expected(**PER_ENCODE_K6, pair_pool=1):
+        raise AssertionError(f"predict at {SIZE_K6}^2 launched {predict_k6}")
+    if len(graphs_k6) != 12 or not sum(len(g) for g in graphs_k6) \
+            or not all(np.isfinite(e["confidence"])
+                       for g in graphs_k6 for e in g):
+        raise AssertionError(f"predict at {SIZE_K6}^2: no or non-finite "
+                             f"edges")
+    timing_k6["predict_launches"] = predict_k6
+    emit({"phase": "featurize_k6", "batch_size": 12, **timing_k6,
+          "encode_12_1024_ms": timing["encode_12"]["ms"]})
+    del predictor, x_k6, request
+    torch.cuda.empty_cache()
+
     # training: fit with the featurizer, 2 steps, both views in one
     # 2B dispatch per step
     with tempfile.TemporaryDirectory() as tmp:
@@ -1819,10 +1916,11 @@ def phase_featurize():
           "profile_trunk_unfused_12": prof_trunk_unfused,
           "profile_relation_head": prof_head,
           "fit_steps": steps, "fit_s": fit_s, "fit_launches": fit_launches,
-          "fit_lines": lines})
+          "fit_lines": lines, "image_size_k6": timing_k6})
     del detr, fmodel
     torch.cuda.empty_cache()
-    return {k: predict_launches[k] for k in PER_ENCODE}
+    return {**{k: predict_launches[k] for k in PER_ENCODE},
+            "stem_pool": predict_k6["stem_pool"]}
 
 
 def detection_canvases(rng, regions, canvas=(CANVAS, CANVAS)):
@@ -2312,7 +2410,7 @@ def phase_parity():
     emit({"phase": "parity_encode", "image": [1024, 512], "tokens": 512,
           "detr_blocks": [1, 1, 1, 1], "encoder_layers": 2,
           "max_abs_err": enc_err, "tolerance": 1e-4})
-    return phase_parity_trunk()
+    phase_parity_trunk()
 
 
 def phase_parity_trunk():
@@ -2320,8 +2418,7 @@ def phase_parity_trunk():
     versions), float32, blocks (1, 1, 1, 1) at full width, seeded random
     weights and frozen-BN statistics, on a 1024x512 image (the stem
     kernel, K3, K4 at every transition) and a 1020x508 one (the plain stem
-    conv and K6, the plain fallback at the odd layer2 transition, K3, K4).
-    Returns K6's launches."""
+    conv and K6, the plain fallback at the odd layer2 transition, K3, K4)."""
     blocks = (1, 1, 1, 1)
     tcfg = config_lib.derive("vg", model={"detr_blocks": blocks,
                                           "compute_dtype": "float32"})
@@ -2346,7 +2443,6 @@ def phase_parity_trunk():
                                     bottleneck_s2=3)),
              ((1020, 508), expected(stem_pool=1, bottleneck=1,
                                     bottleneck_s2=2)))
-    k6 = 0
     for (h, w), want in cases:
         image = torch.from_numpy(full[:, :h, :w].copy())
         outs = {}
@@ -2360,7 +2456,6 @@ def phase_parity_trunk():
                 if counts != want:
                     raise AssertionError(f"card trunk {h}x{w} launched "
                                          f"{counts}, expected {want}")
-                k6 += counts["stem_pool"]
         scale = outs["cpu"].abs().max().item()
         err = (outs["cuda"] - outs["cpu"]).abs().max().item()
         # sums of up to 9 * 512 float32 products in another order, through
@@ -2372,7 +2467,6 @@ def phase_parity_trunk():
               "detr_blocks": list(blocks), "shape": list(outs["cpu"].shape),
               "max_abs_err": err, "scale": scale,
               "tolerance": f"{TRUNK_F32_TOL} x scale", "launches": want})
-    return k6
 
 
 def image_names(paths):
@@ -5550,10 +5644,8 @@ def main():
         with timed_phase("detect"):
             phase_detect(info["exp_per_s"])
     if "parity" in phases:
-        # K6 runs on the fallback for images that are even but not
-        # divisible by 8, not at 1024^2: its count is the parity run's
         with timed_phase("parity"):
-            launches["stem_pool"] = phase_parity()
+            phase_parity()
     for name, fn in (("real_data", phase_real_data),
                      ("offline", phase_offline),
                      ("commonsense", phase_commonsense)):

@@ -158,21 +158,31 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A bfloat16 tensor map with TMA's 128-byte swizzle: dims innermost first,
-// strides (bytes) of dims 1.., box extents.
+// A tensor map of element type `type` and TMA swizzle `swizzle`: dims
+// innermost first, strides (bytes) of dims 1.., box extents.  Elements
+// outside the tensor load as zeros.
 inline CUresult tensor_map(CUtensorMap* map, const void* base, int rank,
                            const cuuint64_t* dims, const cuuint64_t* strides,
-                           const cuuint32_t* box) {
+                           const cuuint32_t* box, CUtensorMapDataType type,
+                           CUtensorMapSwizzle swizzle) {
   const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) {
     return CUDA_ERROR_NOT_FOUND;
   }
-  return encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
-      dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return encode(map, type, rank, const_cast<void*>(base), dims, strides, box,
+                unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// A bfloat16 tensor map with TMA's 128-byte swizzle.
+inline CUresult tensor_map(CUtensorMap* map, const void* base, int rank,
+                           const cuuint64_t* dims, const cuuint64_t* strides,
+                           const cuuint32_t* box) {
+  return tensor_map(map, base, rank, dims, strides, box,
+                    CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                    CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // A (rows, cols) row-major matrix in boxes of 64 columns x box_rows rows.

@@ -1,10 +1,12 @@
-// The ResNet stem of the DETR-101 trunk.  Three kernels behind two plain C
+// The ResNet stem of the DETR-101 trunk.  Four kernels behind two plain C
 // entry points for ctypes:
 //
 //   sgc_stem_conv_pool   out = cd(maxpool3x3/2(relu(BN(conv7x7/2(cd(img))))))
 //                        bfloat16: stem_conv_pool_hopper; float32:
 //                        stem_conv_pool_kernel<float>
 //   sgc_stem_pool        out = cd(maxpool3x3/2(relu(BN(f32(conv_out)))))
+//                        stem_pool_hopper<T>, or stem_pool_kernel<T> where
+//                        TMA cannot read conv_out
 //
 // sgc_stem_conv_pool replaces `_conv_pool_kernel` of
 // scene_graph_commonsense_tpu/ops/pallas/stem.py (through
@@ -68,14 +70,43 @@
 // keeps the post-ReLU conv tile in shared memory and pools it there.
 //
 // sgc_stem_pool replaces the TPU `_kernel` of the same file (through
-// `stem_pool`), used where the image is even but not divisible by 8:
-// conv_out (B, H, W, C) with H and W even, in the compute dtype; s (2, C);
-// out (B, H/2, W/2, C).  BN is a multiply then an add, each rounded
-// (__fmul_rn / __fadd_rn: no FMA contraction), so the kernel equals the
-// plain version exactly.  Bound: bytes (read conv_out once, write out
-// once: 0.149 ms at (12, 510, 510, 64) bf16).  One thread per output
-// element; the 2.25x re-reads of overlapping windows hit L1/L2.
+// `stem_pool`), used where the image is even but not divisible by 8 (a
+// model.image_size of 1020 or 900): conv_out (B, H, W, C) with H and W
+// even, in the compute dtype; s (2, C); out (B, H/2, W/2, C).  BN is a
+// multiply then an add, each rounded (__fmul_rn / __fadd_rn: no FMA
+// contraction), so both kernels below equal the plain version exactly.
+// Bound: bytes (read conv_out once, write out once: 0.149 ms at (12, 510,
+// 510, 64) bf16, 0.298 ms in float32); the arithmetic, 3 operations an
+// input element and 8 an output one, is far below the card's rate.
+//
+// stem_pool_hopper (where a pixel's channel row is a multiple of 16 bytes,
+// TMA's stride rule, and both tensors are 16-byte aligned): a persistent
+// grid (the blocks that fit on every SM) walks tiles of kPoolRows x
+// kPoolCols pool outputs x one chunk of up to 128 bytes of channels of one
+// image.  The tile's conv patch, (2 kPoolRows + 1) x (2 kPoolCols + 1)
+// pixels x the chunk (9 x 33 x 128 bytes), comes into shared memory as one
+// TMA box of a 4-D tensor map over (C, W, H, B), in a ring of kPoolStages
+// slots on mbarriers: the next tile loads while this one is pooled, and the
+// one-pixel halo a tile shares with its neighbours comes from L2.  The box
+// starts one conv row and column before the tile (the pool's padding);
+// TMA fills what lies outside the image with zeros, which the kernel sets
+// to 0 after BN + ReLU: every window holds an element of the image and
+// every ReLU output is >= 0, so a 0 there gives the max of the -inf
+// padding.  Each thread owns one 16-byte vector of channels (8 in bf16, 4
+// in float32) of a patch column, applies BN + ReLU once to each staged
+// element, takes the 3-row max down the column and writes it back in place
+// (pool row i into patch row i); then, after a block barrier, the 3-column
+// max of those rows goes out in 16-byte stores.  Maxima are kept in the
+// compute dtype: rounding is monotone, so it commutes with max.  All index
+// arithmetic is 32-bit, from the tile number, with no division per element.
+// stem_pool_kernel (the other shapes: a channel row that is not a multiple
+// of 16 bytes, or a misaligned tensor): one thread per output element in a
+// grid-stride loop, the 2.25x re-reads of overlapping windows from L1/L2.
+// sgc_stem_pool chooses between them by that rule and reports its choice.
 
+#include <cuda.h>
+
+#include "hopper_pipe.cuh"
 #include "tile_gemm.cuh"
 
 namespace {
@@ -585,6 +616,284 @@ cudaError_t launch_pool(const void* x, const void* s, void* out, int b,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// stem_pool_hopper
+// ---------------------------------------------------------------------------
+
+constexpr int kPoolRows = 4;                       // pool rows of a tile
+constexpr int kPoolCols = 16;                      // pool columns of a tile
+constexpr int kPoolStages = 2;                     // slots of the TMA ring
+constexpr int kPoolThreads = 256;
+constexpr int kPatchRows = 2 * kPoolRows + 1;      // conv rows a tile reads
+constexpr int kPatchCols = 2 * kPoolCols + 1;
+constexpr int kChunkBytes = 128;                   // channels of a tile
+constexpr int kSlotBytes = kPatchRows * kPatchCols * kChunkBytes;
+// the slots, 128-byte aligned, then their mbarriers
+constexpr size_t kPoolSmem = size_t(kPoolStages) * kSlotBytes +
+                             8 * kPoolStages + 128;
+
+static_assert(kSlotBytes % 128 == 0, "TMA destinations 128-byte aligned");
+
+// 16 bytes of channels in registers: unpacked to float32, packed back with
+// one rounding, and the elementwise max in the compute dtype.
+template <typename T>
+struct Vec16;
+
+template <>
+struct Vec16<float> {
+  static constexpr int kN = 4;
+  __device__ static void unpack(uint4 v, float (&f)[kN]) {
+    f[0] = __uint_as_float(v.x);
+    f[1] = __uint_as_float(v.y);
+    f[2] = __uint_as_float(v.z);
+    f[3] = __uint_as_float(v.w);
+  }
+  __device__ static uint4 pack(const float (&f)[kN]) {
+    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
+                      __float_as_uint(f[2]), __float_as_uint(f[3]));
+  }
+  __device__ static uint4 max(uint4 a, uint4 b) {
+    return make_uint4(
+        __float_as_uint(fmaxf(__uint_as_float(a.x), __uint_as_float(b.x))),
+        __float_as_uint(fmaxf(__uint_as_float(a.y), __uint_as_float(b.y))),
+        __float_as_uint(fmaxf(__uint_as_float(a.z), __uint_as_float(b.z))),
+        __float_as_uint(fmaxf(__uint_as_float(a.w), __uint_as_float(b.w))));
+  }
+};
+
+template <>
+struct Vec16<bf16> {
+  static constexpr int kN = 8;
+  __device__ static void unpack(uint4 v, float (&f)[kN]) {
+    const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+  __device__ static uint4 pack(const float (&f)[kN]) {
+    return make_uint4(pack_bf16x2(f[0], f[1]), pack_bf16x2(f[2], f[3]),
+                      pack_bf16x2(f[4], f[5]), pack_bf16x2(f[6], f[7]));
+  }
+  __device__ static uint4 max(uint4 a, uint4 b) {
+    return make_uint4(max_bf16x2(a.x, b.x), max_bf16x2(a.y, b.y),
+                      max_bf16x2(a.z, b.z), max_bf16x2(a.w, b.w));
+  }
+};
+
+// The launch's shapes: conv_out (B, h, w, c), out (B, ho, wo, c); cc
+// channels a tile (its box), vp 16-byte vectors of them, chunks of them a
+// pixel; tiles in the order (image, tile row, tile column, chunk), the
+// chunk fastest, so that the tiles in flight at once are neighbours.
+struct PoolGeom {
+  int h, w, c, ho, wo, cc, vp, chunks, tiles_x, tiles_y, tiles;
+};
+
+struct PoolTile {
+  int bi, py0, px0, chunk;
+};
+
+__device__ __forceinline__ PoolTile pool_tile(int tile, const PoolGeom& g) {
+  PoolTile t;
+  t.chunk = tile % g.chunks;
+  int rest = tile / g.chunks;
+  const int tx = rest % g.tiles_x;
+  rest /= g.tiles_x;
+  const int ty = rest % g.tiles_y;
+  t.bi = rest / g.tiles_y;
+  t.py0 = ty * kPoolRows;
+  t.px0 = tx * kPoolCols;
+  return t;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kPoolThreads)
+stem_pool_hopper(const __grid_constant__ CUtensorMap xm,
+                 const float* __restrict__ s, T* __restrict__ out,
+                 const PoolGeom g) {
+  using V = Vec16<T>;
+  constexpr int kE = V::kN;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + (128 - sgc::smem_addr(smem_raw) % 128) % 128;
+  const uint32_t slot0 = sgc::smem_addr(smem);
+  const uint32_t bars = slot0 + kPoolStages * kSlotBytes;
+  const unsigned tx_bytes = kPatchRows * kPatchCols * g.vp * 16;
+  // one thread loads a tile's patch: its box starts a conv row and column
+  // before the tile's windows (negative coordinates read as zeros)
+  auto issue = [&](int tile, int st) {
+    const PoolTile t = pool_tile(tile, g);
+    sgc::mbar_expect_tx(bars + 8 * st, tx_bytes);
+    sgc::tma_load_4d(slot0 + st * kSlotBytes, &xm, bars + 8 * st,
+                     t.chunk * g.cc, 2 * t.px0 - 1, 2 * t.py0 - 1, t.bi);
+  };
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kPoolStages; ++st) {
+      sgc::mbar_init(bars + 8 * st, 1);
+    }
+    sgc::mbar_init_fence();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kPoolStages; ++st) {
+      const int tile = blockIdx.x + st * gridDim.x;
+      if (tile < g.tiles) {
+        issue(tile, st);
+      }
+    }
+  }
+
+  // thread = (pixel p0, vector v); `per` pixels a pass at once, the threads
+  // past per * vp idle
+  const int per = kPoolThreads / g.vp;
+  const int v = threadIdx.x % g.vp;
+  const int p0 = threadIdx.x / g.vp;
+  const bool active = p0 < per;
+  const int rs = kPatchCols * g.vp;                 // vectors a patch row
+  float sc[kE], sh[kE];
+  int chunk_loaded = -1;
+  int k = 0;
+  for (int tile = blockIdx.x; tile < g.tiles; tile += gridDim.x, ++k) {
+    const int st = k % kPoolStages;
+    const PoolTile t = pool_tile(tile, g);
+    const int ch = t.chunk * g.cc + v * kE;         // this thread's channels
+    if (t.chunk != chunk_loaded) {
+#pragma unroll
+      for (int e = 0; e < kE; ++e) {
+        sc[e] = ch + e < g.c ? __ldg(s + ch + e) : 0.f;
+        sh[e] = ch + e < g.c ? __ldg(s + g.c + ch + e) : 0.f;
+      }
+      chunk_loaded = t.chunk;
+    }
+    const int rows = min(kPoolRows, g.ho - t.py0);
+    const int cols = min(kPoolCols, g.wo - t.px0);
+    uint4* slot = reinterpret_cast<uint4*>(smem + st * kSlotBytes);
+    sgc::mbar_wait(bars + 8 * st, (k / kPoolStages) & 1);
+
+    // BN + ReLU once per staged element, 0 outside the image, and the
+    // 3-row max down each patch column, written over patch row i
+    if (active) {
+      for (int x = p0; x < 2 * cols + 1; x += per) {
+        const int gx = 2 * t.px0 - 1 + x;
+        const bool col_in = static_cast<unsigned>(gx) <
+                            static_cast<unsigned>(g.w);
+        uint4* col = slot + x * g.vp + v;
+        uint4 run = make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+        for (int r = 0; r < kPatchRows; ++r) {
+          if (r > 2 * rows) {
+            break;
+          }
+          const int gy = 2 * t.py0 - 1 + r;
+          uint4 val = make_uint4(0u, 0u, 0u, 0u);
+          if (col_in && static_cast<unsigned>(gy) <
+                            static_cast<unsigned>(g.h)) {
+            float f[kE];
+            V::unpack(col[r * rs], f);
+#pragma unroll
+            for (int e = 0; e < kE; ++e) {
+              f[e] = fmaxf(sgc::affine(f[e], sc[e], sh[e]), 0.f);
+            }
+            val = V::pack(f);
+          }
+          if (r == 0) {
+            run = val;
+          } else if (r % 2 == 1) {
+            run = V::max(run, val);
+          } else {                          // r = 2 i + 2 closes pool row i
+            col[(r / 2 - 1) * rs] = V::max(run, val);
+            run = val;
+          }
+        }
+      }
+    }
+    __syncthreads();
+    // the 3-column max of the row maxima, 16 bytes a store
+    if (active && ch < g.c) {
+      for (int p = p0; p < rows * kPoolCols; p += per) {
+        const int i = p / kPoolCols;
+        const int j = p % kPoolCols;
+        if (j < cols) {
+          const uint4* m = slot + (i * kPatchCols + 2 * j) * g.vp + v;
+          const size_t o = (static_cast<size_t>(t.bi) * g.ho + t.py0 + i) *
+                               g.wo + t.px0 + j;
+          *reinterpret_cast<uint4*>(out + o * g.c + ch) =
+              V::max(V::max(m[0], m[g.vp]), m[2 * g.vp]);
+        }
+      }
+    }
+    // the slot's reads and writes come before the TMA that refills it
+    sgc::fence_proxy_async();
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      const int next = tile + kPoolStages * gridDim.x;
+      if (next < g.tiles) {
+        issue(next, st);
+      }
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_pool_hopper(const void* x, const void* s, void* out,
+                               int b, int h, int w, int c, int device,
+                               cudaStream_t stream) {
+  constexpr int es = sizeof(T);
+  PoolGeom g;
+  g.h = h;
+  g.w = w;
+  g.c = c;
+  g.ho = h / 2;
+  g.wo = w / 2;
+  g.cc = c < kChunkBytes / es ? c : kChunkBytes / es;
+  g.vp = g.cc * es / 16;
+  g.chunks = (c + g.cc - 1) / g.cc;
+  g.tiles_x = (g.wo + kPoolCols - 1) / kPoolCols;
+  g.tiles_y = (g.ho + kPoolRows - 1) / kPoolRows;
+  const long long tiles =
+      static_cast<long long>(b) * g.tiles_y * g.tiles_x * g.chunks;
+  if (tiles > 0x7fffffffLL) {
+    return cudaErrorInvalidValue;
+  }
+  g.tiles = static_cast<int>(tiles);
+  CUtensorMap xm;
+  const cuuint64_t dims[4] = {cuuint64_t(c), cuuint64_t(w), cuuint64_t(h),
+                              cuuint64_t(b)};
+  const cuuint64_t strides[3] = {cuuint64_t(c) * es,
+                                 cuuint64_t(w) * c * es,
+                                 cuuint64_t(h) * w * c * es};
+  const cuuint32_t box[4] = {cuuint32_t(g.cc), kPatchCols, kPatchRows, 1};
+  if (sgc::hop::tensor_map(&xm, x, 4, dims, strides, box,
+                           es == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                   : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                           CU_TENSOR_MAP_SWIZZLE_NONE) != CUDA_SUCCESS) {
+    return cudaErrorInvalidValue;
+  }
+  auto kern = stem_pool_hopper<T>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kPoolSmem));
+  if (err != cudaSuccess) {
+    return err;
+  }
+  int sms = 0;
+  int per_sm = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kern, kPoolThreads, kPoolSmem);
+  }
+  if (err != cudaSuccess) {
+    return err;
+  }
+  const int want = sms * (per_sm > 0 ? per_sm : 1);
+  const int blocks = g.tiles < want ? g.tiles : want;
+  kern<<<blocks, kPoolThreads, kPoolSmem, stream>>>(
+      xm, static_cast<const float*>(s), static_cast<T*>(out), g);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C entry points for ctypes.  dtype (the compute dtype of w, x and
@@ -592,7 +901,8 @@ cudaError_t launch_pool(const void* x, const void* s, void* out, int b,
 // 16-byte aligned tensors of the shapes above (stem_conv_pool: H, W
 // divisible by 8, w (147, 64) in float32 or stem_kernel_weights' 73,728
 // bytes in bfloat16; stem_pool: H, W even, C >= 1) and B >= 1.  Each
-// returns the cudaError_t of its launch.
+// returns the cudaError_t of its launch; sgc_stem_pool writes the kernel it
+// chose into *kernel (host memory).
 extern "C" int sgc_stem_conv_pool(const void* img, const void* w,
                                   const void* s, void* out, int b, int h,
                                   int wi, int dtype, int device,
@@ -616,18 +926,30 @@ extern "C" int sgc_stem_conv_pool(const void* img, const void* w,
 
 extern "C" int sgc_stem_pool(const void* x, const void* s, void* out, int b,
                              int h, int w, int c, int dtype, int device,
-                             void* stream) {
+                             void* stream, int* kernel) {
   cudaError_t err = sgc::use_device(device);
   if (err != cudaSuccess) {
     return static_cast<int>(err);
   }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return static_cast<int>(launch_pool<float>(x, s, out, b, h, w, c, st));
-    case 1:
-      return static_cast<int>(launch_pool<bf16>(x, s, out, b, h, w, c, st));
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype != 0 && dtype != 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // stem_pool_hopper where TMA can read the tensor (a pixel's channels a
+  // multiple of 16 bytes, 16-byte aligned tensors), else stem_pool_kernel;
+  // *kernel = 1 for the first, 0 for the second
+  const int es = dtype == 0 ? 4 : 2;
+  const bool tma = (c * es) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  *kernel = tma ? 1 : 0;
+  if (tma) {
+    return static_cast<int>(
+        dtype == 0
+            ? launch_pool_hopper<float>(x, s, out, b, h, w, c, device, st)
+            : launch_pool_hopper<bf16>(x, s, out, b, h, w, c, device, st));
+  }
+  return static_cast<int>(
+      dtype == 0 ? launch_pool<float>(x, s, out, b, h, w, c, st)
+                 : launch_pool<bf16>(x, s, out, b, h, w, c, st));
 }

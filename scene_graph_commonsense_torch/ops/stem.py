@@ -12,7 +12,12 @@ the 3x3/2 max pool.
   stem_pool_kernel / stem_pool_plain  (`pool_launches`)
       csrc/stem.cu `sgc_stem_pool`, the port of the TPU `_kernel` of the
       same file (through `stem_pool`): BN + ReLU + pool over a stem conv
-      output (B, H, W, C) with H and W even -> (B, H/2, W/2, C).
+      output (B, H, W, C) with H and W even -> (B, H/2, W/2, C).  The C
+      entry point chooses `stem_pool_hopper` (TMA-staged tiles of
+      POOL_ROWS x POOL_COLS pool outputs, a separable max) where a pixel's
+      channels fill whole 16-byte vectors and the tensors are 16-byte
+      aligned, else the one-thread-per-output `stem_pool_kernel`; the
+      launch records its choice in `last_pool_kernel`.
 
 Rounding points (the TPU kernels'): the images and the weights are
 rounded to the compute dtype and the conv sums their products in float32;
@@ -40,6 +45,7 @@ from scene_graph_commonsense_torch.ops import _build
 
 conv_pool_launches = 0    # stem_conv_pool_kernel launches since the reset
 pool_launches = 0         # stem_pool_kernel launches since the reset
+last_pool_kernel = None   # the CUDA kernel the last stem-pool launch ran
 
 STEM_CHANNELS = 64
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -53,6 +59,13 @@ HOPPER_WARPGROUPS = 3
 # its k16 steps: (d2, cs, j) for d2 < 2, cs < 3, j < 3, each pairing chunk j
 # (8 of a cell's 24 values) of tap group (d2, cs) with that of (d2 + 2, cs)
 HOPPER_STEPS = 18
+# stem_pool_hopper's tile (csrc/stem.cu kPoolRows, kPoolCols, kChunkBytes):
+# POOL_ROWS x POOL_COLS pool outputs x up to POOL_CHUNK_BYTES of a pixel's
+# channels, staged as a (2 POOL_ROWS + 1) x (2 POOL_COLS + 1)-pixel conv
+# patch
+POOL_ROWS = 4
+POOL_COLS = 16
+POOL_CHUNK_BYTES = 128
 
 
 @functools.lru_cache(maxsize=None)
@@ -244,8 +257,10 @@ def stem_conv_pool_kernel(images: torch.Tensor, w7: torch.Tensor,
 
 def stem_pool_kernel(conv_out: torch.Tensor,
                      fold: torch.Tensor) -> torch.Tensor:
-    """Launches csrc/stem.cu's BN + ReLU + pool and counts the launch."""
-    global pool_launches
+    """Launches csrc/stem.cu's BN + ReLU + pool and counts the launch
+    (either of its two kernels: `last_pool_kernel` names the one that
+    ran)."""
+    global pool_launches, last_pool_kernel
     _build.need_cuda("stem_pool_kernel", conv_out)
     check_pool_inputs(conv_out, fold)
     b, h, w, c = conv_out.shape
@@ -255,12 +270,15 @@ def stem_pool_kernel(conv_out: torch.Tensor,
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 \
-            + [ctypes.c_void_p]
+            + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
     stream = torch.cuda.current_stream(conv_out.device).cuda_stream
+    chosen = ctypes.c_int(-1)
     _build.check_launch("stem_pool", fn(
         conv_out.data_ptr(), fold.data_ptr(), out.data_ptr(), b, h, w, c,
-        _DTYPE_CODES[conv_out.dtype], conv_out.device.index, stream))
+        _DTYPE_CODES[conv_out.dtype], conv_out.device.index, stream,
+        ctypes.byref(chosen)))
     pool_launches += 1
+    last_pool_kernel = ("stem_pool_kernel", "stem_pool_hopper")[chosen.value]
     return out
 
 

@@ -166,11 +166,17 @@ def test_torch_resnet_fused_prepares_once_and_on_load(trunk):
 WIDTH = dict(d_model=64, nhead=2, dim_ff=128)
 
 
+@pytest.mark.parametrize("shape,feats", [((2, 64, 96), (2, 2, 3, 64)),
+                                         ((2, 68, 100), (2, 3, 4, 64))],
+                         ids=["div8", "stem_pool"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_torch_encode_features_fused_matches_jax(dtype):
+def test_torch_encode_features_fused_matches_jax(dtype, shape, feats):
     """DETR.encode_features with fused_backbone on, against JAX's
     DETR(fused_backbone=True) on one flax tree (float32 parameters in both
-    packages, the compute dtype `dtype`)."""
+    packages, the compute dtype `dtype`).  (2, 68, 100): sides even but not
+    divisible by 8, so the stem is the plain conv then stem_pool (JAX's
+    Pallas kernel in interpret mode, the port's plain version), and the
+    odd stride-2 inputs take the plain blocks."""
     def jax_detr(dt, **extra):
         return jdetr.DETR(**WIDTH, num_encoder_layers=1,
                           num_decoder_layers=1, backbone_blocks=BLOCKS,
@@ -182,7 +188,7 @@ def test_torch_encode_features_fused_matches_jax(dtype):
     tree = jax.tree.map(np.asarray, init(jax.random.PRNGKey(1))["params"])
     tree = _randomize_bn(tree, np.random.default_rng(1))
     images = np.random.default_rng(6).standard_normal(
-        (2, 64, 96, 3)).astype(np.float32)
+        (*shape, 3)).astype(np.float32)
     params = {"params": jax.tree.map(lambda a: jnp.asarray(a, jnp.float32),
                                      tree)}
 
@@ -200,7 +206,7 @@ def test_torch_encode_features_fused_matches_jax(dtype):
     port.load_state_dict(weights.detr_from_flax({"params": tree}))
     port = port.eval().requires_grad_(False)
     got = port.encode_features(torch.from_numpy(images)).float().numpy()
-    assert got.shape == want.shape == (2, 2, 3, 64)
+    assert got.shape == want.shape == feats
     _check(got, want, truth, dtype)
 
 

@@ -14,7 +14,10 @@ space-to-depth product; its weight matrix is checked against the JAX
 package's `_build_stem_weights` exactly, and its arrangement (planes, tap
 offsets, the two-parity product, the pool over cells across chunk edges)
 is emulated here in float64 against the plain version within 1e-8 (sums
-of ~147 products in another order)."""
+of ~147 products in another order).  So is the stem-pool kernel's tile walk
+(stem_pool_hopper: TMA boxes with zeros outside the image, BN + ReLU once a
+staged element, 0 outside the image, the 3-row max written over the
+patch, then the 3-column max), within 1e-12: it sums nothing."""
 
 import math
 
@@ -224,3 +227,78 @@ def test_torch_stem_hopper_arrangement_matches_plain(shape):
     assert got.shape == want.shape
     assert not torch.isnan(got).any()
     assert (got - want).abs().max().item() <= 1e-8
+
+
+def _emulate_pool_tiles(conv, fold, itemsize):
+    """stem_pool_hopper's tile walk in float64, for a compute dtype of
+    `itemsize` bytes: tiles of POOL_ROWS x POOL_COLS pool outputs x a chunk
+    of up to POOL_CHUNK_BYTES of channels, in the kernel's order (image,
+    tile row, tile column, chunk); per tile the (2 R + 1) x (2 TW + 1)
+    conv patch from one conv row and column before the tile, zero outside
+    the tensor (TMA's fill); BN + ReLU per staged element, 0 outside the
+    image; the 3-row max of rows 2 i .. 2 i + 2 written over patch row i
+    in place, for the tile's rows; then the 3-column max of columns
+    2 j .. 2 j + 2 of those rows, stored for the channels below C."""
+    pr, pc = ts.POOL_ROWS, ts.POOL_COLS
+    f = torch.float64
+    b, h, w, c = conv.shape
+    ho, wo = h // 2, w // 2
+    cc = min(c, ts.POOL_CHUNK_BYTES // itemsize)
+    chunks = math.ceil(c / cc)
+    tiles_x, tiles_y = math.ceil(wo / pc), math.ceil(ho / pr)
+    x = conv.to(f)
+    out = torch.full((b, ho, wo, c), float("nan"), dtype=f)
+    for tile in range(b * tiles_y * tiles_x * chunks):
+        chunk, rest = tile % chunks, tile // chunks
+        tx, rest = rest % tiles_x, rest // tiles_x
+        ty, bi = rest % tiles_y, rest // tiles_y
+        py0, px0, c0 = ty * pr, tx * pc, chunk * cc
+        n = min(cc, c - c0)
+        y0, x0 = 2 * py0 - 1, 2 * px0 - 1
+        ys = range(max(y0, 0), min(y0 + 2 * pr + 1, h))
+        xs = range(max(x0, 0), min(x0 + 2 * pc + 1, w))
+        patch = torch.zeros((2 * pr + 1, 2 * pc + 1, cc), dtype=f)
+        inside = torch.zeros((2 * pr + 1, 2 * pc + 1, 1), dtype=torch.bool)
+        rows_in = slice(ys.start - y0, ys.stop - y0)
+        cols_in = slice(xs.start - x0, xs.stop - x0)
+        patch[rows_in, cols_in, :n] = x[bi, ys.start:ys.stop,
+                                        xs.start:xs.stop, c0:c0 + n]
+        inside[rows_in, cols_in] = True
+        sc = torch.zeros(cc, dtype=f)
+        sh = torch.zeros(cc, dtype=f)
+        sc[:n], sh[:n] = fold[0, c0:c0 + n], fold[1, c0:c0 + n]
+        val = torch.where(inside, torch.relu(patch * sc + sh), 0.0)
+        rows, cols = min(pr, ho - py0), min(pc, wo - px0)
+        for i in range(rows):
+            val[i] = torch.maximum(torch.maximum(val[2 * i], val[2 * i + 1]),
+                                   val[2 * i + 2])
+        for i in range(rows):
+            for j in range(cols):
+                m = torch.maximum(torch.maximum(val[i, 2 * j],
+                                                val[i, 2 * j + 1]),
+                                  val[i, 2 * j + 2])
+                out[bi, py0 + i, px0 + j, c0:c0 + n] = m[:n]
+    return out
+
+
+@pytest.mark.parametrize("shape,itemsize", [
+    ((2, 18, 42, 64), 2), ((1, 2, 2, 64), 2), ((1, 10, 14, 5), 2),
+    ((2, 12, 20, 24), 2), ((2, 12, 20, 24), 4), ((1, 10, 70, 40), 4)],
+    ids=["partial_tiles", "lone_2x2", "c5", "c24_bf16", "c24_f32",
+         "c40_two_chunks"])
+def test_torch_stem_pool_tile_walk_matches_plain(shape, itemsize):
+    """(2, 18, 42, 64): 9 x 21 pool outputs, a partial tile in both rows (1
+    of 4) and columns (5 of 16); (1, 2, 2, 64): one pool output, its patch
+    mostly outside the image; C = 5 (a 10-byte channel row, which takes
+    stem_pool_kernel on the card, but the walk holds for it) and C = 24
+    (3 vectors of a pixel in bf16, 6 in float32); (1, 10, 70, 40) in
+    float32: chunks of 32 channels, the second partial, and 3 tile
+    columns."""
+    rng = np.random.default_rng(5)
+    conv = torch.from_numpy(rng.standard_normal(shape))
+    fold = torch.from_numpy(_fold(rng, shape[-1]).astype(np.float64))
+    got = _emulate_pool_tiles(conv, fold, itemsize)
+    want = ts.stem_pool_plain(conv, fold)
+    assert got.shape == want.shape
+    assert not torch.isnan(got).any()
+    assert (got - want).abs().max().item() <= 1e-12

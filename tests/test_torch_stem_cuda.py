@@ -18,7 +18,8 @@ bfloat16 kernel's tile is 4 pool rows x 64 pool columns:
 (1, 8, 8) is smaller than one, (3, 264, 1048) has a partial band (66 pool
 rows) and a partial chunk (262 columns), (2, 1024, 512) two full chunks a
 band, (12, 1000, 1000) the detection canvas (250 pool columns: a partial
-chunk of 58 a band, 250 pool rows: a partial band)."""
+chunk of 58 a band, 250 pool rows: a partial band).  The stem-pool
+kernel's shapes are named at its test."""
 
 import numpy as np
 import pytest
@@ -91,16 +92,27 @@ def test_torch_stem_conv_pool_kernel_matches_plain(cuda_device, shape,
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", [(2, 10, 14, 64), (1, 6, 18, 128),
-                                   (12, 510, 510, 64)])
+                                   (12, 510, 510, 64), (1, 2, 2, 64),
+                                   (2, 18, 42, 64), (1, 10, 14, 5),
+                                   (2, 12, 20, 24)])
 def test_torch_stem_pool_kernel_equals_plain(cuda_device, shape, dtype):
+    """stem_pool_hopper's tile is 4 x 16 pool outputs x 128 bytes of
+    channels: (1, 2, 2, 64) is one pool output, (2, 18, 42, 64) has a
+    partial tile in rows and columns, C = 128 (and C = 64 in float32) two
+    channel chunks; C = 5 is not a whole 16-byte vector and takes
+    stem_pool_kernel."""
+    cd = getattr(torch, dtype)
     rng = np.random.default_rng(1)
     x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
-        cuda_device).to(getattr(torch, dtype))
+        cuda_device).to(cd)
     fold = _fold(rng, shape[-1], cuda_device)
     before = ts.pool_launches
     got = ts.stem_pool(x, fold)
     torch.cuda.synchronize()
     assert ts.pool_launches == before + 1
+    tma = shape[-1] * x.element_size() % 16 == 0
+    assert ts.last_pool_kernel == ("stem_pool_hopper" if tma
+                                   else "stem_pool_kernel")
     assert torch.equal(got, ts.stem_pool_plain(x, fold))
 
 
