@@ -15,6 +15,8 @@ from typing import Callable, Dict, Iterable, Iterator, Optional, Sequence
 import numpy as np
 import torch
 
+from scene_graph_commonsense_torch.utils import profiling
+
 
 def prefetch_iterator(batches: Iterable[Dict], prefetch: int = 2,
                       transform: Optional[Callable[[Dict], Dict]] = None
@@ -22,7 +24,8 @@ def prefetch_iterator(batches: Iterable[Dict], prefetch: int = 2,
     """Runs the batch source and an optional transform on a background
     thread, keeping `prefetch` batches ready.  train.loop.fit passes the
     DETR featurizer and the device copy as the transform, so both overlap
-    the train step."""
+    the train step.  The transform runs in span feed.produce, the
+    consumer's wait for a batch in span feed.wait (utils/profiling)."""
     q: "queue.Queue" = queue.Queue(maxsize=prefetch)
     done = object()
     err_box = []
@@ -43,7 +46,10 @@ def prefetch_iterator(batches: Iterable[Dict], prefetch: int = 2,
     def producer():
         try:
             for b in batches:
-                if not _put(transform(b) if transform is not None else b):
+                if transform is not None:
+                    with profiling.span("feed.produce"):
+                        b = transform(b)
+                if not _put(b):
                     return
         except BaseException as e:   # surface worker errors to the consumer
             err_box.append(e)
@@ -54,7 +60,8 @@ def prefetch_iterator(batches: Iterable[Dict], prefetch: int = 2,
     t.start()
     try:
         while True:
-            item = q.get()
+            with profiling.span("feed.wait"):
+                item = q.get()
             if item is done:
                 if err_box:
                     raise err_box[0]

@@ -23,6 +23,7 @@ from scene_graph_commonsense_torch.eval.engines import to_numpy
 from scene_graph_commonsense_torch.parallel.mesh import shard_batch
 from scene_graph_commonsense_torch.train import engine as engine_lib
 from scene_graph_commonsense_torch.train.loop import make_detr_featurize_fn
+from scene_graph_commonsense_torch.utils import profiling
 
 # what the relation stage reads of a request (JAX inference.py:59-61)
 BATCH_KEYS = ("features", "depth", "cats", "super_mh", "boxes", "rel",
@@ -57,10 +58,15 @@ class SceneGraphPredictor:
             self.featurize = make_detr_featurize_fn(cfg, detr_model,
                                                     detr_params)
 
+    @profiling.traced("serve.request")
     def predict(self, batch: Dict, top_k: int = 50) -> List[List[Dict]]:
         """batch: engine batch contract ('features' or 'image' + objects).
         Returns, per image, the top_k ranked edges as dicts with names,
-        ids, boxes, and confidence."""
+        ids, boxes, and confidence.  Spans (utils/profiling): the request
+        in serve.request, the copy of the eval step's outputs in
+        serve.to_host, build_candidates in serve.candidates, the ranking
+        and edge dicts in serve.edges; counters live_pairs and pair_slots
+        (the eval step's pair_count and pair_capacity)."""
         rows = batch
         if self.mesh is not None:
             shards = self.mesh.shape["data"]
@@ -77,18 +83,29 @@ class SceneGraphPredictor:
         if "rel" not in rows:
             b, n = np.asarray(rows["cats"]).shape
             rows["rel"] = np.full((b, n, n), -1, np.int32)
-        out = to_numpy(self.estep(rows))
+        out = self.estep(rows)
+        with profiling.span("serve.to_host"):
+            out = to_numpy(out)
+        profiling.count("live_pairs", out["pair_count"])
+        profiling.count("pair_slots", out["pair_capacity"])
         m = self.cfg.model
         cats = np.asarray(batch["cats"])
-        cand = build_candidates(
-            out["relation"], out["connectivity"], out["super_relation"],
-            out["pair_img"], out["pair_sub"], out["pair_obj"],
-            out["pair_mask"], out["iou_ok"], cats,
-            np.asarray(batch["boxes"]), hierarchical=m.hierarchical_pred,
-            num_geometric=m.num_geometric, num_possessive=m.num_possessive)
+        with profiling.span("serve.candidates"):
+            cand = build_candidates(
+                out["relation"], out["connectivity"], out["super_relation"],
+                out["pair_img"], out["pair_sub"], out["pair_obj"],
+                out["pair_mask"], out["iou_ok"], cats,
+                np.asarray(batch["boxes"]),
+                hierarchical=m.hierarchical_pred,
+                num_geometric=m.num_geometric,
+                num_possessive=m.num_possessive)
+        with profiling.span("serve.edges"):
+            return self._edges(cand, cats.shape[0], top_k)
 
+    def _edges(self, cand, images: int, top_k: int) -> List[List[Dict]]:
+        """Per image, its top_k candidates ranked, as edge dicts."""
         graphs: List[List[Dict]] = []
-        for image in range(cats.shape[0]):
+        for image in range(images):
             sel = cand.img == image
             conf = cand.conf[sel]
             if self.validator is not None:

@@ -47,6 +47,7 @@ from scene_graph_commonsense_torch.models.resnet_fused import (
 from scene_graph_commonsense_torch.ops.attention import fused_attention
 from scene_graph_commonsense_torch.ops.ffn import fused_ffn_ln, kernel_weights
 from scene_graph_commonsense_torch.parallel.mesh import world_size
+from scene_graph_commonsense_torch.utils import profiling
 
 RESNET101_BLOCKS = (3, 4, 23, 3)
 
@@ -529,6 +530,7 @@ def module_from_cfg(cfg, fused_backbone: bool = False,
                 num_classes=151 if cfg.data.dataset == "vg" else 602)
 
 
+@profiling.traced("setup.model")
 def make_detr(cfg, device=None, state_dict=None,
               generator: Optional[torch.Generator] = None,
               detection: bool = False) -> DETR:

@@ -45,6 +45,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from scene_graph_commonsense_torch.parallel import tp as tp_lib
+from scene_graph_commonsense_torch.utils import profiling
 
 
 def _at_least_f32(x: torch.Tensor) -> torch.Tensor:
@@ -353,6 +354,7 @@ def module_from_cfg(cfg) -> RelationClassifier:
         dtype=getattr(torch, m.compute_dtype))
 
 
+@profiling.traced("setup.model")
 def make_relation_classifier(cfg, device=None, generator=None,
                              state_dict=None) -> RelationClassifier:
     """The classifier on `device` (default cuda), in eval mode.  Weights

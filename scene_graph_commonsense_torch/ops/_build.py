@@ -18,6 +18,8 @@ import subprocess
 from pathlib import Path
 from typing import Dict, List
 
+from scene_graph_commonsense_torch.utils import profiling
+
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -79,6 +81,7 @@ def _finish(name: str, started) -> None:
     os.replace(tmp, out)     # atomic: a concurrent builder sees all or none
 
 
+@profiling.traced("setup.kernels")
 def build_all() -> None:
     """Compiles every csrc/*.cu that is not built yet, one nvcc each, all
     started together."""
@@ -122,9 +125,10 @@ def load(name: str) -> ctypes.CDLL:
     """The ctypes handle of csrc/<name>.cu, built first if needed."""
     lib = _loaded.get(name)
     if lib is None:
-        started = _start(name)
-        if started is not None:
-            _finish(name, started)
-        lib = ctypes.CDLL(str(library_path(name)))
+        with profiling.span("setup.kernels"):
+            started = _start(name)
+            if started is not None:
+                _finish(name, started)
+            lib = ctypes.CDLL(str(library_path(name)))
         _loaded[name] = lib
     return lib

@@ -37,6 +37,7 @@ from scene_graph_commonsense_torch.ops.pair_pool import pair_pool
 from scene_graph_commonsense_torch.parallel import mesh as mesh_lib
 from scene_graph_commonsense_torch.parallel import tp as tp_lib
 from scene_graph_commonsense_torch.train import losses as L
+from scene_graph_commonsense_torch.utils import profiling
 
 # the batch entries the eval step reads
 MODEL_KEYS = ("features", "depth", "cats", "super_mh", "boxes", "rel",
@@ -256,6 +257,7 @@ def make_eval_step(model: RelationClassifier, cfg, capacity: int = 0,
     shards = 1 if mesh is None else mesh.shape["data"]
     local_cap = max(-(-cap // shards), 1)
 
+    @profiling.traced("serve.eval_step", device=True)
     @torch.inference_mode()
     def step(batch: Dict) -> Dict[str, torch.Tensor]:
         batch = {k: torch.as_tensor(batch[k], device=dev)
@@ -380,6 +382,7 @@ class SGD:
         return SGDState({k: torch.zeros_like(p, dtype=self.momentum_dtype)
                          for k, p in params.items()}, count)
 
+    @profiling.traced("train.optimizer")
     @torch.no_grad()
     def update(self, grads: Dict[str, torch.Tensor], state: SGDState,
                params: Dict[str, torch.Tensor],
@@ -492,6 +495,7 @@ def aug_pair_capacity(cfg, shards: int = 1) -> int:
     return min(max(aug, 1), cap)
 
 
+@profiling.traced("train.allreduce", device=True)
 def reduce_over_mesh(mesh, params: Dict[str, torch.Tensor],
                      metrics: Dict[str, torch.Tensor], allreduce_dtype,
                      reduce=mesh_lib.all_mean_):
@@ -707,6 +711,7 @@ def make_train_step(model: RelationClassifier, cfg, optimizer: SGD,
         cs_tables = tuple(torch.as_tensor(np.asarray(t), device=dev)
                           for t in cs_tables)
 
+    @profiling.traced("train.update", device=True)
     def step(state: TrainState, batch: Dict):
         if tp and state.opt_state.trace["fc1.weight"].shape \
                 != model.fc1.weight.shape:
@@ -718,10 +723,12 @@ def make_train_step(model: RelationClassifier, cfg, optimizer: SGD,
         model.train()
         for p in state.params.values():
             p.grad = None
-        total, metrics = train_losses(
-            model, cfg, batch, capacity, aug_capacity, gens, weights,
-            cs_tables, chunk_size, mesh if glob else None)
-        total.backward()
+        with profiling.span("train.losses"):
+            total, metrics = train_losses(
+                model, cfg, batch, capacity, aug_capacity, gens, weights,
+                cs_tables, chunk_size, mesh if glob else None)
+        with profiling.span("train.backward"):
+            total.backward()
         if mesh is None:
             grads = {k: p.grad for k, p in state.params.items()}
         else:

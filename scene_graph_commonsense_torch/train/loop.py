@@ -35,6 +35,7 @@ from scene_graph_commonsense_torch.parallel.mesh import (
     replicate_tree, shard_batch)
 from scene_graph_commonsense_torch.train import checkpoint as ckpt_lib
 from scene_graph_commonsense_torch.train import engine
+from scene_graph_commonsense_torch.utils import profiling
 from scene_graph_commonsense_torch.utils.logging import (
     ResultRecorder, format_test_line, format_train_line)
 from scene_graph_commonsense_torch.utils.profiling import (
@@ -158,9 +159,12 @@ def make_detr_featurize_fn(cfg, detr_model: Optional[DETR],
     def encode(images):
         dev = next(detr_model.parameters()).device
         with torch.inference_mode():
-            return detr_model.encode_features(
-                torch.as_tensor(images).to(dev))
+            with profiling.span("serve.image_copy", device=True):
+                images = torch.as_tensor(images).to(dev)
+            with profiling.span("serve.encode", device=True):
+                return detr_model.encode_features(images)
 
+    @profiling.traced("serve.features", device=True)
     def featurize(batch: Dict) -> Dict:
         batch = dict(batch)
         need_plain = "features" not in batch and "image" in batch

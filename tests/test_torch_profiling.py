@@ -2,7 +2,8 @@
 StepProfiler, and the writer calls of train/loop.fit) on the CPU, held
 against the JAX package's: the same scalar tags at the same steps from
 fit at the same config, the same JSONL fallback, and a torch.profiler
-window over the steps the JAX StepProfiler would trace."""
+window over the steps the JAX StepProfiler would trace, holding the port's
+spans (utils/profiling.RECORDER) in fit's trace."""
 
 import json
 import os
@@ -25,7 +26,7 @@ from scene_graph_commonsense_tpu.utils import profiling as jax_profiling
 from scene_graph_commonsense_torch.data.artifacts import load_vg_artifacts
 from scene_graph_commonsense_torch.train import loop
 from scene_graph_commonsense_torch.utils.profiling import (
-    ScalarWriter, StepProfiler, StepTimer)
+    RECORDER, ScalarWriter, StepProfiler, StepTimer)
 
 ARTIFACTS_DIR = "datasets/artifacts"
 TEST_TAGS = {f"test/{m}@{k}" for m in ("R", "mR") for k in (20, 50, 100)}
@@ -134,6 +135,36 @@ def test_torch_step_profiler_window(tmp_path):
         off.close()
         assert off.trace_path is None
     assert not os.path.exists(tmp_path / "off")
+
+
+def test_torch_fit_trace_holds_the_spans(tmp_path):
+    """training.profile_dir: fit's trace of steps [1, 3) holds the train
+    step's spans beside torch's ops; the recorder is on only for the
+    window and keeps nothing after it."""
+    _, tc = cfgs(dtype="float32", training={
+        "num_epoch": 1, "print_freq": 100, "eval_freq": 0,
+        "grad_clip_norm": 1.0, "profile_dir": str(tmp_path / "trace"),
+        "profile_start_step": 1, "profile_num_steps": 2,
+        "checkpoint_path": str(tmp_path / "ck") + "/",
+        "result_path": str(tmp_path / "res")})
+    train = batches(4, seed=33, float64=False)
+    loop.fit(tc, torch_model(tc, flax_params(dtype=np.float32),
+                             torch.float32),
+             lambda e: iter(train), None, steps_per_epoch=4,
+             artifacts=load_vg_artifacts(ARTIFACTS_DIR), device="cpu",
+             log_fn=lambda *a: None)
+    (name,) = os.listdir(tmp_path / "trace")
+    assert name == "trace_1_3.json"
+    with open(tmp_path / "trace" / name) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X"]
+    count = {n: sum(e["name"] == n for e in events)
+             for n in ("train.update", "train.losses", "train.backward",
+                       "train.optimizer", "feed.wait")}
+    assert count["train.update"] == count["train.optimizer"] == 2
+    assert count["train.losses"] == count["train.backward"] == 2
+    assert count["feed.wait"] >= 1
+    assert not RECORDER.on and RECORDER.collect() == []
 
 
 def test_torch_fit_writes_the_jax_tag_set(tmp_path, no_tensorboard):
