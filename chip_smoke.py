@@ -13,7 +13,10 @@ Phases, each printing JSON lines:
               pair_pool_idx must equal their plain versions exactly (out and
               idx); pair_pool_bwd at P=1024 and 4560 must lie within float32
               rounding of its plain version (see check_grad).  Times each
-              kernel and plain version with CUDA events.
+              kernel and plain version with CUDA events.  The optimizer's
+              kernels (ops/sgd) at the train step's 27 parameter shapes:
+              bit-equal to the plain version given its norm, two launches
+              an update, card, plain and bound ms (phase_kernel_sgd).
   4. slice:   PredCLS at full VG width (batch 12, 20 objects, 256 feature
               channels, hidden 128, bfloat16, worst-case pair capacity,
               seeded random weights): run_eval_pc over 3 synthetic batches,
@@ -27,7 +30,8 @@ Phases, each printing JSON lines:
               5.0, bf16): the train step of train.loop.fit, 2 warm-up steps
               then 6 timed by CUDA events, with the launch counts set to 0
               just before: exactly 2 launches of each training kernel per
-              step (main and augmented view), none of the forward kernel;
+              step (main and augmented view), none of the forward kernel,
+              and one of each optimizer kernel;
               finite losses; parameters changed.  torch.profiler over 3
               steps.  Then one fit epoch of 3 steps with its test pass,
               which must launch the forward kernel once per test batch and
@@ -373,6 +377,7 @@ from scene_graph_commonsense_torch.models.relation_head import (
 from scene_graph_commonsense_torch.ops import _build, pair_pool, pairs
 from scene_graph_commonsense_torch.ops import attention, ffn
 from scene_graph_commonsense_torch.ops import bottleneck, stem
+from scene_graph_commonsense_torch.ops import sgd as sgd_ops
 from scene_graph_commonsense_torch.ops import boxes as box_ops
 from scene_graph_commonsense_torch.ops.detection import (
     postprocess_detections)
@@ -760,6 +765,88 @@ def phase_kernel():
                                                  "bound_ms", "bound_by")},
                    "library_ms": None}
             for name in PAIR_POOL_KERNELS}
+
+
+def sgd_bound(elements, clip=True):
+    """Least time for one optimizer update of `elements` float32
+    parameters with a float32 trace: the norm pass reads g (4 bytes), the
+    update reads g, p, t and writes p, t (20 bytes); 2 + 8 float32
+    operations an element (the square and its add; div, mul, the decay's
+    mul and add, the momentum's mul and add, the step's mul and add)."""
+    per_bytes, per_ops = (24, 10) if clip else (20, 8)
+    return bound(per_bytes * elements, per_ops * elements)
+
+
+def phase_kernel_sgd():
+    """The optimizer's kernels (csrc/sgd.cu) at vg-hiercom's 27 parameter
+    shapes (bench.py's model), float32 master weights and trace, the clip
+    at 5.0 firing: the update bit-equal to the plain version given its
+    norm, the kernels' own norm within 1e-5 of it, then the card, plain
+    and bound ms of the whole update (norm pass and update) and of the
+    update alone (clip off).  Two launches an update."""
+    cfg = bench.bench_config()
+    tc = cfg.training
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    shapes = {k: tuple(p.shape) for k, p in make_relation_classifier(
+        cfg, device="cuda").named_parameters()}
+    torch.cuda.empty_cache()
+
+    def draw(scale):
+        return {k: scale * torch.randn(s, device=dev, generator=gen)
+                for k, s in shapes.items()}
+    params, grads, traces = draw(0.02), draw(1e-3), draw(1e-3)
+    elements = sum(p.numel() for p in params.values())
+    squares = [torch.dot(g.reshape(-1), g.reshape(-1))
+               for g in grads.values()]
+    total = torch.stack(squares).sum()
+    args = (tc.learning_rate, tc.momentum, tc.weight_decay)
+
+    def copies(tree):
+        return {k: v.clone() for k, v in tree.items()}
+    pp, kp = copies(params), copies(params)
+    pt, pn = sgd_ops.sgd_plain(copies(grads), pp, traces, *args,
+                               tc.grad_clip_norm, torch.float32)
+    before = (sgd_ops.norm_launches, sgd_ops.update_launches)
+    kt, kn = sgd_ops.sgd_kernel(copies(grads), kp, traces, *args,
+                                tc.grad_clip_norm, torch.float32,
+                                sum_squares=lambda sq: total)
+    launches = (sgd_ops.norm_launches - before[0],
+                sgd_ops.update_launches - before[1])
+    _, own = sgd_ops.sgd_kernel(copies(grads), copies(params), traces,
+                                *args, tc.grad_clip_norm, torch.float32)
+    torch.cuda.synchronize()
+    unequal = [k for k in shapes if not (torch.equal(kp[k], pp[k])
+                                         and torch.equal(kt[k], pt[k]))]
+    norm_rel = abs(float(own) - float(pn)) / float(pn)
+    if unequal or launches != (1, 1) or not torch.equal(kn, pn) \
+            or norm_rel > 1e-5 or not float(pn) > tc.grad_clip_norm:
+        raise AssertionError(f"sgd kernels: unequal {unequal}, launches "
+                             f"{launches}, norm {float(own)} against "
+                             f"{float(pn)}")
+    del pp, pt, kp, kt
+    torch.cuda.empty_cache()
+    scratch = sgd_ops.Scratch()
+    rec = {"phase": "kernel", "name": "sgd", "tensors": len(shapes),
+           "elements": elements, "trace": "float32", "bit_equal": True,
+           "launches_per_update": launches, "norm": float(pn),
+           "norm_rel_err": norm_rel}
+    for tag, clip in (("", tc.grad_clip_norm), ("update_only_", 0.0)):
+        t = timed(lambda: sgd_ops.sgd_kernel(
+                      grads, params, traces, *args, clip, torch.float32,
+                      scratch=scratch),
+                  lambda: sgd_ops.sgd_plain(grads, params, traces, *args,
+                                            clip, torch.float32))
+        b = sgd_bound(elements, clip > 0)
+        rec.update({tag + "ms": t["ms"], tag + "ms_runs": t["ms_runs"],
+                    tag + "plain_ms": t["plain_ms"],
+                    tag + "bound_ms": b["bound_ms"],
+                    tag + "bound_by": b["bound_by"], tag + "bytes": b["bytes"],
+                    tag + "over_bound": t["ms"] / b["bound_ms"]})
+    emit(rec)
+    del params, grads, traces, scratch
+    torch.cuda.empty_cache()
+    return rec
 
 
 def bound_terms(nbytes, **op_seconds):
@@ -1548,6 +1635,7 @@ def phase_train():
         seen.append(metrics)
     torch.cuda.synchronize()
     reset_counts()
+    sgd_before = (sgd_ops.norm_launches, sgd_ops.update_launches)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
@@ -1559,6 +1647,13 @@ def phase_train():
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = read_counts()
+    # the optimizer: one norm pass and one update a step (27 tensors, one
+    # table)
+    sgd_launches = (sgd_ops.norm_launches - sgd_before[0],
+                    sgd_ops.update_launches - sgd_before[1])
+    if sgd_launches != (steps, steps):
+        raise AssertionError(f"sgd launches over {steps} steps: "
+                             f"{sgd_launches}, expected {(steps, steps)}")
     device_ms = start.elapsed_time(end) / steps
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     expect = expected(pair_pool_idx=2 * steps, pair_pool_bwd=2 * steps)
@@ -1582,7 +1677,8 @@ def phase_train():
           "compute_dtype": cfg.model.compute_dtype,
           "live_pairs": metrics[-1]["num_pairs"],
           "steps": steps, "warmup": warmup, "launches": launches,
-          "step_device_ms": device_ms, "step_wall_ms": wall_s * 1e3 / steps,
+          "sgd_launches": sgd_launches, "step_device_ms": device_ms,
+          "step_wall_ms": wall_s * 1e3 / steps,
           "img_per_s": cfg.training.batch_size * steps / wall_s,
           "train_step_tflop": flops / 1e12,
           "mfu_pct": 100 * flops / (wall_s / steps) / bench.PEAK_BF16_FLOPS,
@@ -5624,6 +5720,7 @@ def main():
             kernel.update(phase_kernel())
             kernel.update(phase_kernel_encoder(info["exp_per_s"]))
             kernel.update(phase_kernel_trunk())
+            phase_kernel_sgd()
     launches = {}
     if {"slice", "profile"} & phases:
         with timed_phase("slice,profile"):

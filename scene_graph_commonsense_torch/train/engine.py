@@ -21,6 +21,7 @@ Batch dict (fixed shapes; B images, N = max_objects, S = feature_size):
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple, \
     Union
 
@@ -33,6 +34,7 @@ from scene_graph_commonsense_torch.models.relation_head import (
     RelationClassifier)
 from scene_graph_commonsense_torch.ops import boxes as box_ops
 from scene_graph_commonsense_torch.ops import pairs as pair_ops
+from scene_graph_commonsense_torch.ops import sgd as sgd_ops
 from scene_graph_commonsense_torch.ops.pair_pool import pair_pool
 from scene_graph_commonsense_torch.parallel import mesh as mesh_lib
 from scene_graph_commonsense_torch.parallel import tp as tp_lib
@@ -362,7 +364,9 @@ class SGD:
         t <- g + momentum * t       (t stored in momentum_dtype)
         p <- p + (-lr(count)) * t
 
-    The parameters and the trace are updated in place."""
+    The parameters are updated in place (ops/sgd.py: two kernel launches
+    for every parameter at once on the card, with no host
+    synchronisation)."""
 
     def __init__(self, learning_rate: Schedule, momentum: float = 0.9,
                  weight_decay: float = 1e-4, grad_clip_norm: float = 0.0,
@@ -372,6 +376,7 @@ class SGD:
         self.weight_decay = weight_decay
         self.grad_clip_norm = grad_clip_norm
         self.momentum_dtype = getattr(torch, momentum_dtype)
+        self.scratch = sgd_ops.Scratch()
 
     def lr(self, count: int) -> float:
         lr = self.learning_rate
@@ -388,44 +393,20 @@ class SGD:
                params: Dict[str, torch.Tensor],
                scale: Optional[torch.Tensor] = None,
                mesh=None) -> SGDState:
-        """One update; consumes (overwrites) `grads`.  `scale`, a 0-dim
+        """One update; consumes `grads` (a float32 trace takes over each
+        gradient's buffer) and leaves `state` as it was.  `scale`, a 0-dim
         tensor, multiplies the update -lr * t after the momentum (the
         faithful dynamic learning rate; the trace stays unscaled).  `mesh`,
         where `params` hold TP shards (parallel/tp.py): the clip's global
         norm is the unsharded model's."""
-        names = list(params)
-        g = [grads[k] if grads.get(k) is not None
-             else torch.zeros_like(params[k]) for k in names]
-        if self.grad_clip_norm > 0:
-            # optax.global_norm: the square root of the sum of squares of
-            # all leaves; the select keeps g bit-exact below the threshold,
-            # without a host synchronisation
-            squares = [torch.dot(x.reshape(-1), x.reshape(-1)) for x in g]
-            if mesh is None or mesh.model <= 1:
-                norm = torch.stack(squares).sum().sqrt()
-            else:
-                norm = tp_lib.global_sum_squares(
-                    mesh, params, dict(zip(names, squares))).sqrt()
-            keep = norm < self.grad_clip_norm
-            one = torch.ones((), dtype=norm.dtype, device=norm.device)
-            div = torch.where(keep, one, norm)
-            mul = torch.where(keep, one, one * self.grad_clip_norm)
-            for x in g:
-                x.div_(div.to(x.dtype)).mul_(mul.to(x.dtype))
-        step = -self.lr(state.count)
-        trace = {}
-        for k, x in zip(names, g):
-            p, old = params[k], state.trace[k]
-            x.add_(self.weight_decay * p)
-            # the momentum constant in the trace's dtype, as JAX types a
-            # Python scalar against an array (bf16 0.9 is 0.8984375)
-            t = x.add_(torch.tensor(self.momentum, dtype=old.dtype,
-                                    device=old.device) * old)
-            trace[k] = t.to(self.momentum_dtype)
-            u = step * t
-            if scale is not None:
-                u = u * scale.to(u.dtype)
-            p.add_(u)
+        sum_squares = None
+        if mesh is not None and mesh.model > 1:
+            sum_squares = functools.partial(tp_lib.global_sum_squares, mesh,
+                                            params)
+        trace, _ = sgd_ops.sgd_update(
+            grads, params, state.trace, self.lr(state.count), self.momentum,
+            self.weight_decay, self.grad_clip_norm, self.momentum_dtype,
+            scale, sum_squares, self.scratch)
         return SGDState(trace, state.count + 1)
 
 
